@@ -1,0 +1,678 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (uaps_tpu_torch) once on one NVIDIA GPU.
+
+    python3 chip_smoke.py          # from the repository root; one card
+
+Phases (any failure: exit 1 and no result line):
+  1. build: compile every kernel in uaps_tpu_torch/csrc with nvcc for
+     sm_90a (one nvcc per source, in parallel); print the card's name and
+     power limit as nvidia-smi reports them;
+  2. kernels: hold each CUDA kernel against its plain PyTorch twin on the
+     card at every shape of one neu predict batch (B=16), in f32 and bf16:
+     conv rtol=atol=1e-4 where the output is f32 (only the summation order
+     over <= 576 terms differs), 1e-2 for bf16 output (<= 1 bf16 ulp);
+     pool exactly, with ties, -inf, +inf and NaN in the input;
+  3. serving: unet_uaps at the neu preset in bf16 (full width, 256 x 256,
+     batch 16) from seeded weights with random BN running stats, saved as
+     a .pth and loaded through InferenceEngine.from_torch; 40 images
+     through the port server's AsyncBatcher and 2 through its HTTP front
+     on 127.0.0.1; masks must equal engine.predict on the same images, and
+     every dispatch must launch the conv kernel 9 times and the pool
+     kernel 2 times;
+  4. end to end against the plain path (the same weights with
+     conv_backend="xla"): bf16 masks agree on >= 99.5% of pixels and probs
+     to atol 2e-2; f32 masks on >= 99.99% and probs to atol 1e-4;
+  5. times: each kernel and its twin per shape (median of CUDA-event
+     timings: conv with a warm L2, pool also with the L2 flushed before
+     each call) and the host's cost per call of each; predict latency, its
+     stages, the forward and its host enqueue, for the kernel and the plain
+     engine in alternating rounds (median and range); AsyncBatcher imgs/s
+     under a burst of 320 requests; a profiler table of 3 forwards of each
+     engine (device busy time and idle share).
+It then prints {"kernels": [...]} and, last, {"ok": true, "device": ...}.
+Details go to chiprun_out/chip_smoke.json. It exits non-zero without
+CUDA, and outside the repository.
+"""
+from __future__ import annotations
+
+import dataclasses
+import io
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+import traceback
+import urllib.request
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+OUT_DIR = os.path.join(ROOT, "chiprun_out")
+SEED = 1234
+BATCH = 16
+HW = 256
+
+# one neu predict batch: (module, Cin, Cout, H=W) of the 9 kernel convs
+CONV_SHAPES = [("in_conv.0", 3, 16, 256), ("in_conv.4", 16, 16, 256),
+               ("down1.0", 16, 32, 128), ("down1.4", 32, 32, 128),
+               ("up3.0", 64, 32, 128), ("up3.4", 32, 32, 128),
+               ("up4.0", 32, 16, 256), ("up4.4", 16, 16, 256),
+               ("out_conv", 16, 4, 256)]
+# and of the 2 kernel pools: (module, C, H=W of the input)
+POOL_SHAPES = [("down1", 16, 256), ("down2", 32, 128)]
+CONV_PER_BATCH, POOL_PER_BATCH = len(CONV_SHAPES), len(POOL_SHAPES)
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+class Smoke:
+    def __init__(self, torch, dev):
+        self.torch = torch
+        self.dev = torch.device(dev)
+        self.report = {"phases": {}, "kernels": {}, "times": {}}
+        self.failures = []
+
+    # ------------------------------------------------------------ helpers
+    def phase(self, name, fn):
+        log(f"== phase {name}")
+        t0 = time.perf_counter()
+        try:
+            fn()
+            ok = True
+        except Exception:  # a failed phase is reported, the rest still run
+            traceback.print_exc()
+            self.failures.append(name)
+            ok = False
+        dt = time.perf_counter() - t0
+        self.report["phases"][name] = {"ok": ok, "seconds": dt}
+        log(f"== phase {name}: {'ok' if ok else 'FAILED'} ({dt:.1f} s)")
+        return ok
+
+    def sync(self):
+        if self.dev.type == "cuda":
+            self.torch.cuda.synchronize()
+
+    def gen(self, seed):
+        return self.torch.Generator(device=self.dev).manual_seed(seed)
+
+    def time_ms(self, fn, iters=20, rounds=5, warmup=3, cold=False,
+                lead=True):
+        """Device time of one fn() call in ms: CUDA events around `iters`
+        back-to-back calls, divided by `iters`; the median over `rounds`.
+        With `lead`, a ~2.5 ms spin kernel queued first keeps the device
+        busy while the host queues the calls, so the host's launch cost
+        (tens of µs a call) is not counted; without it, a call
+        cheaper on the device than on the host measures the host. With
+        `cold`, each of iters * rounds calls is timed alone after a 256 MiB
+        write has flushed the 50 MB L2, and the median is taken over
+        those."""
+        torch = self.torch
+        for _ in range(warmup):
+            fn()
+        times = []
+        if cold:
+            flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8,
+                                device=self.dev)
+            for _ in range(iters * rounds):
+                flush.zero_()   # still running when the events are queued
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                fn()
+                b.record()
+                b.synchronize()
+                times.append(a.elapsed_time(b))
+            return statistics.median(times)
+        for _ in range(rounds):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            if lead:
+                torch.cuda._sleep(5_000_000)   # cycles, ~2.5 ms
+            a.record()
+            for _ in range(iters):
+                fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b) / iters)
+        return statistics.median(times)
+
+    def host_us(self, fn, n=100, rounds=5):
+        """Host time to enqueue one fn() call in µs, with the device idle
+        at the start: the median over `rounds` of n back-to-back calls."""
+        for _ in range(3):
+            fn()
+        times = []
+        for _ in range(rounds):
+            self.sync()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            times.append((time.perf_counter() - t0) / n * 1e6)
+        self.sync()
+        return statistics.median(times)
+
+    # ------------------------------------------------------------ phase 1
+    def build(self):
+        from uaps_tpu_torch.kernels import _build
+        t0 = time.perf_counter()
+        logs = _build.build()
+        self.report["build_seconds"] = time.perf_counter() - t0
+        for name, text in logs.items():
+            log(f"-- nvcc {name}:\n{text.strip()}")
+        log(f"built {_build.sources()} in "
+            f"{self.report['build_seconds']:.1f} s")
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True).stdout.strip()
+        self.report["nvidia_smi"] = smi
+        log(smi)
+
+    # ------------------------------------------------------------ phase 2
+    def _conv_case(self, cin, cout, hw, dtype, out_dtype, batch, seed,
+                   hw2=None):
+        from uaps_tpu_torch.kernels import conv3x3_nchw as kc
+        torch = self.torch
+        g = self.gen(seed)
+        x = torch.randn((batch, cin, hw, hw2 or hw), generator=g,
+                        device=self.dev).to(dtype)
+        w = (torch.randn((3, 3, cin, cout), generator=g, device=self.dev)
+             / (9 * cin) ** 0.5).to(dtype)
+        y = kc.conv3x3_nchw(x, w, out_dtype)
+        self.sync()
+        ref = kc.conv3x3_nchw_plain(x, w, out_dtype)
+        self.sync()
+        tol = 1e-4 if out_dtype == torch.float32 else 1e-2
+        err = float((y.float() - ref.float()).abs().max())
+        ok = (y.shape == ref.shape and y.dtype == out_dtype
+              and bool(torch.isfinite(y).all())
+              and torch.allclose(y.float(), ref.float(), rtol=tol, atol=tol))
+        return ok, err, tol, (x, w)
+
+    def kernels(self):
+        import torch.nn.functional as F
+        from uaps_tpu_torch.kernels import conv3x3_nchw as kc
+        from uaps_tpu_torch.kernels import pool_nchw as kp
+        torch = self.torch
+        bad = []
+        conv_err = 0.0
+        for dname, dtype in (("f32", torch.float32),
+                             ("bf16", torch.bfloat16)):
+            for i, (mod, cin, cout, hw) in enumerate(CONV_SHAPES):
+                out = torch.float32 if mod == "out_conv" else dtype
+                ok, err, tol, (x, w) = self._conv_case(
+                    cin, cout, hw, dtype, out, BATCH, SEED + i)
+                conv_err = max(conv_err, err)
+                # for scale: both against an f64 conv of the same inputs
+                y64 = F.conv2d(x.double(), w.double().permute(3, 2, 0, 1),
+                               padding=1)
+                e64 = [float((f(x, w, out).double() - y64).abs().max())
+                       for f in (kc.conv3x3_nchw, kc.conv3x3_nchw_plain)]
+                log(f"conv {mod:10s} {cin:2d}->{cout:2d} @{hw} {dname}"
+                    f"->{str(out)[6:]}: max_abs_err {err:.3e} (tol {tol})"
+                    f" {'ok' if ok else 'MISMATCH'}; vs f64: kernel "
+                    f"{e64[0]:.3e}, twin {e64[1]:.3e}")
+                if not ok:
+                    bad.append(f"conv {mod} {dname}")
+        # shapes off the neu path that the kernel also takes: an odd Cout
+        # (the dagm/mtiles heads), a ragged tile edge and W % 4 != 0
+        for cin, cout, h, w in [(16, 7, 128, 128), (5, 13, 37, 70),
+                                (3, 32, 9, 131)]:
+            for dtype in (torch.float32, torch.bfloat16):
+                ok, err, tol, _ = self._conv_case(cin, cout, h, dtype, dtype,
+                                                  2, SEED + h, hw2=w)
+                log(f"conv extra {cin}->{cout} {h}x{w} {str(dtype)[6:]}: "
+                    f"max_abs_err {err:.3e} {'ok' if ok else 'MISMATCH'}")
+                if not ok:
+                    bad.append(f"conv extra {cin}->{cout} {h}x{w} {dtype}")
+        # the flat entry is the same memory and the same kernel
+        g = self.gen(SEED)
+        x = torch.randn((2, 16, 128 * 256), generator=g, device=self.dev)
+        w = torch.randn((3, 3, 16, 8), generator=g, device=self.dev)
+        flat = kc.conv3x3_fast_flat(x, w, (128, 256))
+        four = kc.conv3x3_nchw(x.view(2, 16, 128, 256), w)
+        if not torch.equal(flat.view_as(four), four):
+            bad.append("conv flat entry")
+        # the model hands over its OIHW weight as a permuted HWIO view,
+        # which the kernel reads through its strides
+        w_view = w.permute(3, 2, 0, 1).contiguous().permute(2, 3, 1, 0)
+        if (w_view.is_contiguous() or not torch.equal(
+                kc.conv3x3_nchw(x.view(2, 16, 128, 256), w_view), four)):
+            bad.append("conv strided weight view")
+        self.report["kernels"]["conv3x3_nchw"] = {"max_abs_err": conv_err}
+
+        pool_err = 0.0
+        for dname, dtype in (("f32", torch.float32),
+                             ("bf16", torch.bfloat16)):
+            for i, (mod, c, hw) in enumerate(POOL_SHAPES):
+                g = self.gen(SEED + 50 + i)
+                x = torch.round(torch.randn((BATCH, c, hw, hw), generator=g,
+                                            device=self.dev) * 2) / 2
+                x[0, 0, 0, 0] = float("-inf")          # single -inf
+                x[1, 1, 2:4, 4:6] = float("-inf")      # an all -inf window
+                x[2, 2, 5, 7] = float("inf")
+                x[3, 3, 8, 9] = float("nan")
+                x[4, 4, 10:12, 12:14] = float("nan")
+                x = x.to(dtype)
+                y = kp.max_pool_2x2_nchw(x)
+                self.sync()
+                ref = kp.max_pool_2x2_nchw_plain(x)
+                self.sync()
+                same = (y == ref) | (torch.isnan(y) & torch.isnan(ref))
+                ok = (y.shape == ref.shape and y.dtype == dtype
+                      and bool(same.all())
+                      and int(torch.isnan(y).sum()) == 2)
+                err = (0.0 if bool(same.all()) else
+                       float((y.float() - ref.float())[~same].abs().max()))
+                pool_err = max(pool_err, err)
+                log(f"pool {mod} {c}x{hw}x{hw} {dname}: exact "
+                    f"{'ok' if ok else 'MISMATCH'} (max_abs_err {err})")
+                if not ok:
+                    bad.append(f"pool {mod} {dname}")
+        self.report["kernels"]["max_pool_2x2_nchw"] = {"max_abs_err":
+                                                       pool_err}
+        if bad:
+            raise AssertionError(f"kernel mismatches: {bad}")
+
+    # ------------------------------------------------------------ phase 3
+    def _config(self, dtype, **model_kw):
+        """The neu preset as `python -m uaps_tpu_torch.server --preset neu
+        --method uaps --dtype ...` builds it, with `model_kw` on top."""
+        from uaps_tpu_torch.utils.cli import parse_args
+        cfg, _ = parse_args(["--preset", "neu", "--method", "uaps",
+                             "--dtype", dtype])
+        cfg.model = dataclasses.replace(cfg.model, **model_kw)
+        return cfg
+
+    def _write_checkpoint(self):
+        """Seeded unet_uaps weights with random BN running stats (so eval
+        BN is not the identity), saved as the reference's training dict."""
+        from uaps_tpu_torch.methods.base import build_model
+        from uaps_tpu_torch.models.unet import BatchNorm
+        torch = self.torch
+        g = torch.Generator().manual_seed(SEED)
+        model = build_model(self._config("bfloat16"), "cpu", g)
+        with torch.no_grad():
+            for m in model.modules():
+                if isinstance(m, BatchNorm):
+                    m.running_mean.normal_(0.0, 0.1, generator=g)
+                    m.running_var.uniform_(0.5, 1.5, generator=g)
+                    m.weight.uniform_(0.8, 1.2, generator=g)
+                    m.bias.normal_(0.0, 0.05, generator=g)
+        path = os.path.join(ROOT, "runs", "chip_smoke", "model.pth")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        torch.save({"state_dict": model.state_dict()}, path)
+        return path
+
+    def serving(self):
+        import numpy as np
+        from uaps_tpu_torch.kernels import conv3x3_nchw as kc
+        from uaps_tpu_torch.kernels import pool_nchw as kp
+        from uaps_tpu_torch.serve import InferenceEngine
+        from uaps_tpu_torch.server import AsyncBatcher, serve_http
+        self.pth = self._write_checkpoint()
+        self.engine = InferenceEngine.from_torch(self._config("bfloat16"),
+                                                 self.pth, device=self.dev)
+        assert self.engine.batch_size == BATCH
+        self.images = np.random.default_rng(SEED).integers(
+            0, 256, (42, HW, HW, 3), dtype=np.uint8)
+        self.engine.predict(self.images[:1])   # first call: kernel loads
+
+        engine = self.engine
+        deltas = []
+
+        class Counting:
+            """The engine as AsyncBatcher sees it, recording the kernel
+            launches of each dispatch."""
+            batch_size = engine.batch_size
+
+            def predict(self, images):
+                c0, p0 = kc.launches, kp.launches
+                out = engine.predict(images)
+                deltas.append((kc.launches - c0, kp.launches - p0,
+                               len(images)))
+                return out
+
+        batcher = AsyncBatcher(Counting(), max_wait_ms=20.0)
+        srv = serve_http(batcher, port=0, host="127.0.0.1")
+        port = srv.server_address[1]
+        try:
+            kc.launches = 0
+            kp.launches = 0
+            futs = [batcher.submit(im) for im in self.images[:40]]
+            got = [f.result(timeout=600) for f in futs]
+            http = []
+            for im in self.images[40:42]:
+                buf = io.BytesIO()
+                np.save(buf, im)
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{port}/predict", data=buf.getvalue(),
+                    method="POST")
+                with urllib.request.urlopen(req, timeout=600) as resp:
+                    http.append(np.load(io.BytesIO(resp.read())))
+            conv_n, pool_n = kc.launches, kp.launches
+            stats = batcher.stats()
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            batcher.shutdown()
+        self.launches = {"conv3x3_nchw": conv_n, "max_pool_2x2_nchw": pool_n}
+        log(f"served 40 batcher + 2 HTTP requests in {len(deltas)} "
+            f"dispatches {[d[2] for d in deltas]}; launches conv {conv_n}, "
+            f"pool {pool_n}; batcher stats {json.dumps(stats)}")
+        self.report["serving"] = {"dispatches": deltas, "stats": stats,
+                                  "launches": self.launches}
+        assert sum(d[2] for d in deltas) == 42, deltas
+        assert len(deltas) >= 3, deltas
+        for c, p, _ in deltas:
+            assert (c, p) == (CONV_PER_BATCH, POOL_PER_BATCH), deltas
+        assert conv_n == CONV_PER_BATCH * len(deltas)
+        assert pool_n == POOL_PER_BATCH * len(deltas)
+
+        masks, probs = self.engine.predict(self.images)
+        ncls = self.engine.cfg.data.num_classes
+        assert masks.shape == (42, HW, HW) and masks.dtype == np.int32
+        assert probs.shape == (42, HW, HW, ncls)
+        assert np.isfinite(probs).all()
+        assert np.abs(probs.sum(-1) - 1).max() < 1e-4
+        assert masks.min() >= 0 and masks.max() < ncls
+        got_m = np.stack([m for m, _ in got])
+        got_p = np.stack([p for _, p in got])
+        n_diff = int((got_m != masks[:40]).sum())
+        p_err = float(np.abs(got_p - probs[:40]).max())
+        h_diff = int((np.stack(http) != masks[40:]).sum())
+        shares = np.bincount(masks.ravel(), minlength=ncls) / masks.size
+        log(f"batcher vs predict: {n_diff} mask pixels differ, probs max "
+            f"abs diff {p_err:.3e}; HTTP vs predict: {h_diff} differ; "
+            f"class shares {shares}")
+        assert n_diff == 0 and h_diff == 0 and p_err <= 1e-5
+        self.masks, self.probs = masks, probs
+
+    # ------------------------------------------------------------ phase 4
+    def end_to_end(self):
+        import numpy as np
+        from uaps_tpu_torch.kernels import conv3x3_nchw as kc
+        from uaps_tpu_torch.kernels import pool_nchw as kp
+        from uaps_tpu_torch.serve import InferenceEngine
+        imgs = self.images[:32]
+        self.plain = {}
+        res = {}
+        for dtype, min_agree, atol in (("bfloat16", 0.995, 2e-2),
+                                       ("float32", 0.9999, 1e-4)):
+            kern = (self.engine if dtype == "bfloat16" else
+                    InferenceEngine.from_torch(self._config(dtype),
+                                               self.pth, device=self.dev))
+            plain = InferenceEngine.from_torch(
+                self._config(dtype, conv_backend="xla"), self.pth,
+                device=self.dev)
+            self.plain[dtype] = plain
+            c0, p0 = kc.launches, kp.launches
+            pm, pp = plain.predict(imgs)
+            assert (kc.launches, kp.launches) == (c0, p0), \
+                "the plain path launched a kernel"
+            km, kpr = kern.predict(imgs)
+            agree = float((km == pm).mean())
+            err = float(np.abs(kpr - pp).max())
+            res[dtype] = {"mask_agree": agree, "probs_max_abs_diff": err}
+            ok = agree >= min_agree and err <= atol
+            log(f"e2e {dtype}: kernel vs plain masks agree {agree:.6f} "
+                f"(min {min_agree}), probs max abs diff {err:.3e} "
+                f"(atol {atol}) {'ok' if ok else 'MISMATCH'}")
+            assert ok, res[dtype]
+        self.report["end_to_end"] = res
+
+    # ------------------------------------------------------------ phase 5
+    def times(self):
+        import torch.nn.functional as F
+        from uaps_tpu_torch.kernels import conv3x3_nchw as kc
+        from uaps_tpu_torch.kernels import pool_nchw as kp
+        from uaps_tpu_torch.server import AsyncBatcher
+        torch = self.torch
+        t = self.report["times"]
+        conv_rows, pool_rows = [], []
+        for dname, dtype in (("bf16", torch.bfloat16),
+                             ("f32", torch.float32)):
+            for i, (mod, cin, cout, hw) in enumerate(CONV_SHAPES):
+                out = torch.float32 if mod == "out_conv" else dtype
+                _, _, _, (x, w) = self._conv_case(cin, cout, hw, dtype, out,
+                                                  BATCH, SEED + i)
+                w_oihw = w.permute(3, 2, 0, 1).contiguous()
+                row = {"module": mod, "cin": cin, "cout": cout, "hw": hw,
+                       "dtype": dname,
+                       "ms": self.time_ms(
+                           lambda: kc.conv3x3_nchw(x, w, out)),
+                       "plain_ms": self.time_ms(
+                           lambda: kc.conv3x3_nchw_plain(x, w, out)),
+                       # cuDNN in the working dtype, for scale
+                       "cudnn_ms": self.time_ms(
+                           lambda: F.conv2d(x, w_oihw, padding=1)),
+                       # host cost per call: the kernel's wrapper, given
+                       # the model's permuted weight view, against cuDNN
+                       "host_us": self.host_us(lambda: kc.conv3x3_nchw(
+                           x, w_oihw.permute(2, 3, 1, 0), out)),
+                       "cudnn_host_us": self.host_us(
+                           lambda: F.conv2d(x, w_oihw, padding=1))}
+                flops = 2 * BATCH * hw * hw * cin * cout * 9
+                row["kernel_tflops"] = flops / row["ms"] / 1e9
+                conv_rows.append(row)
+                log(f"time conv {mod:10s} {cin:2d}->{cout:2d} @{hw} {dname}:"
+                    f" kernel {row['ms']:.4f} ms ({row['kernel_tflops']:.2f}"
+                    f" TFLOP/s), twin {row['plain_ms']:.4f} ms, cuDNN "
+                    f"{row['cudnn_ms']:.4f} ms; host per call: kernel "
+                    f"{row['host_us']:.1f} µs, cuDNN "
+                    f"{row['cudnn_host_us']:.1f} µs")
+            for mod, c, hw in POOL_SHAPES:
+                x = torch.randn((BATCH, c, hw, hw), device=self.dev).to(dtype)
+                kern = lambda: kp.max_pool_2x2_nchw(x)   # noqa: E731
+                twin = lambda: kp.max_pool_2x2_nchw_plain(x)   # noqa: E731
+                # cold: from HBM, as the bandwidth figure assumes; warm:
+                # the input (17-34 MB) sits in the 50 MB L2
+                row = {"module": mod, "c": c, "hw": hw, "dtype": dname,
+                       "ms": self.time_ms(kern, cold=True),
+                       "plain_ms": self.time_ms(twin, cold=True),
+                       "warm_ms": self.time_ms(kern),
+                       "warm_plain_ms": self.time_ms(twin),
+                       "host_us": self.host_us(kern),
+                       "plain_host_us": self.host_us(twin)}
+                nbytes = x.numel() * x.element_size() * 5 / 4
+                row["kernel_gbps"] = nbytes / row["ms"] / 1e6
+                pool_rows.append(row)
+                log(f"time pool {mod} {c}x{hw}x{hw} {dname}: L2 flushed: "
+                    f"kernel {row['ms']:.4f} ms ({row['kernel_gbps']:.0f} "
+                    f"GB/s from HBM), twin {row['plain_ms']:.4f} ms; warm "
+                    f"L2: kernel {row['warm_ms']:.4f} ms, twin "
+                    f"{row['warm_plain_ms']:.4f} ms; host per call: kernel "
+                    f"{row['host_us']:.1f} µs, twin "
+                    f"{row['plain_host_us']:.1f} µs")
+        t["conv"], t["pool"] = conv_rows, pool_rows
+        for name, rows in (("conv3x3_nchw", conv_rows),
+                           ("max_pool_2x2_nchw", pool_rows)):
+            main = [r for r in rows if r["dtype"] == "bf16"]
+            self.report["kernels"][name].update(
+                ms=sum(r["ms"] for r in main),
+                plain_ms=sum(r["plain_ms"] for r in main))
+
+        self.predict_rounds(t)
+        t["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        # a burst: every request submitted at once, so the latencies in
+        # `stats` are mostly queueing behind the burst, not a line camera's
+        batcher = AsyncBatcher(self.engine, max_wait_ms=5.0)
+        try:
+            n = 320
+            t0 = time.perf_counter()
+            futs = [batcher.submit(self.images[i % 42]) for i in range(n)]
+            for f in futs:
+                f.result(timeout=600)
+            dt = time.perf_counter() - t0
+            stats = batcher.stats()
+        finally:
+            batcher.shutdown()
+        t["burst_imgs_per_s"] = n / dt
+        t["burst_batcher_stats"] = stats
+        log(f"time AsyncBatcher, burst: {n} requests at once in "
+            f"{dt:.3f} s = {n / dt:.1f} imgs/s; {json.dumps(stats)}")
+
+        self.profile(self.x_dev)
+
+    def _stages(self, eng, batch):
+        """One predict of `batch` (exactly one micro-batch) cut into its
+        stages on the host clock, with a sync after each device stage."""
+        import numpy as np
+        torch = self.torch
+        t0 = time.perf_counter()
+        x = eng._normalize(batch)
+        t1 = time.perf_counter()
+        x_dev = torch.from_numpy(np.ascontiguousarray(x)).to(self.dev)
+        self.sync()
+        t2 = time.perf_counter()
+        m, p = eng.predict_device(x_dev)
+        self.sync()
+        t3 = time.perf_counter()
+        m.cpu().numpy(), p.cpu().numpy()
+        t4 = time.perf_counter()
+        return {"normalize": t1 - t0, "h2d": t2 - t1, "forward_sync": t3 - t2,
+                "d2h": t4 - t3}
+
+    def predict_rounds(self, t, rounds=10, reps=5):
+        """Kernel and plain bf16 engines in alternating rounds (K P, P K,
+        ...), so that drift in the host's or the card's speed falls on both.
+        Per round and engine: the median of `reps` predict calls (host
+        clock, numpy in and out), the forward (CUDA events over 10 back to
+        back on device tensors: the steady rate, host-bound where the
+        host's enqueue outlasts the device's work), the host's enqueue of
+        one forward, and the predict's stages. Reported: median, min and max over the rounds."""
+        torch = self.torch
+        batch = self.images[:BATCH]
+        x_dev = torch.from_numpy(self.engine._normalize(batch)).to(self.dev)
+        engines = {"kernel": self.engine, "plain": self.plain["bfloat16"]}
+        keys = ("predict", "forward", "enqueue", "normalize", "h2d",
+                "forward_sync", "d2h")
+        got = {lab: {k: [] for k in keys} for lab in engines}
+        for eng in engines.values():
+            eng.predict(batch)
+        for r in range(rounds):
+            for lab in (("kernel", "plain") if r % 2 == 0
+                        else ("plain", "kernel")):
+                eng, g = engines[lab], got[lab]
+                lat = []
+                for _ in range(reps):
+                    t0 = time.perf_counter()
+                    eng.predict(batch)
+                    lat.append((time.perf_counter() - t0) * 1e3)
+                g["predict"].append(statistics.median(lat))
+                g["forward"].append(self.time_ms(
+                    lambda: eng.predict_device(x_dev), iters=10, rounds=1,
+                    warmup=1, lead=False))
+                enq = []
+                for _ in range(reps):
+                    self.sync()
+                    t0 = time.perf_counter()
+                    eng.predict_device(x_dev)
+                    enq.append((time.perf_counter() - t0) * 1e3)
+                g["enqueue"].append(statistics.median(enq))
+                st = [self._stages(eng, batch) for _ in range(reps)]
+                for k in st[0]:
+                    g[k].append(statistics.median(s[k] for s in st) * 1e3)
+        for lab, g in got.items():
+            summ = {k: {"median": statistics.median(v), "min": min(v),
+                        "max": max(v)} for k, v in g.items()}
+            t[f"e2e_{lab}"] = {"rounds": g, "summary": summ}
+            log(f"time bf16 B={BATCH} {lab} engine, {rounds} alternating "
+                f"rounds, median [min, max] ms: " + "; ".join(
+                    f"{k} {s['median']:.3f} [{s['min']:.3f}, "
+                    f"{s['max']:.3f}]" for k, s in summ.items()))
+        self.x_dev = x_dev
+
+    def profile(self, x_dev):
+        """Device time by kernel over 3 forwards of each bf16 engine. Best
+        effort: the profiler is a measurement aid, and its failure fails no
+        phase."""
+        from torch.profiler import ProfilerActivity, profile
+        cuda = self.torch.autograd.DeviceType.CUDA
+        t = self.report["times"]
+        os.makedirs(OUT_DIR, exist_ok=True)
+        for lab, eng in (("kernel", self.engine),
+                         ("plain", self.plain["bfloat16"])):
+            try:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    for _ in range(3):
+                        eng.predict_device(x_dev)
+                    self.sync()
+                events = prof.key_averages()
+                table = events.table(sort_by="cuda_time_total",
+                                     row_limit=25)
+            except RuntimeError as exc:
+                log(f"profiler unavailable: {exc}")
+                return
+            # the kernels' own rows (operator rows repeat their kernels' time)
+            busy_ms = sum(e.self_device_time_total for e in events
+                          if e.device_type == cuda) / 3 / 1e3
+            fwd = t[f"e2e_{lab}"]["summary"]["forward"]["median"]
+            t[f"device_busy_ms_per_forward_{lab}"] = busy_ms
+            t[f"device_idle_share_{lab}"] = 1.0 - busy_ms / fwd
+            log(f"device busy {busy_ms:.3f} ms per bf16 forward of the {lab}"
+                f" engine (profiler) of {fwd:.3f} ms (CUDA events, median): "
+                f"idle share {t[f'device_idle_share_{lab}']:.3f}")
+            name = f"chip_smoke_profile_{lab}.txt"
+            with open(os.path.join(OUT_DIR, name), "w") as f:
+                f.write(table)
+            if lab == "kernel":
+                log(f"profile of 3 bf16 forwards (B=16) of the {lab} engine, "
+                    f"by device time (the plain engine's: chiprun_out/"
+                    f"chip_smoke_profile_plain.txt):\n" + table)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script runs only on "
+              "a GPU", file=sys.stderr)
+        return 2
+    try:
+        import uaps_tpu_torch  # noqa: F401
+    except ImportError as exc:
+        print(f"chip_smoke: run it from the repository root ({exc})",
+              file=sys.stderr)
+        return 2
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    s = Smoke(torch, "cuda:0")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)}")
+    if s.phase("1 build", s.build):
+        s.phase("2 kernels vs twins", s.kernels)
+        if s.phase("3 serving", s.serving):
+            if s.phase("4 end to end vs plain", s.end_to_end):
+                s.phase("5 times", s.times)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
+        json.dump(s.report, f, indent=1, default=str)
+    if s.failures:
+        print(f"chip_smoke: FAILED phases {s.failures}", file=sys.stderr)
+        return 1
+    kernels = [
+        {"name": name, "route": "cuda",
+         "source": f"uaps_tpu_torch/csrc/{src}.cu", "replaces": replaces,
+         "launches": s.launches[name],
+         "max_abs_err": s.report["kernels"][name]["max_abs_err"],
+         "ms": s.report["kernels"][name]["ms"],
+         "plain_ms": s.report["kernels"][name]["plain_ms"]}
+        for name, src, replaces in (
+            ("conv3x3_nchw", "conv3x3_nchw",
+             "uaps_tpu/pallas/conv3x3_nchw.py:289"),
+            ("max_pool_2x2_nchw", "pool_nchw",
+             "uaps_tpu/pallas/pool_nchw.py:138"))]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,375 @@
+"""U-Net building blocks and the multi-decoder family, eval forward, NCHW.
+
+Counterpart of `uaps_tpu/models/unet.py`. Module names follow the reference
+torch code (`conv_conv.{0,1,4,5}`, `maxpool_conv.1`, `conv1x1`, `out_conv`),
+so state dicts from `uaps_tpu.utils.torch_import.export_state_dict` and
+reference `.pth` files load with `strict=True`.
+
+Matching the JAX model:
+  * activations are NCHW at every level; the models take NHWC images and
+    return NHWC logits, as the JAX models do;
+  * parameters stay f32 and are cast to the compute dtype on the fly;
+    ConvBlock convs output the compute dtype with the bias added in it, the
+    logits head outputs f32 logits, eval BN normalises in f32 and casts back
+    (flax `nn.BatchNorm` with `dtype=bf16`);
+  * UpBlock is conv1x1 then bilinear x2 with align_corners=True (as two
+    interpolation matmuls), then concat [skip, up]; LeakyReLU slope 0.01,
+    BN eps 1e-5;
+  * kernel dispatch mirrors the JAX gates: a 3x3 conv runs the CUDA conv
+    (kernels/conv3x3_nchw.py) where its level is < nchw_levels, conv_backend
+    != "xla" and the shape gate holds (H, W >= 128, H % 8 == 0,
+    W % 128 == 0, Cout <= 32, Cin <= 64); a 2x2 pool whose input level is
+    < nchw_levels runs the CUDA pool where `pool_pallas_ok` holds and the
+    backends allow it. Every Pallas variant name maps to the one CUDA conv;
+    "xla" means plain torch. On CPU tensors the kernel wrappers run their
+    plain twins.
+
+Training (BN batch statistics, dropout, the perturbed aux decoders) comes
+with the training slice; until then those paths raise NotImplementedError.
+"""
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from uaps_tpu_torch.kernels.conv3x3_nchw import conv3x3_nchw, conv_kernel_ok
+from uaps_tpu_torch.kernels.pool_nchw import (max_pool_2x2_nchw,
+                                              pool_pallas_ok)
+
+# Reference channel/dropout schedule (UAPS_unet.py:192-197)
+UNET_FEATURES: Tuple[int, ...] = (16, 32, 64, 128, 256)
+UNET_DROPOUT: Tuple[float, ...] = (0.05, 0.1, 0.2, 0.3, 0.5)
+
+_TRAIN_ROW = "ROADMAP.md Queue A item 3 (train-mode forward)"
+
+
+class Conv3x3(nn.Module):
+    """3x3 SAME conv. weight [Cout, Cin, 3, 3] (torch layout) + bias.
+
+    Casts x and the weight to `dtype`; `out_dtype` (the f32 logits head)
+    takes the f32 accumulator straight out of the kernel. `kernel=True`
+    allows the CUDA conv where the shape gate holds."""
+
+    def __init__(self, cin: int, cout: int, dtype: torch.dtype,
+                 out_dtype: Optional[torch.dtype] = None,
+                 kernel: bool = False):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(cout, cin, 3, 3))
+        self.bias = nn.Parameter(torch.zeros(cout))
+        self.dtype = dtype
+        self.out_dtype = out_dtype or dtype
+        self.kernel = kernel
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
+        w = self.weight.to(self.dtype)
+        cout, cin = w.shape[:2]
+        if self.kernel and conv_kernel_ok(x.shape[2], x.shape[3], cin, cout):
+            y = conv3x3_nchw(x, w.permute(2, 3, 1, 0), self.out_dtype)
+        else:
+            # the JAX fallback: a plain conv in the wider of the two dtypes
+            y = F.conv2d(x.to(self.out_dtype), w.to(self.out_dtype),
+                         padding=1)
+        return y + self.bias.to(y.dtype)[:, None, None]
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """Eval BN as flax computes it: (x - mean) * rsqrt(var + eps) * scale
+    + bias in f32, cast to the compute dtype. The buffers and parameters
+    are nn.BatchNorm2d's, so state dicts load unchanged."""
+
+    def __init__(self, c: int, dtype: torch.dtype):
+        super().__init__(c, eps=1e-5, momentum=0.1)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError(
+                f"train-mode BatchNorm comes with {_TRAIN_ROW}")
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        y = ((x.float() - self.running_mean[:, None, None])
+             * mul[:, None, None] + self.bias[:, None, None])
+        return y.to(self.dtype)
+
+
+class ConvBlock(nn.Module):
+    """Conv3x3-BN-LeakyReLU, Dropout, Conv3x3-BN-LeakyReLU
+    (UAPS_unet.py:31-47)."""
+
+    def __init__(self, cin: int, cout: int, dropout: float,
+                 dtype: torch.dtype, kernel: bool):
+        super().__init__()
+        self.conv_conv = nn.Sequential(
+            Conv3x3(cin, cout, dtype, kernel=kernel), BatchNorm(cout, dtype),
+            nn.LeakyReLU(0.01), nn.Dropout(dropout),
+            Conv3x3(cout, cout, dtype, kernel=kernel), BatchNorm(cout, dtype),
+            nn.LeakyReLU(0.01))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv_conv(x)
+
+
+def max_pool_2x2(x: torch.Tensor, kernel: bool) -> torch.Tensor:
+    """2x2/stride-2 max pool: the CUDA pool where `kernel` and the JAX shape
+    gate allow it, plain torch elsewhere."""
+    if kernel and pool_pallas_ok(x):
+        return max_pool_2x2_nchw(x)
+    return F.max_pool2d(x, 2)
+
+
+class MaxPool2x2(nn.Module):
+    def __init__(self, kernel: bool):
+        super().__init__()
+        self.kernel = kernel
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return max_pool_2x2(x, self.kernel)
+
+
+class DownBlock(nn.Module):
+    """2x2 max-pool then ConvBlock (UAPS_unet.py:50-62)."""
+
+    def __init__(self, cin: int, cout: int, dropout: float,
+                 dtype: torch.dtype, pool_kernel: bool, conv_kernel: bool):
+        super().__init__()
+        self.maxpool_conv = nn.Sequential(
+            MaxPool2x2(pool_kernel),
+            ConvBlock(cin, cout, dropout, dtype, conv_kernel))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.maxpool_conv(x)
+
+
+def _align_corners_weights(n_in: int, n_out: int, device) -> torch.Tensor:
+    """[n_out, n_in] f32 linear-interpolation matrix with torch
+    align_corners=True semantics (output i samples input
+    i*(n_in-1)/(n_out-1)), built on `device`."""
+    if n_in == 1:
+        return torch.ones((n_out, 1), device=device)
+    pos = (torch.arange(n_out, device=device, dtype=torch.float64)
+           * ((n_in - 1) / (n_out - 1)))
+    lo = torch.floor(pos).long()
+    hi = torch.clamp(lo + 1, max=n_in - 1)
+    frac = (pos - lo).float()
+    rows = torch.arange(n_out, device=device)
+    w = torch.zeros((n_out, n_in), device=device)
+    w.index_put_((rows, lo), 1.0 - frac, accumulate=True)
+    w.index_put_((rows, hi), frac, accumulate=True)
+    return w
+
+
+def upsample2x_align_corners(x: torch.Tensor, mats=None) -> torch.Tensor:
+    """2x bilinear upsample of NCHW x matching torch
+    nn.Upsample(align_corners=True), as the JAX package computes it: two
+    interpolation matmuls with the weights in x's dtype. `mats` = (wh,
+    ww.T) from `_upsample_mats` skips rebuilding them."""
+    wh, wwt = mats or _upsample_mats(x)
+    return torch.matmul(torch.matmul(wh, x), wwt)
+
+
+def _upsample_mats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    h, w = x.shape[2:]
+    wh = _align_corners_weights(h, 2 * h, x.device).to(x.dtype)
+    ww = _align_corners_weights(w, 2 * w, x.device).to(x.dtype)
+    return wh, ww.t().contiguous()
+
+
+class PointwiseConv(nn.Module):
+    """1x1 conv, weight [Cout, Cin, 1, 1] + bias, in the compute dtype."""
+
+    def __init__(self, cin: int, cout: int, dtype: torch.dtype):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(cout, cin, 1, 1))
+        self.bias = nn.Parameter(torch.zeros(cout))
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k = self.weight[:, :, 0, 0].to(self.dtype)
+        y = torch.einsum("bchw,dc->bdhw", x.to(self.dtype), k)
+        return y + self.bias.to(y.dtype)[:, None, None]
+
+
+class UpBlock(nn.Module):
+    """conv1x1, bilinear x2 (align_corners), concat [skip, up], ConvBlock
+    (UAPS_unet.py:65-86; the reference's default bilinear=True path)."""
+
+    def __init__(self, cin: int, skip: int, cout: int, dtype: torch.dtype,
+                 conv_kernel: bool):
+        super().__init__()
+        self.conv1x1 = PointwiseConv(cin, skip, dtype)
+        self.conv = ConvBlock(2 * skip, cout, 0.0, dtype, conv_kernel)
+        # interpolation matrices by (h, w, dtype, device): built on the
+        # device once instead of in every forward (a dozen small launches)
+        self._mats = {}
+
+    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        x = self.conv1x1(x)
+        key = (*x.shape[2:], x.dtype, x.device)
+        if key not in self._mats:
+            with torch.inference_mode(False):   # usable outside it later
+                self._mats[key] = _upsample_mats(x)
+        x = upsample2x_align_corners(x, self._mats[key])
+        return self.conv(torch.cat([skip, x], dim=1))
+
+
+class Encoder(nn.Module):
+    """5-stage encoder returning every skip feature (UAPS_unet.py:89-116).
+    Level i runs the CUDA conv when i < nchw_levels (and the backend
+    allows); the pool into level i runs the CUDA pool when its input
+    level i-1 < nchw_levels."""
+
+    def __init__(self, in_chns: int, features: Sequence[int],
+                 dropout: Sequence[float], dtype: torch.dtype,
+                 nchw_levels: int, conv_kernel: bool, pool_kernel: bool):
+        super().__init__()
+        ft, dp = features, dropout
+        self.in_conv = ConvBlock(in_chns, ft[0], dp[0], dtype,
+                                 conv_kernel and 0 < nchw_levels)
+        for i in range(1, 5):
+            self.add_module(f"down{i}", DownBlock(
+                ft[i - 1], ft[i], dp[i], dtype,
+                pool_kernel and i - 1 < nchw_levels,
+                conv_kernel and i < nchw_levels))
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        feats = [self.in_conv(x)]
+        for i in range(1, 5):
+            feats.append(getattr(self, f"down{i}")(feats[-1]))
+        return feats
+
+
+class Decoder(nn.Module):
+    """4 up-stages + 3x3 logits head (UAPS_unet.py:119-153); returns NCHW
+    f32 logits. The head runs the CUDA conv (compute-dtype inputs, f32
+    out) when level 0 is NCHW and head_variant != "xla"; otherwise it is
+    the JAX `nn.Conv(dtype=f32)`: an f32 conv with f32 weights."""
+
+    def __init__(self, num_classes: int, features: Sequence[int],
+                 dtype: torch.dtype, nchw_levels: int, conv_kernel: bool,
+                 head_variant: str):
+        super().__init__()
+        ft = features
+        for j in range(4):
+            lvl = 3 - j
+            self.add_module(f"up{j + 1}", UpBlock(
+                ft[lvl + 1], ft[lvl], ft[lvl], dtype,
+                conv_kernel and lvl < nchw_levels))
+        if nchw_levels > 0 and head_variant != "xla":
+            self.out_conv = Conv3x3(ft[0], num_classes, dtype,
+                                    out_dtype=torch.float32,
+                                    kernel=conv_kernel)
+        else:
+            self.out_conv = Conv3x3(ft[0], num_classes, torch.float32)
+
+    def forward(self, feats: Sequence[torch.Tensor]) -> torch.Tensor:
+        x0, x1, x2, x3, x4 = feats
+        x = x4
+        for j, skip in enumerate((x3, x2, x1, x0)):
+            x = getattr(self, f"up{j + 1}")(x, skip)
+        return self.out_conv(x)
+
+
+def _kernel_flags(conv_backend: str, pool_backend: str,
+                  bn_backend: str) -> Tuple[bool, bool]:
+    """(conv kernel allowed, pool kernel allowed) for the model knobs;
+    raises for the ablation backends this slice does not port."""
+    if conv_backend in ("fused", "chain"):
+        row = {"fused": "Queue B #13 (pallas/conv_bnl.py)",
+               "chain": "Queue B #14 (pallas/block_conv.py)"}[conv_backend]
+        raise NotImplementedError(
+            f"conv_backend={conv_backend!r} is not ported yet: ROADMAP.md "
+            f"{row}")
+    if bn_backend == "flat":
+        raise NotImplementedError(
+            "bn_backend='flat' (the bn_stats ablation) is not ported yet: "
+            "ROADMAP.md Queue A item 10")
+    conv_k = conv_backend != "xla"
+    pool_k = conv_k and pool_backend in ("auto", "pallas")
+    return conv_k, pool_k
+
+
+def _to_nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2).contiguous()
+
+
+def _to_nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1).contiguous()
+
+
+class UNet(nn.Module):
+    """Plain single-decoder U-Net (UAPS_unet.py:188-205). NHWC in, NHWC
+    f32 logits out."""
+
+    def __init__(self, num_classes: int, in_chns: int = 3,
+                 dtype: torch.dtype = torch.float32, nchw_levels: int = 0,
+                 conv_backend: str = "auto", head_variant: str = "taps",
+                 pool_backend: str = "auto", bn_backend: str = "auto",
+                 features: Sequence[int] = UNET_FEATURES,
+                 dropout: Sequence[float] = UNET_DROPOUT):
+        super().__init__()
+        conv_k, pool_k = _kernel_flags(conv_backend, pool_backend,
+                                       bn_backend)
+        self.encoder = Encoder(in_chns, features, dropout, dtype,
+                               nchw_levels, conv_k, pool_k)
+        self.decoder = Decoder(num_classes, features, dtype, nchw_levels,
+                               conv_k, head_variant)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _to_nhwc(self.decoder(self.encoder(_to_nchw(x))))
+
+
+class MultiDecoderUNet(nn.Module):
+    """Shared encoder + main decoder + N auxiliary decoders (UNet_UAPS /
+    UNet_CCT / UNet_UCC / UNet_CCPS). The aux decoders are held so that
+    checkpoints load whole; serving runs `main_only`."""
+
+    def __init__(self, num_classes: int,
+                 perturbations: Tuple[str, ...] = (
+                     "feature_noise", "dropout", "feature_dropout"),
+                 in_chns: int = 3, dtype: torch.dtype = torch.float32,
+                 nchw_levels: int = 0, conv_backend: str = "auto",
+                 head_variant: str = "taps", pool_backend: str = "auto",
+                 bn_backend: str = "auto", packed_heads: bool = False,
+                 features: Sequence[int] = UNET_FEATURES,
+                 dropout: Sequence[float] = UNET_DROPOUT):
+        super().__init__()
+        if packed_heads:
+            raise NotImplementedError(
+                "packed_heads is not ported yet: ROADMAP.md Queue A item 10")
+        conv_k, pool_k = _kernel_flags(conv_backend, pool_backend,
+                                       bn_backend)
+        self.perturbations = tuple(perturbations)
+        self.encoder = Encoder(in_chns, features, dropout, dtype,
+                               nchw_levels, conv_k, pool_k)
+
+        def decoder():
+            return Decoder(num_classes, features, dtype, nchw_levels,
+                           conv_k, head_variant)
+
+        self.main_decoder = decoder()
+        for i in range(len(self.perturbations)):
+            self.add_module(f"aux_decoder{i + 1}", decoder())
+
+    def forward(self, x: torch.Tensor):
+        raise NotImplementedError(
+            "the perturbed multi-decoder forward comes with the training "
+            "slice (ROADMAP.md Queue A items 2-3, Queue B #8-#9); serving "
+            "uses main_only")
+
+    def main_only(self, x: torch.Tensor) -> torch.Tensor:
+        """Encoder + main decoder only: the eval/serving path."""
+        return _to_nhwc(self.main_decoder(self.encoder(_to_nchw(x))))
+
+
+def lecun_normal_(t: torch.Tensor, generator: torch.Generator) -> None:
+    """flax `lecun_normal` on a torch conv weight [Cout, Cin, kh, kw]:
+    truncated normal in [-2, 2] std with std = sqrt(1/fan_in) / 0.8796..."""
+    fan_in = t.shape[1] * math.prod(t.shape[2:])
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
+                              generator=generator)

@@ -1,0 +1,105 @@
+"""Batched inference engine: the port's `uaps_tpu/serve.py`.
+
+    engine = InferenceEngine.from_torch(cfg, "model.pth", device="cuda")
+    masks, probs = engine.predict(images_u8)   # numpy in, numpy out
+
+`predict` keeps the JAX contract (serve.py:142-169): uint8 NHWC images are
+normalised with `uaps_tpu.native.normalize_batch` (float input is taken as
+already normalised), cut into micro-batches of `batch_size` with the last
+one padded by repeating its last image, run through the main decoder,
+softmaxed in f32 and argmaxed; it returns int32 masks [N, H, W] and f32
+probs [N, H, W, C]. For concurrent traffic, `uaps_tpu_torch.server` puts
+`uaps_tpu.server.AsyncBatcher` and its HTTP front in front of this engine.
+
+Weights come from a `.pth` (a reference checkpoint, or JAX weights written
+by `uaps_tpu.utils.torch_import.save_pth`) or from a state dict.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from uaps_tpu_torch.methods.base import build_model, resolve_device
+from uaps_tpu_torch.utils.weights import load_pth, load_state_dict
+
+
+class InferenceEngine:
+    """Fixed-batch predictor over the main decoder, with the padding
+    micro-batcher."""
+
+    def __init__(self, cfg, ckpt: Optional[str] = None,
+                 state_dict: Optional[dict] = None,
+                 batch_size: Optional[int] = None, device="cuda",
+                 tta: bool = False):
+        if tta:
+            raise NotImplementedError(
+                "test-time augmentation is not ported yet: ROADMAP.md "
+                "Queue A item 10 (ops/tta.py)")
+        if (ckpt is None) == (state_dict is None):
+            raise ValueError("pass exactly one of ckpt (.pth path) and "
+                             "state_dict")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.batch_size = batch_size or cfg.data.batch_size
+        model = build_model(cfg, "cpu")
+        if ckpt is not None:
+            load_pth(model, ckpt)
+        else:
+            load_state_dict(model, state_dict)
+        self.model = model.to(self.device).eval()
+        self._forward = getattr(self.model, "main_only", self.model)
+
+    @classmethod
+    def from_torch(cls, cfg, pth_path: str, **kw) -> "InferenceEngine":
+        """Serve a reference (or `save_pth`) .pth checkpoint."""
+        return cls(cfg, ckpt=pth_path, **kw)
+
+    def export(self, path: str) -> None:
+        raise NotImplementedError(
+            "export is not ported yet: ROADMAP.md Queue A item 8")
+
+    def uncertainty(self, images: np.ndarray) -> np.ndarray:
+        raise NotImplementedError(
+            "uncertainty() needs the perturbed aux decoders: ROADMAP.md "
+            "Queue A item 8 after Queue B #8 (perturbation kernels)")
+
+    # ------------------------------------------------------------------
+    def _normalize(self, images: np.ndarray) -> np.ndarray:
+        if images.dtype == np.uint8:
+            from uaps_tpu import native
+            return native.normalize_batch(images, self.cfg.data.mean,
+                                          self.cfg.data.std)
+        return images.astype(np.float32)
+
+    def _microbatches(self, x: np.ndarray):
+        bs = self.batch_size
+        for i in range(0, x.shape[0], bs):
+            chunk = x[i:i + bs]
+            pad = bs - chunk.shape[0]
+            if pad:
+                chunk = np.concatenate(
+                    [chunk, np.repeat(chunk[-1:], pad, axis=0)])
+            yield chunk, bs - pad
+
+    def predict_device(self, x: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One normalised NHWC batch already on the device -> (masks int32
+        [B, H, W], probs f32 [B, H, W, C]) on the device."""
+        with torch.inference_mode():
+            probs = torch.softmax(self._forward(x).float(), dim=-1)
+            return torch.argmax(probs, dim=-1).to(torch.int32), probs
+
+    def predict(self, images: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """images [N,H,W,C] uint8 or normalized float32 ->
+        (masks [N,H,W] int32, probs [N,H,W,C] float32)."""
+        x = self._normalize(images)
+        masks, probs = [], []
+        for chunk, n in self._microbatches(x):
+            m, p = self.predict_device(
+                torch.from_numpy(np.ascontiguousarray(chunk)).to(
+                    self.device))
+            masks.append(m[:n].cpu().numpy())
+            probs.append(p[:n].cpu().numpy())
+        return np.concatenate(masks), np.concatenate(probs)
