@@ -7,11 +7,11 @@ Phases (any failure: exit 1 and no result line):
   1. build: compile every kernel in uaps_tpu_torch/csrc with nvcc for
      sm_90a (one nvcc per source, in parallel); print the card's name and
      power limit as nvidia-smi reports them;
-  2. kernels: hold each CUDA kernel against its plain PyTorch twin on the
-     card at every shape of one neu predict batch (B=16), in f32 and bf16:
-     conv rtol=atol=1e-4 where the output is f32 (only the summation order
-     over <= 576 terms differs), 1e-2 for bf16 output (<= 1 bf16 ulp);
-     pool exactly, with ties, -inf, +inf and NaN in the input;
+  2. kernels: hold the conv and pool forward kernels against their plain
+     PyTorch versions on the card at every shape of one neu predict batch
+     (B=16), in f32 and bf16: conv rtol=atol=1e-4 where the output is f32
+     (only the summation order over <= 576 terms differs), 1e-2 for bf16
+     output (<= 1 bf16 ulp); pool exactly, with ties, -inf, +inf and NaN;
   3. serving: unet_uaps at the neu preset in bf16 (full width, 256 x 256,
      batch 16) from seeded weights with random BN running stats, saved as
      a .pth and loaded through InferenceEngine.from_torch; 40 images
@@ -22,16 +22,33 @@ Phases (any failure: exit 1 and no result line):
   4. end to end against the plain path (the same weights with
      conv_backend="xla"): bf16 masks agree on >= 99.5% of pixels and probs
      to atol 2e-2; f32 masks on >= 99.99% and probs to atol 1e-4;
-  5. times: each kernel and its twin per shape (median of CUDA-event
-     timings: conv with a warm L2, pool also with the L2 flushed before
-     each call) and the host's cost per call of each; predict latency, its
-     stages, the forward and its host enqueue, for the kernel and the plain
-     engine in alternating rounds (median and range); AsyncBatcher imgs/s
-     under a burst of 320 requests; a profiler table of 3 forwards of each
-     engine (device busy time and idle share).
-It then prints {"kernels": [...]} and, last, {"ok": true, "device": ...}.
-Details go to chiprun_out/chip_smoke.json. It exits non-zero without
-CUDA, and outside the repository.
+  5. serving times: each forward kernel and its plain version per shape
+     (median of CUDA-event timings: conv with a warm L2, pool also with
+     the L2 flushed before each call) and the host's cost per call; predict
+     latency, its stages, the forward and its host enqueue, for the kernel
+     and the plain engine in alternating rounds (median and range);
+     AsyncBatcher imgs/s under a burst of 320 requests; a profiler table of
+     3 forwards of each engine (device busy time and idle share);
+  6. training kernels: dgrad, wgrad, pool backward and the fused CE+Dice
+     forward and backward against their plain versions at every shape of
+     one neu baseline step (B=16), f32 and bf16 (tolerances in
+     Smoke.train_kernels);
+  7. training: the supervised baseline as `python -m uaps_tpu_torch.train
+     --preset neu --method baseline --dtype bfloat16 --dropout_backend xla
+     --dataset synthetic` builds it (unet, full width, 256 x 256, batch
+     16, synthetic data): 3 warm-up and 10 timed steps on the kernel path
+     with finite losses and, per step, 9 conv, 8 dgrad, 9 wgrad, 2 pool, 2
+     pool-backward, 1 CE+Dice forward and 1 backward launches; one step of
+     the kernel path and one of the plain path (conv_backend="xla": cuDNN,
+     plain pools and losses) from the same weights, batch and dropout
+     seed, within bf16 tolerances (Smoke._compare_steps); one eval step;
+     the plain path's step time;
+  8. training times: per kernel and shape of one bf16 step, the kernel's
+     ms, its plain version's, the library call's and the bound; a profile
+     of 2 kernel-path steps.
+It then prints {"kernels": [...]} (launches from phase 7) and, last,
+{"ok": true, "device": ...}. Details go to chiprun_out/chip_smoke.json. It
+exits non-zero without CUDA, and outside the repository.
 """
 from __future__ import annotations
 
@@ -61,10 +78,62 @@ CONV_SHAPES = [("in_conv.0", 3, 16, 256), ("in_conv.4", 16, 16, 256),
 # and of the 2 kernel pools: (module, C, H=W of the input)
 POOL_SHAPES = [("down1", 16, 256), ("down2", 32, 128)]
 CONV_PER_BATCH, POOL_PER_BATCH = len(CONV_SHAPES), len(POOL_SHAPES)
+# a baseline train step runs every forward shape, their dgrads but the
+# input conv's (the image needs no gradient), every wgrad, both pools each
+# way, and the fused CE+Dice forward and backward once, on [B, 256, 256, 4]
+DGRAD_SHAPES = CONV_SHAPES[1:]
+NUM_CLASSES = 4
+TRAIN_WARMUP, TRAIN_STEPS = 3, 10
+# kernel launches per baseline step, by launch counter
+STEP_LAUNCHES = {"conv3x3_nchw": 9, "conv3x3_nchw_dgrad": 8,
+                 "conv3x3_nchw_wgrad": 9, "max_pool_2x2_nchw": 2,
+                 "max_pool_2x2_nchw_bwd": 2, "ce_dice_fwd": 1,
+                 "ce_dice_bwd": 1}
+# the least time the card could take: published H100 SXM peaks
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def counters():
+    """{kernel name: launch count} of every wrapper."""
+    from uaps_tpu_torch.kernels import ce_dice as kce
+    from uaps_tpu_torch.kernels import conv3x3_nchw as kc
+    from uaps_tpu_torch.kernels import pool_nchw as kp
+    return {"conv3x3_nchw": kc.launches,
+            "conv3x3_nchw_dgrad": kc.dgrad_launches,
+            "conv3x3_nchw_wgrad": kc.wgrad_launches,
+            "max_pool_2x2_nchw": kp.launches,
+            "max_pool_2x2_nchw_bwd": kp.bwd_launches,
+            "ce_dice_fwd": kce.fwd_launches, "ce_dice_bwd": kce.bwd_launches}
+
+
+def reset_counters():
+    from uaps_tpu_torch.kernels import ce_dice as kce
+    from uaps_tpu_torch.kernels import conv3x3_nchw as kc
+    from uaps_tpu_torch.kernels import pool_nchw as kp
+    kc.launches = kc.dgrad_launches = kc.wgrad_launches = 0
+    kp.launches = kp.bwd_launches = 0
+    kce.fwd_launches = kce.bwd_launches = 0
+
+
+def bound(nbytes, ops, kind):
+    """(ms, "bytes" | "operations"): the larger of moving `nbytes` at the
+    HBM rate and doing `ops` at the peak rate of the inputs' type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def conv_cost(cin, cout, hw, in_size, out_size):
+    """(bytes, flops) of one 3x3 conv (or its dgrad, or wgrad with an f32
+    dW): each input read once, each output written once."""
+    px = BATCH * hw * hw
+    return (px * cin * in_size + 9 * cin * cout * in_size
+            + px * cout * out_size), 2 * px * cin * cout * 9
 
 
 class Smoke:
@@ -491,9 +560,25 @@ class Smoke:
         for name, rows in (("conv3x3_nchw", conv_rows),
                            ("max_pool_2x2_nchw", pool_rows)):
             main = [r for r in rows if r["dtype"] == "bf16"]
+            if name == "conv3x3_nchw":
+                # cuDNN in bf16 is the library call; the head writes f32
+                lib = sum(r["cudnn_ms"] for r in main)
+                bounds = [bound(*conv_cost(
+                    r["cin"], r["cout"], r["hw"], 2,
+                    4 if r["module"] == "out_conv" else 2), "bf16")
+                    for r in main]
+            else:
+                # the plain version is the library call, F.max_pool2d
+                lib = sum(r["plain_ms"] for r in main)
+                bounds = [bound(BATCH * r["c"] * r["hw"] ** 2 * 2 * 5 / 4,
+                                0, "bf16") for r in main]
             self.report["kernels"][name].update(
                 ms=sum(r["ms"] for r in main),
-                plain_ms=sum(r["plain_ms"] for r in main))
+                plain_ms=sum(r["plain_ms"] for r in main),
+                library_ms=lib, bound_ms=sum(b[0] for b in bounds),
+                bound_by=("bytes" if sum(b[0] for b in bounds
+                                         if b[1] == "bytes") * 2
+                          >= sum(b[0] for b in bounds) else "operations"))
 
         self.predict_rounds(t)
         t["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -626,6 +711,455 @@ class Smoke:
                     f"by device time (the plain engine's: chiprun_out/"
                     f"chip_smoke_profile_plain.txt):\n" + table)
 
+    # ------------------------------------------------------------ phase 6
+    def _grad_case(self, cin, cout, hw, dtype, seed):
+        """x [B, Cin, H, W], w [3, 3, Cin, Cout] (scaled as lecun_normal)
+        and a cotangent g [B, Cout, H, W], all in `dtype`."""
+        torch = self.torch
+        g = self.gen(seed)
+        x = torch.randn((BATCH, cin, hw, hw), generator=g,
+                        device=self.dev).to(dtype)
+        w = (torch.randn((3, 3, cin, cout), generator=g, device=self.dev)
+             / (9 * cin) ** 0.5).to(dtype)
+        gy = torch.randn((BATCH, cout, hw, hw), generator=g,
+                         device=self.dev).to(dtype)
+        return x, w, gy
+
+    def _pool_case(self, c, hw, dtype, seed):
+        """A pool input with in-window ties, -inf, +inf and NaN, and a
+        cotangent with ties."""
+        torch = self.torch
+        g = self.gen(seed)
+        x = torch.round(torch.randn((BATCH, c, hw, hw), generator=g,
+                                    device=self.dev) * 2) / 2
+        x[0, 0, 0, 0] = float("-inf")
+        x[1, 1, 2:4, 4:6] = float("-inf")
+        x[2, 2, 5, 7] = float("inf")
+        x[3, 3, 8, 9] = float("nan")
+        x[4, 4, 10:12, 12:14] = float("nan")
+        gy = torch.round(torch.randn((BATCH, c, hw // 2, hw // 2),
+                                     generator=g, device=self.dev) * 8) / 8
+        return x.to(dtype), gy.to(dtype)
+
+    def _ce_case(self, seed):
+        """f32 logits [B, 256, 256, C] as the model hands them over (the
+        NHWC view of NCHW storage) and int32 labels, a few out of range."""
+        torch = self.torch
+        g = self.gen(seed)
+        nchw = torch.randn((BATCH, NUM_CLASSES, HW, HW), generator=g,
+                           device=self.dev) * 2
+        labels = torch.randint(0, NUM_CLASSES, (BATCH, HW, HW), generator=g,
+                               device=self.dev, dtype=torch.int32)
+        labels[0, 0, :5] = NUM_CLASSES + 3
+        return nchw.permute(0, 2, 3, 1), labels
+
+    def _ce_q(self, stats):
+        """q and gce of the backward for cotangents (0.5, 0.5)."""
+        from uaps_tpu_torch.kernels import ce_dice as kce
+        return kce.bwd_coefs(stats, 0.5, 0.5, BATCH * HW * HW)
+
+    def train_kernels(self):
+        """Each training kernel against its plain version at every shape
+        of one neu baseline step (B=16), f32 and bf16. Tolerances:
+        dgrad as the forward (it is the forward kernel): rtol=atol 1e-4 in
+        f32, 1e-2 in bf16 (<= 1 bf16 ulp); wgrad max |err| <= 1e-4 x
+        max |dW| (f32 sums of up to 1 M products in another order: per-
+        block partials against cuBLAS's); pool backward exact, with ties,
+        -inf, +inf and NaN windows (a NaN window routes nothing); CE+Dice
+        stats rtol 1e-5 (sums of 1 M pixels in two tree orders), dlogits
+        within 1e-4 x max |dlogits| (per-pixel expf/logf against torch's
+        exp/log, a few ulp)."""
+        from uaps_tpu_torch.kernels import ce_dice as kce
+        from uaps_tpu_torch.kernels import conv3x3_nchw as kc
+        from uaps_tpu_torch.kernels import pool_nchw as kp
+        torch = self.torch
+        errs = {n: 0.0 for n in ("conv3x3_nchw_dgrad", "conv3x3_nchw_wgrad",
+                                 "max_pool_2x2_nchw_bwd", "ce_dice_fwd",
+                                 "ce_dice_bwd")}
+        bad = []
+
+        def record(name, label, err, ok, note=""):
+            errs[name] = max(errs[name], err)
+            log(f"{label}: max_abs_err {err:.3e}{note} "
+                f"{'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                bad.append(label)
+
+        for dname, dtype in (("f32", torch.float32),
+                             ("bf16", torch.bfloat16)):
+            tol = 1e-4 if dname == "f32" else 1e-2
+            for i, (mod, cin, cout, hw) in enumerate(CONV_SHAPES):
+                x, w, gy = self._grad_case(cin, cout, hw, dtype,
+                                           SEED + 100 + i)
+                if (mod, cin, cout, hw) in DGRAD_SHAPES:
+                    dx = kc.conv3x3_nchw_dgrad(gy, w)
+                    self.sync()
+                    ref = kc.conv3x3_nchw_dgrad_plain(gy, w)
+                    self.sync()
+                    err = float((dx.float() - ref.float()).abs().max())
+                    ok = (dx.shape == x.shape and dx.dtype == dtype
+                          and bool(torch.isfinite(dx).all())
+                          and torch.allclose(dx.float(), ref.float(),
+                                             rtol=tol, atol=tol))
+                    record("conv3x3_nchw_dgrad", f"dgrad {mod:10s} {cout:2d}"
+                           f"->{cin:2d} @{hw} {dname}", err, ok)
+                dw = kc.conv3x3_nchw_wgrad(x, gy)
+                self.sync()
+                ref = kc.conv3x3_nchw_wgrad_plain(x, gy)
+                self.sync()
+                err = float((dw - ref).abs().max())
+                scale = float(ref.abs().max())
+                ok = (dw.shape == (3, 3, cin, cout)
+                      and dw.dtype == torch.float32
+                      and bool(torch.isfinite(dw).all())
+                      and err <= 1e-4 * scale)
+                record("conv3x3_nchw_wgrad", f"wgrad {mod:10s} {cin:2d}->"
+                       f"{cout:2d} @{hw} {dname}", err, ok,
+                       f" (max |dW| {scale:.3e})")
+            for i, (mod, c, hw) in enumerate(POOL_SHAPES):
+                x, gy = self._pool_case(c, hw, dtype, SEED + 150 + i)
+                dx = kp.max_pool_2x2_nchw_bwd(x, gy)
+                self.sync()
+                ref = kp.max_pool_2x2_nchw_bwd_plain(x, gy)
+                self.sync()
+                same = bool(torch.equal(dx, ref))
+                err = 0.0 if same else float((dx.float() - ref.float())
+                                             .abs().max())
+                nan_win = dx[3, 3, 8:10, 8:10]
+                ok = (same and dx.dtype == dtype
+                      and bool((nan_win == 0).all())
+                      and int((dx != 0).sum()) <= gy.numel())
+                record("max_pool_2x2_nchw_bwd", f"pool bwd {mod} {c}x{hw}x"
+                       f"{hw} {dname} exact", err, ok)
+
+        lg, labels = self._ce_case(SEED + 170)
+        stats = kce.ce_dice_stats(lg, labels)
+        self.sync()
+        ref = kce.ce_dice_stats_plain(lg, labels)
+        self.sync()
+        err = float((stats - ref).abs().max())
+        ok = (stats.shape == (4, NUM_CLASSES)
+              and bool(torch.isfinite(stats).all())
+              and torch.allclose(stats, ref, rtol=1e-5, atol=1e-3))
+        record("ce_dice_fwd", f"ce_dice stats {list(lg.shape)} f32", err, ok,
+               f" (nll sum {float(ref[3, 0]):.6e})")
+        q, gce = self._ce_q(ref)
+        d = kce.ce_dice_bwd(lg, labels, q, gce)
+        self.sync()
+        dref = kce.ce_dice_bwd_plain(lg, labels, q, gce)
+        self.sync()
+        err = float((d - dref).abs().max())
+        scale = float(dref.abs().max())
+        ok = (d.shape == lg.shape and d.stride() == lg.stride()
+              and bool(torch.isfinite(d).all()) and err <= 1e-4 * scale)
+        record("ce_dice_bwd", f"ce_dice dlogits {list(lg.shape)} f32", err,
+               ok,
+               f" (max |dlogits| {scale:.3e})")
+        for name, e in errs.items():
+            self.report["kernels"][name] = {"max_abs_err": e}
+        if bad:
+            raise AssertionError(f"training kernel mismatches: {bad}")
+
+    # ------------------------------------------------------------ phase 7
+    def _train_config(self, **model_kw):
+        """The baseline slice as `python -m uaps_tpu_torch.train --preset
+        neu --method baseline --dtype bfloat16 --dropout_backend xla
+        --dataset synthetic` builds it, with `model_kw` on top."""
+        from uaps_tpu_torch.utils.cli import parse_args
+        cfg, _ = parse_args(["--preset", "neu", "--method", "baseline",
+                             "--dtype", "bfloat16", "--dropout_backend",
+                             "xla", "--dataset", "synthetic"])
+        cfg.model = dataclasses.replace(cfg.model, **model_kw)
+        return cfg
+
+    def _step_pair(self, cfg, plain_cfg, init_sd, batch):
+        """One step of the kernel path and one of the plain path from the
+        same weights, batch and dropout generator seed; returns both models
+        and their metrics."""
+        from uaps_tpu_torch.methods import base, baseline
+        out = []
+        for c in (cfg, plain_cfg):
+            model = base.build_model(c, self.dev)
+            model.load_state_dict(init_sd)
+            state = base.init_model_state(c, model)
+            before = counters()
+            _, m = baseline.make_train_step(c, model)(state, batch)
+            self.sync()
+            launched = {k: v - before[k] for k, v in counters().items()}
+            out.append((model, {k: float(v) for k, v in m.items()},
+                        launched))
+        assert not any(out[1][2].values()), \
+            f"the plain path launched kernels: {out[1][2]}"
+        assert out[0][2] == STEP_LAUNCHES, out[0][2]
+        return out
+
+    def training(self):
+        """The baseline slice at full width: 3 warm-up and 10 timed steps on
+        the kernel path, the launch counts per step, one step on each path
+        from the same weights compared within bf16 tolerances, the eval
+        step, and the plain path's step time."""
+        import numpy as np
+        from uaps_tpu_torch.data import SyntheticDefects
+        from uaps_tpu_torch.methods import base, get_method
+        from uaps_tpu_torch.train import to_device
+        torch = self.torch
+        cfg = self._train_config()
+        assert (cfg.model.name, cfg.data.batch_size, cfg.data.image_size,
+                cfg.model.compute_dtype) == ("unet", BATCH, (HW, HW),
+                                             "bfloat16"), cfg
+        t0 = time.perf_counter()
+        data = SyntheticDefects(cfg.data, seed=SEED)
+        it = data.train_iter()
+        batches = [to_device(next(it), self.dev)
+                   for _ in range(TRAIN_WARMUP + TRAIN_STEPS + 1)]
+        val = to_device(next(data.val_iter(1)), self.dev)
+        log(f"train data: {len(batches)} synthetic batches + 1 val in "
+            f"{time.perf_counter() - t0:.1f} s")
+        method = get_method("baseline")
+        state, model = method.init_state(
+            cfg, self.dev, torch.Generator().manual_seed(SEED))
+        init_sd = {k: v.detach().clone() for k, v in
+                   model.state_dict().items()}
+        step = method.make_train_step(cfg, model)
+        self.sync()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()       # the main path's run starts here
+        losses, step_ms = [], []
+        for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+            t0 = time.perf_counter()
+            state, m = step(state, batches[i])
+            self.sync()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append({k: float(v) for k, v in m.items()})
+        self.train_launches = counters()   # ... and ends here
+        n_steps = TRAIN_WARMUP + TRAIN_STEPS
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        timed = step_ms[TRAIN_WARMUP:]
+        t = self.report["times"]
+        t["train_step_ms"] = {"median": statistics.median(timed),
+                              "min": min(timed), "max": max(timed),
+                              "all": step_ms}
+        t["train_imgs_per_s"] = BATCH / statistics.median(timed) * 1e3
+        t["train_peak_mem_gib"] = peak
+        log("train losses: " + ", ".join(f"{m['loss']:.4f}" for m in losses))
+        log(f"launches over {n_steps} kernel-path steps: "
+            f"{json.dumps(self.train_launches)}")
+        log(f"time train step bf16 B={BATCH} (host clock, sync each step): "
+            f"median {t['train_step_ms']['median']:.3f} ms [min "
+            f"{t['train_step_ms']['min']:.3f}, max "
+            f"{t['train_step_ms']['max']:.3f}] over {TRAIN_STEPS} steps = "
+            f"{t['train_imgs_per_s']:.1f} imgs/s; peak memory {peak:.3f} GiB")
+        self.report["training"] = {"losses": losses,
+                                   "launches": self.train_launches}
+        assert all(np.isfinite(v) for m in losses for v in m.values()), \
+            "non-finite training metrics"
+        want = {k: v * n_steps for k, v in STEP_LAUNCHES.items()}
+        assert self.train_launches == want, (self.train_launches, want)
+
+        plain_cfg = self._train_config(conv_backend="xla")
+        (km, kmet, _), (pm, pmet, _) = self._step_pair(
+            cfg, plain_cfg, init_sd, batches[-1])
+        self._compare_steps(km, pm, kmet, pmet, init_sd, cfg.optim.base_lr)
+
+        ev = base.make_eval_step(cfg, model)(val)
+        ev = {k: float(v) for k, v in ev.items()}
+        log(f"eval step (bf16, B={BATCH}): {json.dumps(ev)}")
+        assert all(np.isfinite(v) for v in ev.values()), ev
+        self.report["training"]["eval"] = ev
+
+        # the plain path's step time, for scale (same batches)
+        pstate = base.init_model_state(plain_cfg, pm)
+        pstep = method.make_train_step(plain_cfg, pm)
+        pms = []
+        for i in range(TRAIN_WARMUP + 5):
+            t0 = time.perf_counter()
+            pstep(pstate, batches[i % len(batches)])
+            self.sync()
+            pms.append((time.perf_counter() - t0) * 1e3)
+        pms = pms[TRAIN_WARMUP:]
+        t["plain_train_step_ms"] = {"median": statistics.median(pms),
+                                    "min": min(pms), "max": max(pms)}
+        log(f"time plain-path train step bf16 B={BATCH}: median "
+            f"{statistics.median(pms):.3f} ms [min {min(pms):.3f}, max "
+            f"{max(pms):.3f}] over 5 steps")
+        self.train_model, self.train_state = model, state
+        self.train_step, self.train_batch = step, batches[0]
+
+    def _compare_steps(self, km, pm, kmet, pmet, init_sd, lr):
+        """Kernel path against the plain path after one step from the same
+        weights. bf16 tolerances: the two paths round at other places
+        (cuDNN's bf16 convs accumulate in their own order, the plain head
+        takes f32 inputs), so the step-1 loss may differ by 1e-2
+        relative; each weight tensor's gradient must point the same way
+        (cosine >= 0.98); and since Adam's first update is about
+        lr * sign(g), >= 95% of the parameter deltas must agree within
+        lr / 2. The biases of the convs that feed a train-mode BN have a
+        zero gradient up to rounding, so they are left out of both."""
+        torch = self.torch
+        rel = abs(kmet["loss"] - pmet["loss"]) / abs(pmet["loss"])
+        pp = dict(pm.named_parameters())
+        worst_cos, agree, total = 1.0, 0, 0
+        for k, p in km.named_parameters():
+            if k.endswith(("conv_conv.0.bias", "conv_conv.4.bias")):
+                continue
+            gk, gp = p.grad.float().flatten(), pp[k].grad.float().flatten()
+            cos = float(torch.nn.functional.cosine_similarity(gk, gp, dim=0))
+            worst_cos = min(worst_cos, cos)
+            dk = p.detach().float() - init_sd[k].float()
+            dp = pp[k].detach().float() - init_sd[k].float()
+            agree += int(((dk - dp).abs() <= lr / 2).sum())
+            total += dk.numel()
+        share = agree / total
+        res = {"loss_kernel": kmet["loss"], "loss_plain": pmet["loss"],
+               "loss_rel_diff": rel, "worst_grad_cosine": worst_cos,
+               "delta_agree_share": share}
+        self.report["training"]["kernel_vs_plain"] = res
+        ok = rel <= 1e-2 and worst_cos >= 0.98 and share >= 0.95
+        log(f"step 1, kernel vs plain path: loss {kmet['loss']:.6f} vs "
+            f"{pmet['loss']:.6f} (rel {rel:.2e}, tol 1e-2); worst grad "
+            f"cosine {worst_cos:.5f} (min 0.98); param deltas within lr/2: "
+            f"{share:.5f} (min 0.95) {'ok' if ok else 'MISMATCH'}")
+        assert ok, res
+
+    # ------------------------------------------------------------ phase 8
+    def train_times(self):
+        """Per kernel and shape of one bf16 baseline step: the kernel's ms,
+        its plain version's and the library call's (cuDNN's dgrad and
+        wgrad, aten's max-pool backward, the torch CE + Dice pair), and the
+        bound; then a profile of one kernel-path step."""
+        import torch.nn.functional as F
+        from uaps_tpu_torch.kernels import ce_dice as kce
+        from uaps_tpu_torch.kernels import conv3x3_nchw as kc
+        from uaps_tpu_torch.kernels import pool_nchw as kp
+        from uaps_tpu_torch.ops import softmax_dice_loss
+        torch = self.torch
+        bf = torch.bfloat16
+        rows = {k: [] for k in ("conv3x3_nchw_dgrad", "conv3x3_nchw_wgrad",
+                                "max_pool_2x2_nchw_bwd", "ce_dice_fwd",
+                                "ce_dice_bwd")}
+
+        def add(name, label, kern, plain, lib, nbytes, ops, kind,
+                cold=False):
+            row = {"shape": label,
+                   "ms": self.time_ms(kern, cold=cold),
+                   "plain_ms": self.time_ms(plain, cold=cold),
+                   "library_ms": self.time_ms(lib, cold=cold)}
+            row["bound_ms"], row["bound_by"] = bound(nbytes, ops, kind)
+            rows[name].append(row)
+            log(f"time {name} {label} bf16: kernel {row['ms']:.4f} ms, "
+                f"plain {row['plain_ms']:.4f} ms, library "
+                f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} "
+                f"ms ({row['bound_by']})")
+
+        for i, (mod, cin, cout, hw) in enumerate(CONV_SHAPES):
+            x, w, gy = self._grad_case(cin, cout, hw, bf, SEED + 100 + i)
+            w_oihw = w.permute(3, 2, 0, 1).contiguous()
+            label = f"{mod} {cin}->{cout} @{hw}"
+            if (mod, cin, cout, hw) in DGRAD_SHAPES:
+                nb, ops = conv_cost(cout, cin, hw, 2, 2)
+                add("conv3x3_nchw_dgrad", label,
+                    lambda: kc.conv3x3_nchw_dgrad(gy, w),
+                    lambda: kc.conv3x3_nchw_dgrad_plain(gy, w),
+                    lambda: torch.nn.grad.conv2d_input(
+                        x.shape, w_oihw, gy, padding=1), nb, ops, "bf16")
+            px = BATCH * hw * hw
+            add("conv3x3_nchw_wgrad", label,
+                lambda: kc.conv3x3_nchw_wgrad(x, gy),
+                lambda: kc.conv3x3_nchw_wgrad_plain(x, gy),
+                lambda: torch.nn.grad.conv2d_weight(
+                    x, w_oihw.shape, gy, padding=1),
+                px * (cin + cout) * 2 + 9 * cin * cout * 4,
+                2 * px * cin * cout * 9, "bf16")
+        for i, (mod, c, hw) in enumerate(POOL_SHAPES):
+            x, gy = self._pool_case(c, hw, bf, SEED + 150 + i)
+            _, idx = F.max_pool2d(x, 2, return_indices=True)
+            n = x.numel() * 2
+            add("max_pool_2x2_nchw_bwd", f"{mod} {c}x{hw}x{hw}",
+                lambda: kp.max_pool_2x2_nchw_bwd(x, gy),
+                lambda: kp.max_pool_2x2_nchw_bwd_plain(x, gy),
+                lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+                    gy, x, [2, 2], [2, 2], [0, 0], [1, 1], False, idx),
+                n + n // 4 + n, 0, "bf16", cold=True)
+        lg, labels = self._ce_case(SEED + 170)
+        lab64 = labels.clamp(0, NUM_CLASSES - 1).long()
+        nchw = lg.permute(0, 3, 1, 2)     # the contiguous storage
+        px = BATCH * HW * HW
+        add("ce_dice_fwd", "[16,256,256,4]",
+            lambda: kce.ce_dice_stats(lg, labels),
+            lambda: kce.ce_dice_stats_plain(lg, labels),
+            lambda: (F.cross_entropy(nchw, lab64),
+                     softmax_dice_loss(lg, lab64)),
+            px * NUM_CLASSES * 4 + px * 4 + 16 * NUM_CLASSES,
+            px * NUM_CLASSES * 12, "f32", cold=True)
+        stats = kce.ce_dice_stats_plain(lg, labels)
+        q, gce = self._ce_q(stats)
+        lgr = nchw.detach().requires_grad_()
+        pair = (F.cross_entropy(lgr, lab64)
+                + softmax_dice_loss(lgr.permute(0, 2, 3, 1), lab64))
+        add("ce_dice_bwd", "[16,256,256,4]",
+            lambda: kce.ce_dice_bwd(lg, labels, q, gce),
+            lambda: kce.ce_dice_bwd_plain(lg, labels, q, gce),
+            lambda: torch.autograd.grad(pair, lgr, retain_graph=True),
+            2 * px * NUM_CLASSES * 4 + px * 4, px * NUM_CLASSES * 16, "f32",
+            cold=True)
+        t = self.report["times"]
+        t["train_kernels"] = rows
+        for name, rs in rows.items():
+            by_bytes = sum(r["bound_ms"] for r in rs if r["bound_by"] ==
+                           "bytes")
+            self.report["kernels"][name].update(
+                ms=sum(r["ms"] for r in rs),
+                plain_ms=sum(r["plain_ms"] for r in rs),
+                library_ms=sum(r["library_ms"] for r in rs),
+                bound_ms=sum(r["bound_ms"] for r in rs),
+                bound_by=("bytes" if by_bytes * 2 >= sum(
+                    r["bound_ms"] for r in rs) else "operations"))
+        self.profile_step()
+
+    def profile_step(self):
+        """Device time by kernel over 2 kernel-path train steps. Best
+        effort, as the serving profile."""
+        from torch.profiler import ProfilerActivity, profile
+        cuda = self.torch.autograd.DeviceType.CUDA
+        t = self.report["times"]
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(2):
+                    self.train_step(self.train_state, self.train_batch)
+                self.sync()
+            events = prof.key_averages()
+            table = events.table(sort_by="cuda_time_total", row_limit=30)
+        except RuntimeError as exc:
+            log(f"profiler unavailable: {exc}")
+            return
+        busy = sum(e.self_device_time_total for e in events
+                   if e.device_type == cuda) / 2 / 1e3
+        step = t["train_step_ms"]["median"]
+        t["train_device_busy_ms"] = busy
+        t["train_device_idle_share"] = 1.0 - busy / step
+        with open(os.path.join(OUT_DIR, "chip_smoke_profile_train.txt"),
+                  "w") as f:
+            f.write(table)
+        log(f"device busy {busy:.3f} ms per train step (profiler) of "
+            f"{step:.3f} ms (host clock, median): idle share "
+            f"{t['train_device_idle_share']:.3f}; by device time:\n"
+            + table)
+
+
+# the kernels line: (launch counter, CUDA source, the TPU kernel replaced)
+KERNELS = [
+    ("conv3x3_nchw", "conv3x3_nchw", "uaps_tpu/pallas/conv3x3_nchw.py:289"),
+    ("conv3x3_nchw_dgrad", "conv3x3_nchw",
+     "uaps_tpu/pallas/conv3x3_nchw.py:987"),
+    ("conv3x3_nchw_wgrad", "conv3x3_wgrad_nchw",
+     "uaps_tpu/pallas/conv3x3_nchw.py:601"),
+    ("max_pool_2x2_nchw", "pool_nchw", "uaps_tpu/pallas/pool_nchw.py:138"),
+    ("max_pool_2x2_nchw_bwd", "pool_nchw", "uaps_tpu/pallas/pool_nchw.py:161"),
+    ("ce_dice_fwd", "ce_dice", "uaps_tpu/pallas/ce_dice.py:103"),
+    ("ce_dice_bwd", "ce_dice", "uaps_tpu/pallas/ce_dice.py:157"),
+]
+
 
 def main() -> int:
     import torch
@@ -642,31 +1176,39 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     s = Smoke(torch, "cuda:0")
+    s.report["versions"] = {"python": sys.version, "torch": torch.__version__,
+                            "cuda": torch.version.cuda}
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     if s.phase("1 build", s.build):
-        s.phase("2 kernels vs twins", s.kernels)
+        s.phase("2 kernels vs plain", s.kernels)
         if s.phase("3 serving", s.serving):
             if s.phase("4 end to end vs plain", s.end_to_end):
                 s.phase("5 times", s.times)
+        s.phase("6 training kernels vs plain", s.train_kernels)
+        if s.phase("7 training", s.training):
+            s.phase("8 training times", s.train_times)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(s.report, f, indent=1, default=str)
     if s.failures:
         print(f"chip_smoke: FAILED phases {s.failures}", file=sys.stderr)
         return 1
-    kernels = [
-        {"name": name, "route": "cuda",
-         "source": f"uaps_tpu_torch/csrc/{src}.cu", "replaces": replaces,
-         "launches": s.launches[name],
-         "max_abs_err": s.report["kernels"][name]["max_abs_err"],
-         "ms": s.report["kernels"][name]["ms"],
-         "plain_ms": s.report["kernels"][name]["plain_ms"]}
-        for name, src, replaces in (
-            ("conv3x3_nchw", "conv3x3_nchw",
-             "uaps_tpu/pallas/conv3x3_nchw.py:289"),
-            ("max_pool_2x2_nchw", "pool_nchw",
-             "uaps_tpu/pallas/pool_nchw.py:138"))]
+    kernels = []
+    for name, src, replaces in KERNELS:
+        k = s.report["kernels"][name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"uaps_tpu_torch/csrc/{src}.cu", "replaces": replaces,
+            "launches": s.train_launches[name],
+            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
+    idle = [k["name"] for k in kernels if k["launches"] < 1]
+    if idle:
+        print(f"chip_smoke: kernels never launched on the main path: {idle}",
+              file=sys.stderr)
+        return 1
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -129,15 +129,24 @@ def test_unported_knobs_raise(knob, value):
 
 
 def test_bad_enum_and_training_forward_raise():
+    """A bad enum raises; the perturbed multi-decoder forward raises until
+    the UAPS step; train mode runs main_only with dropout from an explicit
+    generator, and the unported fused dropout kernel raises."""
     with pytest.raises(ValueError, match="conv_variant"):
         build_model(neu_config("uaps", conv_variant="bogus"), "cpu")
     model = build_model(neu_config("uaps"), "cpu")
-    with pytest.raises(NotImplementedError, match="training slice"):
-        model(torch.zeros((1, 64, 64, 3)))
+    x = torch.zeros((1, 64, 64, 3))
+    with pytest.raises(NotImplementedError, match="UAPS step"):
+        model(x)
     model.train()
-    with torch.no_grad(), pytest.raises(NotImplementedError,
-                                        match="train-mode"):
-        model.main_only(torch.zeros((1, 64, 64, 3)))
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="torch.Generator"):
+            model.main_only(x)
+        assert model.main_only(x, torch.Generator()).shape == (1, 64, 64, 4)
+        drop = build_model(neu_config("uaps", dropout_backend="pallas"),
+                           "cpu").train()
+        with pytest.raises(NotImplementedError, match="Queue B #8"):
+            drop.main_only(x, torch.Generator())
 
 
 def test_init_matches_flax_statistics():

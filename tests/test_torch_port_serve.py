@@ -1,11 +1,17 @@
 """The port's serving path on the CPU: InferenceEngine.predict against the
-JAX computation of uaps_tpu/serve.py (softmax + argmax over main_only),
-AsyncBatcher in front of the port's engine, the .pth hand-off, the enum
-table, and the rule that the port never imports jax."""
+JAX computation of uaps_tpu/serve.py (softmax + argmax over main_only), the
+port's AsyncBatcher and HTTP front, the .pth hand-off, the port's copies of
+the JAX package's config tree and weight mapping, the enum table, and the
+rule that the port imports nothing of uaps_tpu, jax, flax, optax or
+orbax."""
 import ast
 import dataclasses
+import io
+import json
 import subprocess
 import sys
+import urllib.error
+import urllib.request
 from pathlib import Path
 
 import jax
@@ -17,15 +23,15 @@ import torch
 from _torch_port_util import neu_config, seeded_variables
 from uaps_tpu import native
 from uaps_tpu.methods.base import build_model as jax_build_model
-from uaps_tpu.server import AsyncBatcher
 from uaps_tpu.utils.config import preset
 from uaps_tpu_torch.methods.base import build_model
 from uaps_tpu_torch.serve import InferenceEngine
+from uaps_tpu_torch.server import AsyncBatcher, serve_http
 from uaps_tpu_torch.utils.weights import load_pth, state_dict_from_jax
 
 REPO = Path(__file__).resolve().parent.parent
 HW = (64, 64)
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax"}
+FORBIDDEN = {"uaps_tpu", "jax", "jaxlib", "flax", "optax", "orbax"}
 
 
 @pytest.fixture(scope="module")
@@ -63,8 +69,14 @@ def test_predict_matches_jax_serve(served):
     assert probs.dtype == np.float32 and probs.shape == (5, *HW, 4)
     np.testing.assert_allclose(probs, np.asarray(ref_p)[:5], atol=1e-5)
     np.testing.assert_array_equal(masks, np.asarray(ref_m)[:5])
-    # float input is taken as already normalised
-    m2, p2 = engine.predict(x[:5])
+    # the port normalises with the JAX package's numpy formula, and takes
+    # float input as already normalised
+    xp = engine._normalize(imgs)
+    np.testing.assert_array_equal(xp, (
+        (imgs.astype(np.float32) / 255.0 - np.float32(cfg.data.mean))
+        / np.float32(cfg.data.std)))
+    np.testing.assert_allclose(xp, x[:5], rtol=0, atol=1e-6)
+    m2, p2 = engine.predict(xp)
     np.testing.assert_array_equal(m2, masks)
     np.testing.assert_array_equal(p2, probs)
 
@@ -148,7 +160,7 @@ def test_cli_builds_preset_config(argv, method, data, model):
     want = preset(name, method=method)
     want.data = dataclasses.replace(want.data, **data)
     want.model = dataclasses.replace(want.model, **model)
-    assert parse_args(argv)[0] == want
+    assert dataclasses.asdict(parse_args(argv)[0]) == dataclasses.asdict(want)
 
 
 def test_enum_table_matches_jax():
@@ -157,58 +169,122 @@ def test_enum_table_matches_jax():
     assert _MODEL_ENUMS == jax_enums
 
 
-def _imports(path, module_level_only):
-    """Absolute module names a file imports."""
-    tree = ast.parse(path.read_text())
-    nodes = tree.body if module_level_only else ast.walk(tree)
+def _imports(path):
+    """Absolute module names a file imports, anywhere in it."""
     names = []
-    for node in nodes:
+    for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
             names += [a.name for a in node.names]
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             names.append(node.module)
-            names += [f"{node.module}.{a.name}" for a in node.names]
     return names
 
 
-def _module_file(name):
-    p = REPO.joinpath(*name.split("."))
-    if p.with_suffix(".py").exists():
-        return p.with_suffix(".py")
-    if (p / "__init__.py").exists():
-        return p / "__init__.py"
-    return None   # an attribute, not a module
-
-
 def test_port_imports_no_jax():
-    """AST scan: every import anywhere in uaps_tpu_torch/ and chip_smoke.py,
-    and every module-level import of the uaps_tpu modules (and their
-    packages) they reach, transitively; then a fresh interpreter."""
-    todo = [(p, False) for p in sorted((REPO / "uaps_tpu_torch")
-                                       .rglob("*.py"))]
-    todo.append((REPO / "chip_smoke.py", False))
-    seen, reached = set(), set()
-    while todo:
-        path, module_level_only = todo.pop()
-        if path in seen:
-            continue
-        seen.add(path)
-        for name in _imports(path, module_level_only):
+    """No file of uaps_tpu_torch/ nor chip_smoke.py imports uaps_tpu, jax,
+    flax, optax or orbax (AST scan); and a fresh interpreter in which
+    `import uaps_tpu` fails imports every port module and chip_smoke and
+    loads none of them."""
+    files = sorted((REPO / "uaps_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    for path in files:
+        for name in _imports(path):
             assert name.split(".")[0] not in FORBIDDEN, (path, name)
-            if name.split(".")[0] != "uaps_tpu":
-                continue
-            parts = name.split(".")
-            for i in range(1, len(parts) + 1):   # packages run on import
-                f = _module_file(".".join(parts[:i]))
-                if f is not None:
-                    reached.add(".".join(parts[:i]))
-                    todo.append((f, True))
-    assert {"uaps_tpu.server", "uaps_tpu.utils.torch_import",
-            "uaps_tpu.utils.config", "uaps_tpu.native"} <= reached
-    code = ("import sys, chip_smoke, uaps_tpu_torch.server, "
-            "uaps_tpu_torch.serve, uaps_tpu_torch.models.factory\n"
+    modules = ["chip_smoke"] + [
+        ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(
+            ".__init__")
+        for p in files if p.parent.name != "" and "uaps_tpu_torch" in p.parts]
+    code = ("import importlib, sys\n"
+            "sys.modules['uaps_tpu'] = None\n"
+            f"for m in {modules!r}:\n"
+            "    importlib.import_module(m)\n"
             f"bad = {sorted(FORBIDDEN)!r}\n"
-            "hit = [m for m in sys.modules if m.split('.')[0] in bad]\n"
+            "hit = [m for m in sys.modules if m.split('.')[0] in bad\n"
+            "       and sys.modules[m] is not None]\n"
             "assert not hit, hit\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
+
+
+@pytest.mark.parametrize("method", ["baseline", "uaps"])
+def test_weight_mapping_matches_export(method):
+    """The port's flax -> torch mapping equals the JAX package's
+    export_state_dict, key for key and value for value (unet and
+    unet_uaps)."""
+    from uaps_tpu.utils.torch_import import export_state_dict
+    v = seeded_variables(jax_build_model(neu_config(method)), HW, 3)
+    want = export_state_dict(v["params"], v["batch_stats"])
+    got = state_dict_from_jax(v["params"], v["batch_stats"])
+    assert set(got) == set(want)
+    for k, ref in want.items():
+        assert got[k].dtype == torch.from_numpy(np.asarray(ref)).dtype, k
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(ref),
+                                      err_msg=k)
+
+
+def test_config_matches_jax(tmp_path, monkeypatch):
+    """The port's config tree equals the JAX package's: every dataclass
+    field and default, and every preset (with image roots discovered
+    under $UAPS_DATA_ROOT)."""
+    from uaps_tpu.utils import config as jc
+    from uaps_tpu_torch.utils import config as pc
+    for name in ("DataConfig", "ModelConfig", "MethodConfig",
+                 "OptimConfig", "RunConfig", "Config"):
+        assert (dataclasses.asdict(getattr(pc, name)())
+                == dataclasses.asdict(getattr(jc, name)())), name
+    (tmp_path / "neu" / "images").mkdir(parents=True)
+    monkeypatch.setenv("UAPS_DATA_ROOT", str(tmp_path))
+    assert sorted(pc.PRESETS) == sorted(jc.PRESETS)
+    for name in pc.PRESETS:
+        for kw in ([{}] if name not in ("neu", "synthetic")
+                   else [{"method": "uaps"}, {"method": "baseline"}]):
+            got = dataclasses.asdict(pc.preset(name, **kw))
+            assert got == dataclasses.asdict(jc.preset(name, **kw)), name
+    assert pc.preset("neu").data.image_root == str(tmp_path / "neu" /
+                                                   "images")
+
+
+class _StubEngine:
+    """A 2-image fixed-batch engine: mask = channel 0 > 127."""
+    batch_size = 2
+
+    def predict(self, images):
+        masks = (images[..., 0] > 127).astype(np.int32)
+        return masks, np.zeros(images.shape[:3] + (1,), np.float32)
+
+
+def test_http_front_surface():
+    """POST /predict (one image and a batch), GET /healthz and /stats, 404
+    and 400, as uaps_tpu/server.py serves them."""
+    batcher = AsyncBatcher(_StubEngine(), max_wait_ms=1.0)
+    srv = serve_http(batcher, port=0, host="127.0.0.1")
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        imgs = _images(3, 4)
+
+        def post(arr):
+            buf = io.BytesIO()
+            np.save(buf, arr)
+            req = urllib.request.Request(f"{url}/predict",
+                                         data=buf.getvalue(), method="POST")
+            with urllib.request.urlopen(req, timeout=60) as r:
+                return np.load(io.BytesIO(r.read()))
+
+        np.testing.assert_array_equal(post(imgs[0]),
+                                      imgs[0, ..., 0] > 127)
+        np.testing.assert_array_equal(post(imgs), imgs[..., 0] > 127)
+        with urllib.request.urlopen(f"{url}/healthz", timeout=60) as r:
+            assert r.read() == b"ok"
+        with urllib.request.urlopen(f"{url}/stats", timeout=60) as r:
+            assert json.loads(r.read())["requests"] == 4
+        for path, data, code in (("/nope", None, 404),
+                                 ("/predict", b"junk", 400)):
+            req = urllib.request.Request(url + path, data=data,
+                                         method="POST" if data else "GET")
+            with pytest.raises(urllib.error.HTTPError) as e:
+                urllib.request.urlopen(req, timeout=60)
+            assert e.value.code == code
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        batcher.shutdown()

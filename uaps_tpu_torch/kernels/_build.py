@@ -118,14 +118,13 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def forward_only(name: str, *tensors: torch.Tensor) -> None:
-    """Raise if a forward-only kernel is called where autograd would need
-    its gradient (the backward kernels come with the training slice)."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{name} is forward-only until the training slice ports its "
-            "backward kernels (ROADMAP.md Queue B); call it under "
-            "torch.no_grad() or torch.inference_mode()")
+def call(lib: ctypes.CDLL, fn, device: torch.device, what: str,
+         *args) -> None:
+    """Run entry point `fn(*args, stream)` on `device` with PyTorch's
+    current stream there, and raise if it returned an error."""
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    check(lib, err, what)
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

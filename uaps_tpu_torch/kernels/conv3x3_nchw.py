@@ -1,20 +1,26 @@
-"""3x3 SAME stride-1 convolution over NCHW activations, forward only.
+"""3x3 SAME stride-1 convolution over NCHW activations, differentiable.
 
-Counterpart of `uaps_tpu/pallas/conv3x3_nchw.py` (`conv3x3_nchw` with its
-default body `_fwd_kernel_dwkf`, and the entries `conv3x3_fast_nchw` and
-`conv3x3_fast_flat`). The CUDA kernel is `csrc/conv3x3_nchw.cu`; its source
-note says what bounds it and how the design answers that.
+Counterpart of `uaps_tpu/pallas/conv3x3_nchw.py`: `conv3x3_nchw` (default
+body `_fwd_kernel_dwkf`), the entries `conv3x3_fast_nchw` and
+`conv3x3_fast_flat` with their custom VJPs, and `conv3x3_nchw_wgrad`. Two
+CUDA sources: `csrc/conv3x3_nchw.cu` (forward, and dgrad with flipped
+weights) and `csrc/conv3x3_wgrad_nchw.cu` (weight gradient); their notes say
+what bounds each kernel and how the design answers that.
 
 Contract (as in JAX): x [B, Cin, H, W], or the flat view [B, Cin, H*W] with
 `hw=(H, W)` (the same memory in torch); w [3, 3, Cin, Cout] in HWIO order
-(any strides, in x's dtype on the kernel path);
-zero halo; f32 or bf16 input, f32 accumulation, output `out_dtype or
-x.dtype`. The caller adds the bias.
+(any strides, in x's dtype on the kernel path); zero halo; f32 or bf16
+input, f32 accumulation, output `out_dtype or x.dtype`. The caller adds the
+bias. The backward is the JAX VJP (`_vjp_bwd_flat`, `_vjp_bwd_nchw`): the
+cotangent is first cast to x's dtype (the head's f32 cotangent goes in as
+bf16); dx is the forward conv of it with w flipped in (kh, kw) and its
+in/out channels swapped, in x's dtype, and only where x needs a gradient;
+dW is the f32 weight gradient cast to w's dtype.
 
-Dispatch: a CPU tensor goes to the plain twin `conv3x3_nchw_plain`; a CUDA
-tensor launches the kernel or raises, never falls back. Forward only until
-the training slice brings the dgrad/wgrad kernels: a call that would need a
-gradient raises.
+Dispatch: a CPU tensor goes to the plain versions (`conv3x3_nchw_plain`,
+`conv3x3_nchw_dgrad_plain`, `conv3x3_nchw_wgrad_plain`); a CUDA tensor
+launches the kernels or raises, never falls back. Launch counts:
+`launches` (forward), `dgrad_launches`, `wgrad_launches`.
 """
 from __future__ import annotations
 
@@ -26,23 +32,54 @@ import torch.nn.functional as F
 
 from uaps_tpu_torch.kernels import _build
 
-launches = 0  # kernel launches by conv3x3_nchw (reset by the caller)
+launches = 0         # forward kernel launches (reset by the caller)
+dgrad_launches = 0   # forward kernel launches made as dgrad
+wgrad_launches = 0   # weight-gradient kernel launches
 
 _OUT_PAIRS = {(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
               (torch.bfloat16, torch.float32)}
-MAX_COUT = 32
+MAX_COUT = 32        # the JAX shape gate's Cout limit (see conv_kernel_ok)
+STRIP_ROWS = 16      # image rows per wgrad block (kStripRows in the source)
+
+
+def _acc_dtype(t: torch.Tensor) -> torch.dtype:
+    """The plain versions' working dtype: at least f32 (f64 stays f64)."""
+    return torch.promote_types(t.dtype, torch.float32)
 
 
 def conv3x3_nchw_plain(x: torch.Tensor, w: torch.Tensor,
                        out_dtype=None) -> torch.Tensor:
-    """The plain twin: F.conv2d in f32 on the f32-cast inputs, cast to the
-    output dtype. x [B, Cin, H, W], w [3, 3, Cin, Cout] HWIO."""
-    y = F.conv2d(x.float(), w.float().permute(3, 2, 0, 1), padding=1)
+    """The plain forward: F.conv2d in (at least) f32 on the cast inputs,
+    cast to the output dtype. x [B, Cin, H, W], w [3, 3, Cin, Cout]
+    HWIO."""
+    ct = _acc_dtype(x)
+    y = F.conv2d(x.to(ct), w.to(ct).permute(3, 2, 0, 1), padding=1)
     return y.to(out_dtype or x.dtype)
 
 
+def conv3x3_nchw_dgrad_plain(g: torch.Tensor,
+                             w: torch.Tensor) -> torch.Tensor:
+    """The plain dgrad: the plain conv of g [B, Cout, H, W] with w flipped
+    in (kh, kw) and its in/out channels swapped, in g's dtype."""
+    return conv3x3_nchw_plain(g, w.flip((0, 1)).transpose(2, 3))
+
+
+def conv3x3_nchw_wgrad_plain(x: torch.Tensor, g: torch.Tensor
+                             ) -> torch.Tensor:
+    """The plain weight gradient, f32 [3, 3, Cin, Cout] (f64 for f64
+    inputs): for each tap, an einsum of the shifted zero-padded input with
+    g over (B, H, W)."""
+    h, w = g.shape[2:]
+    ct = _acc_dtype(x)
+    xp = F.pad(x.to(ct), (1, 1, 1, 1))
+    gf = g.to(ct)
+    return torch.stack([torch.stack([
+        torch.einsum("bchw,bdhw->cd", xp[:, :, kh:kh + h, kw:kw + w], gf)
+        for kw in range(3)]) for kh in range(3)])
+
+
 @functools.cache
-def _fn():
+def _fwd_fn():
     lib = _build.load("conv3x3_nchw")
     fn = lib.uaps_conv3x3_nchw_fwd
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 11
@@ -51,40 +88,134 @@ def _fn():
     return lib, fn
 
 
-def _launch(x: torch.Tensor, w: torch.Tensor, out_dtype) -> torch.Tensor:
-    global launches
-    b, cin, h, wd = x.shape
+@functools.cache
+def _wgrad_fn():
+    lib = _build.load("conv3x3_wgrad_nchw")
+    fn = lib.uaps_conv3x3_wgrad_nchw
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def _check_io(x: torch.Tensor, w: torch.Tensor, out_dtype, what: str):
     if (x.dtype, out_dtype) not in _OUT_PAIRS:
-        raise TypeError(f"conv3x3_nchw: unsupported dtypes {x.dtype} -> "
+        raise TypeError(f"{what}: unsupported dtypes {x.dtype} -> "
                         f"{out_dtype}")
     if not x.is_contiguous():
-        raise ValueError("conv3x3_nchw: x must be contiguous")
-    cout = w.shape[3]
+        raise ValueError(f"{what}: x must be contiguous")
     if w.device != x.device or w.dtype != x.dtype:
-        raise ValueError(f"conv3x3_nchw: w ({w.dtype}, {w.device}) must "
-                         f"match x ({x.dtype}, {x.device})")
-    if not 1 <= cout <= MAX_COUT or b > 65535:
-        raise ValueError(f"conv3x3_nchw: Cout={cout} (max {MAX_COUT}), "
-                         f"B={b} (max 65535)")
+        raise ValueError(f"{what}: w ({w.dtype}, {w.device}) must match x "
+                         f"({x.dtype}, {x.device})")
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor, out_dtype,
+            flipped: bool) -> torch.Tensor:
+    """The CUDA conv of x with w, or (flipped) with w flipped in (kh, kw)
+    and its channels swapped: the kernel then reads w[2, 2, 0, 0] first,
+    with negated kh/kw strides, so no flipped copy is made."""
+    global launches, dgrad_launches
+    what = "conv3x3_nchw dgrad" if flipped else "conv3x3_nchw"
+    _check_io(x, w, out_dtype, what)
+    b, cin, h, wd = x.shape
+    s_kh, s_kw, s_ci, s_co = w.stride()
+    ptr = w.data_ptr()
+    cout = w.shape[3]
+    if flipped:
+        cout = w.shape[2]
+        ptr += (2 * s_kh + 2 * s_kw) * w.element_size()
+        s_kh, s_kw, s_ci, s_co = -s_kh, -s_kw, s_co, s_ci
+    if b * -(-cout // 32) > 65535:
+        raise ValueError(f"{what}: B * ceil(Cout / 32) = "
+                         f"{b * -(-cout // 32)} > 65535")
     y = torch.empty((b, cout, h, wd), dtype=out_dtype, device=x.device)
     codes = _build.DTYPE_CODES
-    lib, fn = _fn()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        # the kernel reads w (any HWIO view) through its strides
-        err = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), b, cin, cout,
-                 h, wd, *w.stride(), codes[x.dtype], codes[out_dtype],
-                 stream)
-    _build.check(lib, err, "conv3x3_nchw kernel launch")
-    launches += 1
+    lib, fn = _fwd_fn()
+    _build.call(lib, fn, x.device, f"{what} kernel launch", x.data_ptr(),
+                ptr, y.data_ptr(), b, cin, cout, h, wd, s_kh, s_kw, s_ci,
+                s_co, codes[x.dtype], codes[out_dtype])
+    if flipped:
+        dgrad_launches += 1
+    else:
+        launches += 1
     return y
+
+
+def _forward(x, w, out_dtype):
+    if x.device.type == "cpu":
+        return conv3x3_nchw_plain(x, w, out_dtype)
+    if x.device.type == "cuda":
+        return _launch(x, w, out_dtype, flipped=False)
+    raise ValueError(f"conv3x3_nchw: no kernel for device {x.device}")
+
+
+def conv3x3_nchw_dgrad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """dx [B, Cin, H, W] in g's dtype from g [B, Cout, H, W] and the
+    forward's HWIO w [3, 3, Cin, Cout] (JAX: conv3x3_fast_* of g with
+    `flip(w, (0, 1)).transpose(0, 1, 3, 2)`)."""
+    if g.device.type == "cpu":
+        return conv3x3_nchw_dgrad_plain(g, w)
+    if g.device.type == "cuda":
+        return _launch(g, w, g.dtype, flipped=True)
+    raise ValueError(f"conv3x3_nchw_dgrad: no kernel for device {g.device}")
+
+
+def conv3x3_nchw_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """x [B, Cin, H, W], g [B, Cout, H, W] (same dtype) -> dW [3, 3, Cin,
+    Cout] f32 (JAX `conv3x3_nchw_wgrad`)."""
+    global wgrad_launches
+    if (x.ndim != 4 or g.ndim != 4 or x.shape[0] != g.shape[0]
+            or x.shape[2:] != g.shape[2:]):
+        raise ValueError(f"conv3x3_nchw_wgrad: x {tuple(x.shape)}, g "
+                         f"{tuple(g.shape)}; want [B,Cin,H,W], [B,Cout,H,W]")
+    if x.device.type == "cpu":
+        return conv3x3_nchw_wgrad_plain(x, g)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv3x3_nchw_wgrad: no kernel for device "
+                         f"{x.device}")
+    if x.dtype not in _build.DTYPE_CODES or g.dtype != x.dtype:
+        raise TypeError(f"conv3x3_nchw_wgrad: x {x.dtype} and g {g.dtype} "
+                        "must both be float32 or both bfloat16")
+    if not (x.is_contiguous() and g.is_contiguous()) or g.device != x.device:
+        raise ValueError("conv3x3_nchw_wgrad: x and g must be contiguous "
+                         "and on one device")
+    b, cin, h, wd = x.shape
+    cout = g.shape[1]
+    strips = b * -(-h // STRIP_ROWS)
+    part = torch.empty(strips * 9 * cin * cout, dtype=torch.float32,
+                       device=x.device)
+    dw = torch.empty((3, 3, cin, cout), dtype=torch.float32, device=x.device)
+    lib, fn = _wgrad_fn()
+    _build.call(lib, fn, x.device, "conv3x3_nchw_wgrad kernel launch",
+                x.data_ptr(), g.data_ptr(), part.data_ptr(), dw.data_ptr(),
+                b, cin, cout, h, wd, _build.DTYPE_CODES[x.dtype])
+    wgrad_launches += 1
+    return dw
+
+
+class _Conv3x3(torch.autograd.Function):
+    """The conv with the JAX VJP as its backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, out_dtype):
+        ctx.save_for_backward(x, w)
+        return _forward(x, w, out_dtype)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        g = gy.to(x.dtype).contiguous()
+        dx = conv3x3_nchw_dgrad(g, w) if ctx.needs_input_grad[0] else None
+        dw = (conv3x3_nchw_wgrad(x, g).to(w.dtype)
+              if ctx.needs_input_grad[1] else None)
+        return dx, dw, None
 
 
 def conv3x3_nchw(x: torch.Tensor, w: torch.Tensor, out_dtype=None,
                  hw=None) -> torch.Tensor:
     """x [B, Cin, H, W] (or [B, Cin, H*W] with hw=(H, W)), w [3, 3, Cin,
-    Cout] -> [B, Cout, H, W] (flat in, flat out)."""
-    _build.forward_only("conv3x3_nchw", x, w)
+    Cout] -> [B, Cout, H, W] (flat in, flat out); differentiable in x and
+    w."""
     flat = hw is not None
     if flat:
         x = x.view(x.shape[0], x.shape[1], *hw)
@@ -92,12 +223,10 @@ def conv3x3_nchw(x: torch.Tensor, w: torch.Tensor, out_dtype=None,
         raise ValueError(f"conv3x3_nchw: x {tuple(x.shape)}, w "
                          f"{tuple(w.shape)}; want [B,Cin,H,W], [3,3,Cin,Cout]")
     out_dtype = out_dtype or x.dtype
-    if x.device.type == "cpu":
-        y = conv3x3_nchw_plain(x, w, out_dtype)
-    elif x.device.type == "cuda":
-        y = _launch(x, w, out_dtype)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        y = _Conv3x3.apply(x, w, out_dtype)
     else:
-        raise ValueError(f"conv3x3_nchw: no kernel for device {x.device}")
+        y = _forward(x, w, out_dtype)
     return y.flatten(2) if flat else y
 
 

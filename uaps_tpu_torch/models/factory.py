@@ -1,6 +1,6 @@
 """Model factory: the port's counterpart of `uaps_tpu/models/factory.py`.
 
-Registers the U-Net family that serving needs (`unet`, `unet_uaps`,
+Registers the U-Net family (`unet`, `unet_uaps`,
 `unet_cct`, `unet_ucc`, `unet_ccps`) with the JAX factory's keyword
 arguments, and initialises the weights as flax does (lecun_normal conv
 kernels, zero biases, BN scale 1 / bias 0, running mean 0 / var 1) from an
@@ -39,19 +39,20 @@ def _register(name):
 def _multi(perturbations):
     def make(num_classes, in_chns, dtype, nchw_levels=0,
              conv_backend="auto", head_variant="taps", pool_backend="auto",
-             bn_backend="auto", packed_heads=False):
+             bn_backend="auto", packed_heads=False, dropout_backend="auto"):
         return MultiDecoderUNet(
             num_classes, perturbations, in_chns, dtype, nchw_levels,
             conv_backend, head_variant, pool_backend, bn_backend,
-            packed_heads)
+            packed_heads, dropout_backend=dropout_backend)
     return make
 
 
 @_register("unet")
 def _unet(num_classes, in_chns, dtype, nchw_levels=0, conv_backend="auto",
-          head_variant="taps", pool_backend="auto", bn_backend="auto"):
+          head_variant="taps", pool_backend="auto", bn_backend="auto",
+          dropout_backend="auto"):
     return UNet(num_classes, in_chns, dtype, nchw_levels, conv_backend,
-                head_variant, pool_backend, bn_backend)
+                head_variant, pool_backend, bn_backend, dropout_backend)
 
 
 @_register("unet_uaps")

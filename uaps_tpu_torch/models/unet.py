@@ -1,9 +1,9 @@
-"""U-Net building blocks and the multi-decoder family, eval forward, NCHW.
+"""U-Net building blocks and the multi-decoder family, NCHW.
 
 Counterpart of `uaps_tpu/models/unet.py`. Module names follow the reference
 torch code (`conv_conv.{0,1,4,5}`, `maxpool_conv.1`, `conv1x1`, `out_conv`),
-so state dicts from `uaps_tpu.utils.torch_import.export_state_dict` and
-reference `.pth` files load with `strict=True`.
+so state dicts from `utils.weights.state_dict_from_jax` and reference
+`.pth` files load with `strict=True`.
 
 Matching the JAX model:
   * activations are NCHW at every level; the models take NHWC images and
@@ -22,10 +22,22 @@ Matching the JAX model:
     < nchw_levels runs the CUDA pool where `pool_pallas_ok` holds and the
     backends allow it. Every Pallas variant name maps to the one CUDA conv;
     "xla" means plain torch. On CPU tensors the kernel wrappers run their
-    plain twins.
+    plain versions. The kernel conv and pool are autograd functions whose
+    backward is the JAX VJP on kernels too (dgrad, wgrad, pool backward).
 
-Training (BN batch statistics, dropout, the perturbed aux decoders) comes
-with the training slice; until then those paths raise NotImplementedError.
+Train mode (`model.train()`), as flax computes it:
+  * BN normalises with the batch mean and the biased batch variance
+    (E[x^2] - E[x]^2 in f32, clipped at 0) and updates the running stats
+    with that biased variance: running = 0.9 running + 0.1 batch (flax
+    momentum 0.9, torch momentum 0.1); `nn.BatchNorm2d` would use the
+    unbiased variance there;
+  * dropout draws its mask from the `generator` the caller passes to
+    `forward` (flax's "dropout" rng) and scales kept values by 1 / (1 - p)
+    in the compute dtype. It is plain torch for dropout_backend="xla", and
+    for "auto" on CPU tensors or with conv_backend="xla"; the fused dropout
+    kernel that "auto" selects on the GPU (and "pallas" everywhere) is not
+    ported, so those raise (ROADMAP.md Queue B #8).
+The perturbed multi-decoder forward comes with the UAPS step and raises.
 """
 from __future__ import annotations
 
@@ -44,7 +56,8 @@ from uaps_tpu_torch.kernels.pool_nchw import (max_pool_2x2_nchw,
 UNET_FEATURES: Tuple[int, ...] = (16, 32, 64, 128, 256)
 UNET_DROPOUT: Tuple[float, ...] = (0.05, 0.1, 0.2, 0.3, 0.5)
 
-_TRAIN_ROW = "ROADMAP.md Queue A item 3 (train-mode forward)"
+_DROPOUT_ROW = ("the fused dropout kernel is not ported yet: ROADMAP.md "
+                "Queue B #8 (pallas/perturb.py); use dropout_backend='xla'")
 
 
 class Conv3x3(nn.Module):
@@ -78,22 +91,61 @@ class Conv3x3(nn.Module):
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """Eval BN as flax computes it: (x - mean) * rsqrt(var + eps) * scale
-    + bias in f32, cast to the compute dtype. The buffers and parameters
-    are nn.BatchNorm2d's, so state dicts load unchanged."""
+    """BN as flax computes it: (x - mean) * (rsqrt(var + eps) * scale)
+    + bias in f32, cast to the compute dtype; the running stats in eval
+    mode, the batch stats (biased variance) in train mode, which also
+    updates the running stats. The buffers and parameters are
+    nn.BatchNorm2d's, so state dicts load unchanged."""
 
     def __init__(self, c: int, dtype: torch.dtype):
         super().__init__(c, eps=1e-5, momentum=0.1)
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))  # as flax
         if self.training:
-            raise NotImplementedError(
-                f"train-mode BatchNorm comes with {_TRAIN_ROW}")
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = ((x.float() - self.running_mean[:, None, None])
-             * mul[:, None, None] + self.bias[:, None, None])
+            mean = xf.mean((0, 2, 3))
+            var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean,
+                              min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_((1 - m) * self.running_mean
+                                        + m * mean)
+                self.running_var.copy_((1 - m) * self.running_var
+                                       + m * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = ((xf - mean[:, None, None]) * mul[:, None, None]
+             + self.bias[:, None, None])
         return y.to(self.dtype)
+
+
+class Dropout(nn.Module):
+    """flax nn.Dropout in train mode (keep with probability 1 - p, scale by
+    1 / (1 - p)), the identity in eval mode or at p = 0. `backend` "auto"
+    selects the fused kernel on the accelerator, as in JAX (the Encoder
+    turns "auto" into "xla" where the conv kernels are off)."""
+
+    def __init__(self, rate: float, backend: str):
+        super().__init__()
+        self.rate = rate
+        self.backend = backend
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.backend == "pallas" or (self.backend == "auto"
+                                        and x.is_cuda):
+            raise NotImplementedError(_DROPOUT_ROW)
+        if generator is None:
+            raise ValueError("train-mode dropout needs a torch.Generator "
+                             "(flax's 'dropout' rng)")
+        keep_prob = 1.0 - self.rate
+        keep = torch.rand(x.shape, generator=generator,
+                          device=x.device) < keep_prob
+        return torch.where(keep, x / keep_prob, x.new_zeros(()))
 
 
 class ConvBlock(nn.Module):
@@ -101,16 +153,20 @@ class ConvBlock(nn.Module):
     (UAPS_unet.py:31-47)."""
 
     def __init__(self, cin: int, cout: int, dropout: float,
-                 dtype: torch.dtype, kernel: bool):
+                 dtype: torch.dtype, kernel: bool,
+                 dropout_backend: str = "auto"):
         super().__init__()
         self.conv_conv = nn.Sequential(
             Conv3x3(cin, cout, dtype, kernel=kernel), BatchNorm(cout, dtype),
-            nn.LeakyReLU(0.01), nn.Dropout(dropout),
+            nn.LeakyReLU(0.01), Dropout(dropout, dropout_backend),
             Conv3x3(cout, cout, dtype, kernel=kernel), BatchNorm(cout, dtype),
             nn.LeakyReLU(0.01))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv_conv(x)
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        c = self.conv_conv
+        x = c[3](c[2](c[1](c[0](x))), generator)
+        return c[6](c[5](c[4](x)))
 
 
 def max_pool_2x2(x: torch.Tensor, kernel: bool) -> torch.Tensor:
@@ -134,14 +190,18 @@ class DownBlock(nn.Module):
     """2x2 max-pool then ConvBlock (UAPS_unet.py:50-62)."""
 
     def __init__(self, cin: int, cout: int, dropout: float,
-                 dtype: torch.dtype, pool_kernel: bool, conv_kernel: bool):
+                 dtype: torch.dtype, pool_kernel: bool, conv_kernel: bool,
+                 dropout_backend: str = "auto"):
         super().__init__()
         self.maxpool_conv = nn.Sequential(
             MaxPool2x2(pool_kernel),
-            ConvBlock(cin, cout, dropout, dtype, conv_kernel))
+            ConvBlock(cin, cout, dropout, dtype, conv_kernel,
+                      dropout_backend))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.maxpool_conv(x)
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        pool, block = self.maxpool_conv
+        return block(pool(x), generator)
 
 
 def _align_corners_weights(n_in: int, n_out: int, device) -> torch.Tensor:
@@ -224,21 +284,28 @@ class Encoder(nn.Module):
 
     def __init__(self, in_chns: int, features: Sequence[int],
                  dropout: Sequence[float], dtype: torch.dtype,
-                 nchw_levels: int, conv_kernel: bool, pool_kernel: bool):
+                 nchw_levels: int, conv_kernel: bool, pool_kernel: bool,
+                 dropout_backend: str = "auto"):
         super().__init__()
         ft, dp = features, dropout
+        # JAX's "auto" takes the fused dropout kernel only where the conv
+        # kernels are on (conv_backend != "xla"), at every level
+        drop = ("xla" if dropout_backend == "auto" and not conv_kernel
+                else dropout_backend)
         self.in_conv = ConvBlock(in_chns, ft[0], dp[0], dtype,
-                                 conv_kernel and 0 < nchw_levels)
+                                 conv_kernel and 0 < nchw_levels, drop)
         for i in range(1, 5):
             self.add_module(f"down{i}", DownBlock(
                 ft[i - 1], ft[i], dp[i], dtype,
                 pool_kernel and i - 1 < nchw_levels,
-                conv_kernel and i < nchw_levels))
+                conv_kernel and i < nchw_levels, drop))
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        feats = [self.in_conv(x)]
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> List[torch.Tensor]:
+        feats = [self.in_conv(x, generator)]
         for i in range(1, 5):
-            feats.append(getattr(self, f"down{i}")(feats[-1]))
+            feats.append(getattr(self, f"down{i}")(feats[-1], generator))
         return feats
 
 
@@ -297,7 +364,9 @@ def _to_nchw(x: torch.Tensor) -> torch.Tensor:
 
 
 def _to_nhwc(x: torch.Tensor) -> torch.Tensor:
-    return x.permute(0, 2, 3, 1).contiguous()
+    """The NHWC view of NCHW logits (no copy: the loss kernels and softmax
+    read it through its strides)."""
+    return x.permute(0, 2, 3, 1)
 
 
 class UNet(nn.Module):
@@ -308,18 +377,22 @@ class UNet(nn.Module):
                  dtype: torch.dtype = torch.float32, nchw_levels: int = 0,
                  conv_backend: str = "auto", head_variant: str = "taps",
                  pool_backend: str = "auto", bn_backend: str = "auto",
+                 dropout_backend: str = "auto",
                  features: Sequence[int] = UNET_FEATURES,
                  dropout: Sequence[float] = UNET_DROPOUT):
         super().__init__()
         conv_k, pool_k = _kernel_flags(conv_backend, pool_backend,
                                        bn_backend)
         self.encoder = Encoder(in_chns, features, dropout, dtype,
-                               nchw_levels, conv_k, pool_k)
+                               nchw_levels, conv_k, pool_k, dropout_backend)
         self.decoder = Decoder(num_classes, features, dtype, nchw_levels,
                                conv_k, head_variant)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _to_nhwc(self.decoder(self.encoder(_to_nchw(x))))
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """NHWC images -> NHWC f32 logits; `generator` feeds dropout in
+        train mode."""
+        return _to_nhwc(self.decoder(self.encoder(_to_nchw(x), generator)))
 
 
 class MultiDecoderUNet(nn.Module):
@@ -334,6 +407,7 @@ class MultiDecoderUNet(nn.Module):
                  nchw_levels: int = 0, conv_backend: str = "auto",
                  head_variant: str = "taps", pool_backend: str = "auto",
                  bn_backend: str = "auto", packed_heads: bool = False,
+                 dropout_backend: str = "auto",
                  features: Sequence[int] = UNET_FEATURES,
                  dropout: Sequence[float] = UNET_DROPOUT):
         super().__init__()
@@ -344,7 +418,7 @@ class MultiDecoderUNet(nn.Module):
                                        bn_backend)
         self.perturbations = tuple(perturbations)
         self.encoder = Encoder(in_chns, features, dropout, dtype,
-                               nchw_levels, conv_k, pool_k)
+                               nchw_levels, conv_k, pool_k, dropout_backend)
 
         def decoder():
             return Decoder(num_classes, features, dtype, nchw_levels,
@@ -356,13 +430,16 @@ class MultiDecoderUNet(nn.Module):
 
     def forward(self, x: torch.Tensor):
         raise NotImplementedError(
-            "the perturbed multi-decoder forward comes with the training "
-            "slice (ROADMAP.md Queue A items 2-3, Queue B #8-#9); serving "
-            "uses main_only")
+            "the perturbed multi-decoder forward comes with the UAPS step: "
+            "ROADMAP.md Queue A item 4, Queue B #8-#10; serving and "
+            "validation use main_only")
 
-    def main_only(self, x: torch.Tensor) -> torch.Tensor:
+    def main_only(self, x: torch.Tensor,
+                  generator: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
         """Encoder + main decoder only: the eval/serving path."""
-        return _to_nhwc(self.main_decoder(self.encoder(_to_nchw(x))))
+        return _to_nhwc(self.main_decoder(self.encoder(_to_nchw(x),
+                                                       generator)))
 
 
 def lecun_normal_(t: torch.Tensor, generator: torch.Generator) -> None:

@@ -4,15 +4,16 @@
     masks, probs = engine.predict(images_u8)   # numpy in, numpy out
 
 `predict` keeps the JAX contract (serve.py:142-169): uint8 NHWC images are
-normalised with `uaps_tpu.native.normalize_batch` (float input is taken as
+normalised as (x / 255 - mean) / std in f32 (float input is taken as
 already normalised), cut into micro-batches of `batch_size` with the last
 one padded by repeating its last image, run through the main decoder,
 softmaxed in f32 and argmaxed; it returns int32 masks [N, H, W] and f32
 probs [N, H, W, C]. For concurrent traffic, `uaps_tpu_torch.server` puts
-`uaps_tpu.server.AsyncBatcher` and its HTTP front in front of this engine.
+its `AsyncBatcher` and HTTP front in front of this engine.
 
-Weights come from a `.pth` (a reference checkpoint, or JAX weights written
-by `uaps_tpu.utils.torch_import.save_pth`) or from a state dict.
+Weights come from a `.pth` (a reference checkpoint, one written by the
+port's trainer, or JAX weights written by the JAX package's `save_pth`) or
+from a state dict.
 """
 from __future__ import annotations
 
@@ -68,9 +69,12 @@ class InferenceEngine:
     # ------------------------------------------------------------------
     def _normalize(self, images: np.ndarray) -> np.ndarray:
         if images.dtype == np.uint8:
-            from uaps_tpu import native
-            return native.normalize_batch(images, self.cfg.data.mean,
-                                          self.cfg.data.std)
+            # (x / 255 - mean) / std in f32, the same IEEE operations as
+            # numpy's, in torch's multi-threaded CPU ops (numpy's
+            # broadcast over C = 3 is ~10x slower)
+            x = torch.from_numpy(np.ascontiguousarray(images)).float()
+            x.div_(255.0).sub_(torch.tensor(self.cfg.data.mean))
+            return x.div_(torch.tensor(self.cfg.data.std)).numpy()
         return images.astype(np.float32)
 
     def _microbatches(self, x: np.ndarray):

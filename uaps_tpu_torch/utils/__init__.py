@@ -1,1 +1,1 @@
-"""Host-side utilities of the port: weight loading and the serving CLI."""
+"""Host-side utilities of the port: config tree, CLI flags, weights, logs."""
