@@ -45,10 +45,34 @@ Phases (any failure: exit 1 and no result line):
      the plain path's step time;
   8. training times: per kernel and shape of one bf16 step, the kernel's
      ms, its plain version's, the library call's and the bound; a profile
-     of 2 kernel-path steps.
-It then prints {"kernels": [...]} (launches from phase 7) and, last,
-{"ok": true, "device": ...}. Details go to chiprun_out/chip_smoke.json. It
-exits non-zero without CUDA, and outside the repository.
+     of 2 kernel-path steps;
+  9. UAPS kernels: every perturbation kernel (dropout at each level's rate
+     and at 0.5, feature noise, feature dropout) forward and backward at
+     the 5 skip shapes of a neu UAPS step (B=16), f32 and bf16, equal to
+     its plain version bit for bit, the backward regenerating the
+     forward's mask; on the card, dropout's zero share within 0.01 of p
+     over 16.8 M elements, noise in [-r, r) and shared across the batch,
+     feature dropout's threshold in [0.7, 0.9] x max; the fused
+     uncertainty forward and backward on 4 x [16, 256, 256, 4] f32 NHWC
+     views: var and dlogits within rtol = atol = 1e-5, pseudo-labels equal
+     on >= 99.99% of pixels, differing only where the two classes' mixes
+     agree to 2e-6;
+ 10. UAPS training: the faithful step as `python -m uaps_tpu_torch.train
+     --preset neu --method uaps --dtype bfloat16 --dataset synthetic`
+     builds it (unet_uaps, 16 + 16 images, 256 x 256, fused dropout on): 3
+     warm-up and 10 timed steps with finite losses and the launch counts
+     of UAPS_STEP_LAUNCHES per step; one step of the kernel path and one
+     of the plain path past the ramp (w1 = w2 = 0.1) from the same weights,
+     batch, seeds and mix_w (every perturbation on), within the bf16
+     tolerances of Smoke._compare_steps, each loss term too; peak memory;
+     InferenceEngine.uncertainty on the trained weights;
+ 11. UAPS times: per new kernel and step shape, ms (L2 flushed), the plain
+     version's, the library call's (F.dropout; none for the others) and
+     the bound, summed per step by launches; a profile of 2 UAPS steps.
+It then prints {"kernels": [...]} (launches from phase 7 for the baseline
+kernels and from phase 10 for the UAPS kernels) and, last, {"ok": true,
+"device": ...}. Details go to OUT_DIR/chip_smoke.json. It exits
+non-zero without CUDA, and outside the repository.
 """
 from __future__ import annotations
 
@@ -84,11 +108,34 @@ CONV_PER_BATCH, POOL_PER_BATCH = len(CONV_SHAPES), len(POOL_SHAPES)
 DGRAD_SHAPES = CONV_SHAPES[1:]
 NUM_CLASSES = 4
 TRAIN_WARMUP, TRAIN_STEPS = 3, 10
-# kernel launches per baseline step, by launch counter
+# kernel launches per baseline step (plain dropout), by launch counter
 STEP_LAUNCHES = {"conv3x3_nchw": 9, "conv3x3_nchw_dgrad": 8,
                  "conv3x3_nchw_wgrad": 9, "max_pool_2x2_nchw": 2,
                  "max_pool_2x2_nchw_bwd": 2, "ce_dice_fwd": 1,
-                 "ce_dice_bwd": 1}
+                 "ce_dice_bwd": 1, "fused_dropout": 0, "feature_noise": 0,
+                 "feature_dropout": 0, "feature_dropout_bwd": 0,
+                 "uncertainty_fwd": 0, "uncertainty_bwd": 0}
+# ... and per UAPS step: two forwards (labelled, unlabelled), each the
+# encoder (4 kernel convs, 2 pools, 5 dropouts) and 4 decoders (5 kernel
+# convs each), 3 x 5 perturbed skips; 4 + 4 CE+Dice; one uncertainty
+UAPS_STEP_LAUNCHES = {"conv3x3_nchw": 48, "conv3x3_nchw_dgrad": 46,
+                      "conv3x3_nchw_wgrad": 48, "max_pool_2x2_nchw": 4,
+                      "max_pool_2x2_nchw_bwd": 4, "ce_dice_fwd": 8,
+                      "ce_dice_bwd": 8, "fused_dropout": 40,
+                      "feature_noise": 20, "feature_dropout": 10,
+                      "feature_dropout_bwd": 10, "uncertainty_fwd": 1,
+                      "uncertainty_bwd": 1}
+N_DEC = 4
+# the 5 encoder levels of a neu step: (channels, H = W); the encoder's
+# dropout rates by level
+LEVELS = [(16, HW), (32, HW // 2), (64, HW // 4), (128, HW // 8),
+          (256, HW // 16)]
+ENC_DROPOUT = (0.05, 0.1, 0.2, 0.3, 0.5)
+# launches per UAPS step at each level shape: dropout 2 encoder + 2
+# perturbation forwards and as many backwards; feature noise 2 + 2;
+# feature dropout 2 forwards, 2 backwards
+PER_LEVEL = {"fused_dropout": 8, "feature_noise": 4, "feature_dropout": 2,
+             "feature_dropout_bwd": 2}
 # the least time the card could take: published H100 SXM peaks
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
@@ -102,22 +149,35 @@ def counters():
     """{kernel name: launch count} of every wrapper."""
     from uaps_tpu_torch.kernels import ce_dice as kce
     from uaps_tpu_torch.kernels import conv3x3_nchw as kc
+    from uaps_tpu_torch.kernels import perturb as kpt
     from uaps_tpu_torch.kernels import pool_nchw as kp
+    from uaps_tpu_torch.kernels import uncertainty as kun
     return {"conv3x3_nchw": kc.launches,
             "conv3x3_nchw_dgrad": kc.dgrad_launches,
             "conv3x3_nchw_wgrad": kc.wgrad_launches,
             "max_pool_2x2_nchw": kp.launches,
             "max_pool_2x2_nchw_bwd": kp.bwd_launches,
-            "ce_dice_fwd": kce.fwd_launches, "ce_dice_bwd": kce.bwd_launches}
+            "ce_dice_fwd": kce.fwd_launches, "ce_dice_bwd": kce.bwd_launches,
+            "fused_dropout": kpt.dropout_launches,
+            "feature_noise": kpt.noise_launches,
+            "feature_dropout": kpt.fdrop_launches,
+            "feature_dropout_bwd": kpt.fdrop_bwd_launches,
+            "uncertainty_fwd": kun.fwd_launches,
+            "uncertainty_bwd": kun.bwd_launches}
 
 
 def reset_counters():
     from uaps_tpu_torch.kernels import ce_dice as kce
     from uaps_tpu_torch.kernels import conv3x3_nchw as kc
+    from uaps_tpu_torch.kernels import perturb as kpt
     from uaps_tpu_torch.kernels import pool_nchw as kp
+    from uaps_tpu_torch.kernels import uncertainty as kun
     kc.launches = kc.dgrad_launches = kc.wgrad_launches = 0
     kp.launches = kp.bwd_launches = 0
     kce.fwd_launches = kce.bwd_launches = 0
+    kpt.dropout_launches = kpt.noise_launches = 0
+    kpt.fdrop_launches = kpt.fdrop_bwd_launches = 0
+    kun.fwd_launches = kun.bwd_launches = 0
 
 
 def bound(nbytes, ops, kind):
@@ -872,25 +932,27 @@ class Smoke:
         cfg.model = dataclasses.replace(cfg.model, **model_kw)
         return cfg
 
-    def _step_pair(self, cfg, plain_cfg, init_sd, batch):
-        """One step of the kernel path and one of the plain path from the
-        same weights, batch and dropout generator seed; returns both models
-        and their metrics."""
-        from uaps_tpu_torch.methods import base, baseline
+    def _step_pair(self, method, cfg, plain_cfg, init_sd, batch, want,
+                   step=0):
+        """One step of `method` on the kernel path and one on the plain
+        path from the same weights, batch, generator seed and step count;
+        returns both models and their metrics."""
+        from uaps_tpu_torch.methods import base
         out = []
         for c in (cfg, plain_cfg):
             model = base.build_model(c, self.dev)
             model.load_state_dict(init_sd)
             state = base.init_model_state(c, model)
+            state.step = step
             before = counters()
-            _, m = baseline.make_train_step(c, model)(state, batch)
+            _, m = method.make_train_step(c, model)(state, batch)
             self.sync()
             launched = {k: v - before[k] for k, v in counters().items()}
             out.append((model, {k: float(v) for k, v in m.items()},
                         launched))
         assert not any(out[1][2].values()), \
             f"the plain path launched kernels: {out[1][2]}"
-        assert out[0][2] == STEP_LAUNCHES, out[0][2]
+        assert out[0][2] == want, out[0][2]
         return out
 
     def training(self):
@@ -958,8 +1020,9 @@ class Smoke:
 
         plain_cfg = self._train_config(conv_backend="xla")
         (km, kmet, _), (pm, pmet, _) = self._step_pair(
-            cfg, plain_cfg, init_sd, batches[-1])
-        self._compare_steps(km, pm, kmet, pmet, init_sd, cfg.optim.base_lr)
+            method, cfg, plain_cfg, init_sd, batches[-1], STEP_LAUNCHES)
+        self.report["training"]["kernel_vs_plain"] = self._compare_steps(
+            km, pm, kmet, pmet, init_sd, cfg.optim.base_lr)
 
         ev = base.make_eval_step(cfg, model)(val)
         ev = {k: float(v) for k, v in ev.items()}
@@ -985,7 +1048,8 @@ class Smoke:
         self.train_model, self.train_state = model, state
         self.train_step, self.train_batch = step, batches[0]
 
-    def _compare_steps(self, km, pm, kmet, pmet, init_sd, lr):
+    def _compare_steps(self, km, pm, kmet, pmet, init_sd, lr,
+                       terms=("loss",)):
         """Kernel path against the plain path after one step from the same
         weights. bf16 tolerances: the two paths round at other places
         (cuDNN's bf16 convs accumulate in their own order, the plain head
@@ -994,17 +1058,20 @@ class Smoke:
         (cosine >= 0.98); and since Adam's first update is about
         lr * sign(g), >= 95% of the parameter deltas must agree within
         lr / 2. The biases of the convs that feed a train-mode BN have a
-        zero gradient up to rounding, so they are left out of both."""
+        zero gradient up to rounding, so they are left out of both. Every
+        metric in `terms` is held to the loss's 1e-2 relative."""
         torch = self.torch
-        rel = abs(kmet["loss"] - pmet["loss"]) / abs(pmet["loss"])
+        rels = {k: abs(kmet[k] - pmet[k]) / abs(pmet[k]) for k in terms}
+        rel = max(rels.values())
         pp = dict(pm.named_parameters())
-        worst_cos, agree, total = 1.0, 0, 0
+        worst_cos, worst, agree, total = 1.0, None, 0, 0
         for k, p in km.named_parameters():
             if k.endswith(("conv_conv.0.bias", "conv_conv.4.bias")):
                 continue
             gk, gp = p.grad.float().flatten(), pp[k].grad.float().flatten()
             cos = float(torch.nn.functional.cosine_similarity(gk, gp, dim=0))
-            worst_cos = min(worst_cos, cos)
+            if cos < worst_cos:
+                worst_cos, worst = cos, k
             dk = p.detach().float() - init_sd[k].float()
             dp = pp[k].detach().float() - init_sd[k].float()
             agree += int(((dk - dp).abs() <= lr / 2).sum())
@@ -1012,14 +1079,18 @@ class Smoke:
         share = agree / total
         res = {"loss_kernel": kmet["loss"], "loss_plain": pmet["loss"],
                "loss_rel_diff": rel, "worst_grad_cosine": worst_cos,
-               "delta_agree_share": share}
-        self.report["training"]["kernel_vs_plain"] = res
+               "worst_grad": worst, "delta_agree_share": share,
+               "terms": {k: [kmet[k], pmet[k], r] for k, r in rels.items()}}
         ok = rel <= 1e-2 and worst_cos >= 0.98 and share >= 0.95
-        log(f"step 1, kernel vs plain path: loss {kmet['loss']:.6f} vs "
-            f"{pmet['loss']:.6f} (rel {rel:.2e}, tol 1e-2); worst grad "
-            f"cosine {worst_cos:.5f} (min 0.98); param deltas within lr/2: "
-            f"{share:.5f} (min 0.95) {'ok' if ok else 'MISMATCH'}")
+        log("kernel vs plain path, one step: " + "; ".join(
+            f"{k} {kmet[k]:.6f} vs {pmet[k]:.6f} (rel {r:.2e})"
+            for k, r in rels.items())
+            + f" (tol 1e-2); worst grad cosine {worst_cos:.5f} ({worst}; "
+            f"min 0.98); "
+            f"param deltas within lr/2: {share:.5f} (min 0.95) "
+            f"{'ok' if ok else 'MISMATCH'}")
         assert ok, res
+        return res
 
     # ------------------------------------------------------------ phase 8
     def train_times(self):
@@ -1146,6 +1217,432 @@ class Smoke:
             f"{t['train_device_idle_share']:.3f}; by device time:\n"
             + table)
 
+    # ------------------------------------------------------------ phase 9
+    def _level_case(self, lvl, dtype, seed):
+        """A skip tensor of level `lvl`, a cotangent and a seed, on the
+        card."""
+        torch = self.torch
+        c, hw = LEVELS[lvl]
+        g = self.gen(seed)
+        x = torch.randn((BATCH, c, hw, hw), generator=g,
+                        device=self.dev).to(dtype)
+        gy = torch.randn((BATCH, c, hw, hw), generator=g,
+                         device=self.dev).to(dtype)
+        sd = torch.randint(0, 2 ** 31 - 1, (), generator=g, device=self.dev)
+        return x, gy, sd
+
+    def _unc_case(self, seed):
+        """N_DEC f32 logits [B, 256, 256, C] as the model hands them over
+        (NHWC views of NCHW heads), Dirichlet mix weights and a cotangent
+        of var."""
+        torch = self.torch
+        g = self.gen(seed)
+        logits = [(torch.randn((BATCH, NUM_CLASSES, HW, HW), generator=g,
+                               device=self.dev) * 3).permute(0, 2, 3, 1)
+                  for _ in range(N_DEC)]
+        w = torch.empty(N_DEC, device=self.dev).exponential_(generator=g)
+        gv = torch.randn((N_DEC, BATCH, HW, HW), generator=g,
+                         device=self.dev)
+        return logits, w / w.sum(), gv
+
+    def uaps_kernels(self):
+        """Each UAPS kernel against its plain version (see phase 9 in the
+        module docstring)."""
+        from uaps_tpu_torch.kernels import perturb as kpt
+        from uaps_tpu_torch.kernels import uncertainty as kun
+        torch = self.torch
+        errs = {n: 0.0 for n in ("fused_dropout", "feature_noise",
+                                 "feature_dropout", "feature_dropout_bwd",
+                                 "uncertainty_fwd", "uncertainty_bwd")}
+        bad = []
+
+        def exact(name, label, got, ref, extra=True):
+            same = (got.shape == ref.shape and got.dtype == ref.dtype
+                    and bool(torch.equal(got, ref)))
+            err = 0.0 if same else float(
+                (got.float() - ref.float()).abs().nan_to_num(1e30).max())
+            errs[name] = max(errs[name], err)
+            ok = same and extra
+            log(f"{label}: {'bit-equal' if same else 'DIFFERS'} "
+                f"(max_abs_err {err:.3e}){'' if extra else ' MASK'} "
+                f"{'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                bad.append(label)
+
+        def run(fn, x, gy, *args):
+            """fn's output and its gradient through the autograd function."""
+            xr = x.clone().requires_grad_()
+            y = fn(xr, *args)
+            y.backward(gy)
+            self.sync()
+            return y.detach(), xr.grad
+
+        def same_mask(x, gy, y, dx):
+            """The backward zeroed exactly what the forward zeroed (CUDA's
+            randn gives an exact 0 about once in 2^25 draws: skip those)."""
+            live = (x != 0) & (gy != 0)
+            return bool(torch.equal((y != 0) & live, (dx != 0) & live))
+
+        for dname, dtype in (("f32", torch.float32),
+                             ("bf16", torch.bfloat16)):
+            for lvl, (c, hw) in enumerate(LEVELS):
+                x, gy, sd = self._level_case(lvl, dtype, SEED + 200 + lvl)
+                shape = f"[{BATCH},{c},{hw},{hw}] {dname}"
+                for rate in sorted({ENC_DROPOUT[lvl], 0.5}):
+                    y, dx = run(kpt.fused_dropout, x, gy, sd, rate)
+                    exact("fused_dropout", f"dropout p={rate} {shape}", y,
+                          kpt.dropout_plain(x, sd, rate))
+                    exact("fused_dropout", f"dropout bwd p={rate} {shape}",
+                          dx, kpt.dropout_plain(gy, sd, rate),
+                          same_mask(x, gy, y, dx))
+                y, dx = run(kpt.fused_feature_noise, x, gy, sd)
+                exact("feature_noise", f"feature noise {shape}", y,
+                      kpt.feature_noise_plain(x, sd, 0.3))
+                exact("feature_noise", f"feature noise bwd {shape}", dx,
+                      kpt.feature_noise_plain(gy, sd, 0.3))
+                y, dx = run(kpt.fused_feature_dropout, x, gy, sd)
+                exact("feature_dropout", f"feature dropout {shape}", y,
+                      kpt.feature_dropout_plain(x, sd))
+                exact("feature_dropout_bwd", f"feature dropout bwd {shape}",
+                      dx, kpt.feature_dropout_bwd_plain(x, gy, sd),
+                      same_mask(x, gy, y, dx))
+        self._perturb_distributions(bad)
+
+        logits, w, gv = self._unc_case(SEED + 300)
+        var, ps = kun.uncertainty_fwd(logits, w)
+        self.sync()
+        rvar, rps = kun.uncertainty_fwd_plain(logits, w)
+        err = float((var - rvar).abs().max())
+        errs["uncertainty_fwd"] = err
+        agree = float((ps == rps).float().mean())
+        x64 = torch.stack([lg.double() for lg in logits])
+        mix = torch.einsum("d,dbhwc->bhwc", w.double(),
+                           torch.softmax(x64, -1))
+        diff = ps != rps
+        gap = float((mix.gather(-1, ps.long()[..., None])
+                     - mix.gather(-1, rps.long()[..., None]))[diff]
+                    .abs().max()) if bool(diff.any()) else 0.0
+        ok = (var.shape == rvar.shape and ps.dtype == torch.int32
+              and ps.is_contiguous()
+              and torch.allclose(var, rvar, rtol=1e-5, atol=1e-5)
+              and agree >= 0.9999 and gap <= 2e-6)
+        log(f"uncertainty fwd {N_DEC} x {list(logits[0].shape)} f32: var "
+            f"max_abs_err {err:.3e} (rtol = atol = 1e-5); pseudo agree "
+            f"{agree:.7f} (min 0.9999), {int(diff.sum())} differ, largest "
+            f"mix gap there {gap:.2e} (max 2e-6) {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            bad.append("uncertainty fwd")
+        dx = kun.uncertainty_bwd(logits, gv)
+        self.sync()
+        rdx = kun.uncertainty_bwd_plain(logits, gv)
+        err = max(float((a - b).abs().max()) for a, b in zip(dx, rdx))
+        errs["uncertainty_bwd"] = err
+        # the kernel writes dlogits through the logits' strides (the plain
+        # version of a CPU rehearsal returns contiguous tensors)
+        ok = ((self.dev.type != "cuda" or all(
+            a.stride() == lg.stride() for a, lg in zip(dx, logits)))
+              and all(torch.allclose(a, b, rtol=1e-5, atol=1e-5)
+                      for a, b in zip(dx, rdx)))
+        log(f"uncertainty bwd: dlogits max_abs_err {err:.3e} (max "
+            f"|dlogits| {max(float(b.abs().max()) for b in rdx):.3e}; "
+            f"rtol = atol = 1e-5) {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            bad.append("uncertainty bwd")
+        for name, e in errs.items():
+            self.report["kernels"][name] = {"max_abs_err": e}
+        if bad:
+            raise AssertionError(f"UAPS kernel mismatches: {bad}")
+
+    def _perturb_distributions(self, bad):
+        """The generator's distributions on the card, at the level-0 shape
+        [16, 16, 256, 256] (16.8 M elements)."""
+        from uaps_tpu_torch.kernels import perturb as kpt
+        torch = self.torch
+        c, hw = LEVELS[0]
+        sd = torch.tensor(20260, device=self.dev)
+        ones = torch.ones((BATCH, c, hw, hw), device=self.dev)
+        for rate in (0.5, 0.05):
+            y = kpt.fused_dropout(ones, sd, rate)
+            zero = float((y == 0).float().mean())
+            scale = float(torch.tensor(1.0 / (1.0 - rate)))
+            ok = (abs(zero - rate) < 0.01 and bool((y[y != 0] == scale).all())
+                  and not torch.equal(y[0], y[1]))
+            log(f"dropout p={rate} over {y.numel()} elements: zero share "
+                f"{zero:.6f}, survivors = 1/(1-p), masks differ per example "
+                f"{'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                bad.append(f"dropout distribution p={rate}")
+        # the draw itself lies in [-r, r); x * (1 + u) - 1 at x = 1 within
+        # an ulp of 1.3 of it
+        nz = kpt.noise_draw(sd, ones.shape[1:])
+        u = kpt.fused_feature_noise(ones, sd) - 1.0
+        shared = all(bool(torch.equal(u[0], u[b])) for b in range(BATCH))
+        ok = (bool((nz >= -0.3).all()) and bool((nz < 0.3).all())
+              and float(u.min()) >= -0.3 - 1e-6
+              and float(u.max()) <= 0.3 + 1e-6
+              and abs(float(u.mean())) < 0.01 and shared)
+        log(f"feature noise: draw in [{float(nz.min()):.7f}, "
+            f"{float(nz.max()):.7f}] (in [-0.3, 0.3)), output - 1 in "
+            f"[{float(u.min()):.7f}, {float(u.max()):.7f}], mean "
+            f"{float(u.mean()):.2e}, shared across the batch {shared} "
+            f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            bad.append("feature noise distribution")
+        g = self.gen(SEED + 250)
+        x = torch.randn((BATCH, c, hw, hw), generator=g,
+                        device=self.dev).abs()
+        y = kpt.fused_feature_dropout(x, sd)
+        att = kpt.channel_mean(x)
+        scale = kpt.fdrop_scale(sd)
+        fracs = []
+        for b in range(BATCH):
+            kept = y[b, 0] != 0
+            mx = float(att[b].max())
+            thr = float(att[b].max() * scale)   # f32, as the kernel forms it
+            t_lo, t_hi = float(att[b][kept].max()), float(att[b][~kept].min())
+            fracs.append((t_lo / mx, t_hi / mx))
+            ok = (t_lo < thr <= t_hi and 0.7 * mx <= t_hi
+                  and t_lo <= 0.9 * mx
+                  and bool(torch.equal(y[b][:, kept], x[b][:, kept])))
+            if not ok:
+                bad.append(f"feature dropout threshold, example {b}")
+        log(f"feature dropout: scale {float(scale):.6f}; per example, kept "
+            f"attention below and dropped at or above scale x max "
+            f"(fractions of max from {min(f[0] for f in fracs):.4f} to "
+            f"{max(f[1] for f in fracs):.4f})")
+
+    # ------------------------------------------------------------ phase 10
+    def _uaps_config(self, **model_kw):
+        """The UAPS slice as `python -m uaps_tpu_torch.train --preset neu
+        --method uaps --dtype bfloat16 --dataset synthetic` builds it, with
+        `model_kw` on top (and BATCH, HW where a rehearsal shrinks them)."""
+        from uaps_tpu_torch.utils.cli import parse_args
+        cfg, _ = parse_args(["--preset", "neu", "--method", "uaps",
+                             "--dtype", "bfloat16", "--dataset",
+                             "synthetic"])
+        cfg.model = dataclasses.replace(cfg.model, **model_kw)
+        if (cfg.data.batch_size, cfg.data.image_size) != (BATCH, (HW, HW)):
+            cfg.data = dataclasses.replace(cfg.data, batch_size=BATCH,
+                                           image_size=(HW, HW))
+        return cfg
+
+    def uaps_training(self):
+        """The UAPS slice at full width (see phase 10 in the module
+        docstring)."""
+        import numpy as np
+        from uaps_tpu_torch.data import SyntheticDefects
+        from uaps_tpu_torch.methods import get_method
+        from uaps_tpu_torch.serve import InferenceEngine
+        from uaps_tpu_torch.train import to_device
+        torch = self.torch
+        cfg = self._uaps_config()
+        assert (cfg.model.name, cfg.model.compute_dtype,
+                cfg.model.dropout_backend, cfg.model.n_aux + 1) == (
+                    "unet_uaps", "bfloat16", "auto", N_DEC), cfg
+        t0 = time.perf_counter()
+        data = SyntheticDefects(cfg.data, seed=SEED)
+        it = data.train_iter()
+        batches = [to_device(next(it), self.dev)
+                   for _ in range(TRAIN_WARMUP + TRAIN_STEPS + 1)]
+        log(f"UAPS data: {len(batches)} synthetic batches of {BATCH} + "
+            f"{BATCH} images in {time.perf_counter() - t0:.1f} s")
+        method = get_method("uaps")
+        state, model = method.init_state(
+            cfg, self.dev, torch.Generator().manual_seed(SEED))
+        init_sd = {k: v.detach().clone() for k, v in
+                   model.state_dict().items()}
+        step = method.make_train_step(cfg, model)
+        self.sync()
+        if self.dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        reset_counters()       # the UAPS path's run starts here
+        losses, step_ms = [], []
+        n_steps = TRAIN_WARMUP + TRAIN_STEPS
+        for i in range(n_steps):
+            t0 = time.perf_counter()
+            state, m = step(state, batches[i])
+            self.sync()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append({k: float(v) for k, v in m.items()})
+        self.uaps_launches = counters()   # ... and ends here
+        timed = step_ms[TRAIN_WARMUP:]
+        t = self.report["times"]
+        t["uaps_step_ms"] = {"median": statistics.median(timed),
+                             "min": min(timed), "max": max(timed),
+                             "all": step_ms}
+        t["uaps_imgs_per_s"] = 2 * BATCH / statistics.median(timed) * 1e3
+        if self.dev.type == "cuda":
+            t["uaps_peak_mem_gib"] = (torch.cuda.max_memory_allocated()
+                                      / 2 ** 30)
+        log("UAPS losses: " + ", ".join(f"{m['loss']:.4f}" for m in losses))
+        log(f"launches over {n_steps} UAPS steps: "
+            f"{json.dumps(self.uaps_launches)}")
+        log(f"time UAPS step bf16 B={BATCH}+{BATCH} (host clock, sync each "
+            f"step): median {t['uaps_step_ms']['median']:.3f} ms [min "
+            f"{t['uaps_step_ms']['min']:.3f}, max "
+            f"{t['uaps_step_ms']['max']:.3f}] over {TRAIN_STEPS} steps = "
+            f"{t['uaps_imgs_per_s']:.1f} imgs/s (labelled + unlabelled); "
+            f"peak memory {t.get('uaps_peak_mem_gib', 0.0):.3f} GiB")
+        self.report["uaps"] = {"losses": losses,
+                               "launches": self.uaps_launches}
+        assert all(np.isfinite(v) for m in losses for v in m.values()), \
+            "non-finite UAPS metrics"
+        want = {k: v * n_steps for k, v in UAPS_STEP_LAUNCHES.items()}
+        assert self.uaps_launches == want, (self.uaps_launches, want)
+
+        # one step on each path past the ramp, every perturbation on
+        mcfg = cfg.method
+        ramp_end = int(mcfg.ramp_iters * mcfg.consistency_rampup)
+        batch = dict(batches[-1], mix_w=torch.tensor(
+            [0.4, 0.3, 0.2, 0.1], device=self.dev))
+        plain_cfg = self._uaps_config(conv_backend="xla")
+        (km, kmet, _), (pm, pmet, _) = self._step_pair(
+            method, cfg, plain_cfg, init_sd, batch, UAPS_STEP_LAUNCHES,
+            step=ramp_end)
+        assert abs(kmet["consistency_w1"] - 0.1) < 1e-7, kmet
+        assert abs(kmet["consistency_w2"] - 0.1) < 1e-7, kmet
+        self.report["uaps"]["kernel_vs_plain"] = self._compare_steps(
+            km, pm, kmet, pmet, init_sd, cfg.optim.base_lr,
+            terms=("loss", "sup_loss", "ps_loss", "uncertainty_loss"))
+
+        # on the card, the unfused uncertainty route needs the fused
+        # pseudo-label kernel (not ported) and says so
+        if self.dev.type == "cuda":
+            try:
+                method.make_train_step(dataclasses.replace(
+                    cfg, method=dataclasses.replace(
+                        mcfg, fused_uncertainty=False)), model)
+                raise AssertionError("fused_uncertainty=False did not raise")
+            except NotImplementedError as exc:
+                assert "Queue B #12" in str(exc), exc
+
+        engine = InferenceEngine(cfg, state_dict=model.state_dict(),
+                                 device=self.dev)
+        imgs = np.random.default_rng(SEED).integers(
+            0, 256, (BATCH, HW, HW, 3), dtype=np.uint8)
+        u = engine.uncertainty(imgs)
+        again = engine.uncertainty(imgs)
+        log(f"InferenceEngine.uncertainty: {u.shape} {u.dtype}, mean "
+            f"{float(u.mean()):.4e}, max {float(u.max()):.4e}; repeatable "
+            f"{bool((u == again).all())}")
+        assert (u.shape == (BATCH, HW, HW) and np.isfinite(u).all()
+                and (u == again).all() and float(u.min()) > -1e-5)
+        self.uaps_model, self.uaps_state = model, state
+        self.uaps_step, self.uaps_batch = step, batches[0]
+
+    # ------------------------------------------------------------ phase 11
+    def uaps_times(self):
+        """Per UAPS kernel and step shape (bf16 perturbations, f32
+        uncertainty): ms with the L2 flushed before each call, the plain
+        version's and the library call's, and the bound; the kernels' rows
+        sum them per step by launches. Then a profile of 2 UAPS steps."""
+        import torch.nn.functional as F
+        from uaps_tpu_torch.kernels import perturb as kpt
+        from uaps_tpu_torch.kernels import uncertainty as kun
+        torch = self.torch
+        bf = torch.bfloat16
+        rows = {k: [] for k in ("fused_dropout", "feature_noise",
+                                "feature_dropout", "feature_dropout_bwd",
+                                "uncertainty_fwd", "uncertainty_bwd")}
+
+        def add(name, label, per_step, kern, plain, lib, nbytes, ops, kind):
+            row = {"shape": label, "per_step": per_step,
+                   "ms": self.time_ms(kern, cold=True),
+                   "plain_ms": self.time_ms(plain, cold=True),
+                   "library_ms": (None if lib is None
+                                  else self.time_ms(lib, cold=True))}
+            row["bound_ms"], row["bound_by"] = bound(nbytes, ops, kind)
+            rows[name].append(row)
+            lib_s = ("-" if lib is None else f"{row['library_ms']:.4f} ms")
+            log(f"time {name} {label} x{per_step}/step: kernel "
+                f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+                f"library {lib_s}, bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']})")
+
+        for lvl, (c, hw) in enumerate(LEVELS):
+            x, gy, sd = self._level_case(lvl, bf, SEED + 200 + lvl)
+            with torch.no_grad():
+                _, mx = kpt._fdrop_fwd(x, sd)
+            n = x.numel() * 2
+            label = f"[{BATCH},{c},{hw},{hw}]"
+            add("fused_dropout", label, PER_LEVEL["fused_dropout"],
+                lambda: kpt._dropout(x, sd, 0.5),
+                lambda: kpt.dropout_plain(x, sd, 0.5),
+                lambda: F.dropout(x, 0.5, training=True), 2 * n, 0, "bf16")
+            add("feature_noise", label, PER_LEVEL["feature_noise"],
+                lambda: kpt._noise(x, sd, 0.3),
+                lambda: kpt.feature_noise_plain(x, sd, 0.3), None,
+                2 * n, 0, "bf16")
+            add("feature_dropout", label, PER_LEVEL["feature_dropout"],
+                lambda: kpt._fdrop_fwd(x, sd),
+                lambda: kpt.feature_dropout_plain(x, sd), None,
+                2 * n, 0, "bf16")
+            add("feature_dropout_bwd", label,
+                PER_LEVEL["feature_dropout_bwd"],
+                lambda: kpt._fdrop_bwd(x, gy, sd, mx),
+                lambda: kpt.feature_dropout_bwd_plain(x, gy, sd), None,
+                3 * n, 0, "bf16")
+        logits, w, gv = self._unc_case(SEED + 300)
+        px = BATCH * HW * HW
+        label = f"{N_DEC} x [{BATCH},{HW},{HW},{NUM_CLASSES}] f32"
+        add("uncertainty_fwd", label, 1,
+            lambda: kun.uncertainty_fwd(logits, w),
+            lambda: kun.uncertainty_fwd_plain(logits, w), None,
+            N_DEC * px * NUM_CLASSES * 4 + N_DEC * px * 4 + px * 4,
+            N_DEC * px * NUM_CLASSES * 12, "f32")
+        add("uncertainty_bwd", label, 1,
+            lambda: kun.uncertainty_bwd(logits, gv),
+            lambda: kun.uncertainty_bwd_plain(logits, gv), None,
+            2 * N_DEC * px * NUM_CLASSES * 4 + N_DEC * px * 4,
+            N_DEC * px * NUM_CLASSES * 20, "f32")
+        t = self.report["times"]
+        t["uaps_kernels"] = rows
+        for name, rs in rows.items():
+            def per_step(key):
+                return sum(r[key] * r["per_step"] for r in rs)
+            by_bytes = sum(r["bound_ms"] * r["per_step"] for r in rs
+                           if r["bound_by"] == "bytes")
+            self.report["kernels"][name].update(
+                ms=per_step("ms"), plain_ms=per_step("plain_ms"),
+                library_ms=(None if rs[0]["library_ms"] is None
+                            else per_step("library_ms")),
+                bound_ms=per_step("bound_ms"),
+                bound_by=("bytes" if by_bytes * 2 >= per_step("bound_ms")
+                          else "operations"))
+            k = self.report["kernels"][name]
+            log(f"per UAPS step, {name}: kernel {k['ms']:.4f} ms, plain "
+                f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms")
+        self.profile_uaps()
+
+    def profile_uaps(self):
+        """Device time by kernel over 2 UAPS steps. Best effort, as the
+        other profiles."""
+        from torch.profiler import ProfilerActivity, profile
+        cuda = self.torch.autograd.DeviceType.CUDA
+        t = self.report["times"]
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(2):
+                    self.uaps_step(self.uaps_state, self.uaps_batch)
+                self.sync()
+            events = prof.key_averages()
+            table = events.table(sort_by="cuda_time_total", row_limit=40)
+        except RuntimeError as exc:
+            log(f"profiler unavailable: {exc}")
+            return
+        busy = sum(e.self_device_time_total for e in events
+                   if e.device_type == cuda) / 2 / 1e3
+        step = t["uaps_step_ms"]["median"]
+        t["uaps_device_busy_ms"] = busy
+        t["uaps_device_idle_share"] = 1.0 - busy / step
+        with open(os.path.join(OUT_DIR, "chip_smoke_profile_uaps.txt"),
+                  "w") as f:
+            f.write(table)
+        log(f"device busy {busy:.3f} ms per UAPS step (profiler) of "
+            f"{step:.3f} ms (host clock, median): idle share "
+            f"{t['uaps_device_idle_share']:.3f}; by device time:\n" + table)
+
 
 # the kernels line: (launch counter, CUDA source, the TPU kernel replaced)
 KERNELS = [
@@ -1158,7 +1655,16 @@ KERNELS = [
     ("max_pool_2x2_nchw_bwd", "pool_nchw", "uaps_tpu/pallas/pool_nchw.py:161"),
     ("ce_dice_fwd", "ce_dice", "uaps_tpu/pallas/ce_dice.py:103"),
     ("ce_dice_bwd", "ce_dice", "uaps_tpu/pallas/ce_dice.py:157"),
+    ("fused_dropout", "perturb", "uaps_tpu/pallas/perturb.py:83"),
+    ("feature_noise", "perturb", "uaps_tpu/pallas/perturb.py:106"),
+    ("feature_dropout", "perturb", "uaps_tpu/pallas/perturb.py:259"),
+    ("feature_dropout_bwd", "perturb", "uaps_tpu/pallas/perturb.py:327"),
+    ("uncertainty_fwd", "uncertainty", "uaps_tpu/pallas/uncertainty.py:155"),
+    ("uncertainty_bwd", "uncertainty", "uaps_tpu/pallas/uncertainty.py:193"),
 ]
+# the kernels whose launches the UAPS run (phase 10) reports
+UAPS_KERNELS = ("fused_dropout", "feature_noise", "feature_dropout",
+                "feature_dropout_bwd", "uncertainty_fwd", "uncertainty_bwd")
 
 
 def main() -> int:
@@ -1188,6 +1694,9 @@ def main() -> int:
         s.phase("6 training kernels vs plain", s.train_kernels)
         if s.phase("7 training", s.training):
             s.phase("8 training times", s.train_times)
+        s.phase("9 UAPS kernels vs plain", s.uaps_kernels)
+        if s.phase("10 UAPS training", s.uaps_training):
+            s.phase("11 UAPS times", s.uaps_times)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(s.report, f, indent=1, default=str)
@@ -1200,7 +1709,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"uaps_tpu_torch/csrc/{src}.cu", "replaces": replaces,
-            "launches": s.train_launches[name],
+            "launches": (s.uaps_launches if name in UAPS_KERNELS
+                         else s.train_launches)[name],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"]})

@@ -63,3 +63,54 @@ def port_logits(model, x):
     with torch.inference_mode():
         fwd = getattr(model, "main_only", model)
         return fwd(torch.from_numpy(x)).numpy()
+
+
+# the biases of the convs that feed a train-mode BN: their exact gradient is
+# 0 (BN subtracts the batch mean), so both packages give rounding noise
+ZERO_GRAD_BIASES = ("conv_conv.0.bias", "conv_conv.4.bias")
+
+
+def jax_sd(params, stats=None):
+    """{torch name: numpy} of JAX trees (params, grads, batch stats)."""
+    from uaps_tpu_torch.utils.weights import state_dict_from_jax
+    return {k: v.numpy()
+            for k, v in state_dict_from_jax(params, stats or {}).items()
+            if not k.endswith("num_batches_tracked")}
+
+
+def running(sd):
+    return {k: v for k, v in sd.items() if "running" in k}
+
+
+def check_params(jparams, psd, jgrad, steps, lr, atol):
+    """Params after `steps` Adam steps: elements whose JAX step-1 gradient
+    is at the packages' rounding noise (below 1e-6 of the largest, or a
+    BN-fed conv bias) held to 2 * steps * lr * 1.05, the rest to `atol`
+    (tests/test_torch_port_train.py docstring)."""
+    scale = max(np.abs(g).max() for g in jgrad.values())
+    for k, pj in jparams.items():
+        pp = psd[k]
+        noisy = np.abs(jgrad[k]) < 1e-6 * scale
+        if k.endswith(ZERO_GRAD_BIASES):
+            noisy[...] = True
+        bound = 2 * steps * lr * 1.05
+        assert np.abs(pp - pj)[noisy].max(initial=0.0) <= bound, k
+        np.testing.assert_allclose(pp[~noisy], pj[~noisy], rtol=0,
+                                   atol=atol, err_msg=k)
+
+
+class Counts:
+    """Counts calls of the port's kernel-module functions (the launch
+    counters stay 0 on the CPU): `targets` are (module, attribute) pairs,
+    patched through the monkeypatch `mp`."""
+
+    def __init__(self, mp, targets):
+        self.n = {}
+        for mod, name in targets:
+            mp.setattr(mod, name, self._wrap(name, getattr(mod, name)))
+
+    def _wrap(self, name, fn):
+        def counted(*a, **kw):
+            self.n[name] = self.n.get(name, 0) + 1
+            return fn(*a, **kw)
+        return counted

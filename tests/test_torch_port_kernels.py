@@ -264,4 +264,5 @@ def test_build_raises_without_nvcc(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.find_nvcc()
     assert _build.sources() == ["ce_dice", "conv3x3_nchw",
-                                "conv3x3_wgrad_nchw", "pool_nchw"]
+                                "conv3x3_wgrad_nchw", "perturb", "pool_nchw",
+                                "uncertainty"]

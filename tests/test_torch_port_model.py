@@ -129,24 +129,32 @@ def test_unported_knobs_raise(knob, value):
 
 
 def test_bad_enum_and_training_forward_raise():
-    """A bad enum raises; the perturbed multi-decoder forward raises until
-    the UAPS step; train mode runs main_only with dropout from an explicit
-    generator, and the unported fused dropout kernel raises."""
+    """A bad enum raises; the perturbed multi-decoder forward needs a
+    generator (for its perturbations, in eval mode too) and returns the 4
+    decoders' logits; train mode runs main_only with dropout from an
+    explicit generator, and the fused dropout module ("pallas") runs its
+    plain version on the CPU, drawing what the plain ops ("xla") draw."""
     with pytest.raises(ValueError, match="conv_variant"):
         build_model(neu_config("uaps", conv_variant="bogus"), "cpu")
     model = build_model(neu_config("uaps"), "cpu")
     x = torch.zeros((1, 64, 64, 3))
-    with pytest.raises(NotImplementedError, match="UAPS step"):
-        model(x)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="torch.Generator"):
+            model(x)
+        outs = model(x, torch.Generator())
+        assert len(outs) == 4
+        assert all(o.shape == (1, 64, 64, 4) for o in outs)
     model.train()
     with torch.no_grad():
         with pytest.raises(ValueError, match="torch.Generator"):
             model.main_only(x)
         assert model.main_only(x, torch.Generator()).shape == (1, 64, 64, 4)
-        drop = build_model(neu_config("uaps", dropout_backend="pallas"),
-                           "cpu").train()
-        with pytest.raises(NotImplementedError, match="Queue B #8"):
-            drop.main_only(x, torch.Generator())
+        ys = []
+        for backend in ("pallas", "xla"):
+            drop = build_model(neu_config("uaps", dropout_backend=backend),
+                               "cpu").train()
+            ys.append(drop.main_only(x + 1, torch.Generator().manual_seed(3)))
+        assert torch.equal(ys[0], ys[1])
 
 
 def test_init_matches_flax_statistics():

@@ -132,10 +132,13 @@ def test_engine_contract_errors(served):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         InferenceEngine(cfg, state_dict=sd, device="cpu", tta=True)
     engine = InferenceEngine(cfg, state_dict=sd, device="cpu")
-    for call in (lambda: engine.uncertainty(_images(1, 0)),
-                 lambda: engine.export("x")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        engine.export("x")
+    # uncertainty() is ported: one KL map per image, repeatable
+    u = engine.uncertainty(_images(1, 0))
+    assert u.shape == (1, *HW) and u.dtype == np.float32
+    assert np.isfinite(u).all() and (u >= -1e-6).all()
+    np.testing.assert_array_equal(u, engine.uncertainty(_images(1, 0)))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             InferenceEngine(cfg, state_dict=sd, device="cuda")

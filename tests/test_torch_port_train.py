@@ -52,7 +52,10 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port_util import neu_config, seeded_variables
+from _torch_port_util import (ZERO_GRAD_BIASES, Counts, check_params,
+                              neu_config, seeded_variables)
+from _torch_port_util import jax_sd as _sd
+from _torch_port_util import running as _running
 from uaps_tpu.methods import base as jbase
 from uaps_tpu.methods import baseline as jbaseline
 from uaps_tpu.models.unet import UNet as JaxUNet
@@ -61,13 +64,12 @@ from uaps_tpu_torch.kernels import conv3x3_nchw as kconv
 from uaps_tpu_torch.kernels import pool_nchw as kpool
 from uaps_tpu_torch.methods import base, baseline
 from uaps_tpu_torch.models import unet as tunet
-from uaps_tpu_torch.utils.weights import load_jax_params, state_dict_from_jax
+from uaps_tpu_torch.utils.weights import load_jax_params
 
 HW = (16, 128)
 B = 2
 FEATURES = (8, 16, 32, 64, 128)   # half the neu widths: a narrow model
 STEPS = 3
-ZERO_GRAD_BIASES = ("conv_conv.0.bias", "conv_conv.4.bias")
 
 
 def _cfgs():
@@ -106,36 +108,11 @@ def _torch_batch(b):
     return {k: torch.from_numpy(v) for k, v in b.items()}
 
 
-def _sd(params, stats=None):
-    """{torch name: numpy} of JAX trees (params, grads, batch stats)."""
-    return {k: v.numpy()
-            for k, v in state_dict_from_jax(params, stats or {}).items()
-            if not k.endswith("num_batches_tracked")}
-
-
-def _running(sd):
-    return {k: v for k, v in sd.items() if "running" in k}
-
-
-class _Counts:
-    """Counts the port's kernel-module calls (the launch counters stay 0
-    on the CPU)."""
-
-    def __init__(self, mp):
-        self.n = {}
-        for mod, name in [(tunet, "conv3x3_nchw"),
-                          (tunet, "max_pool_2x2_nchw"),
-                          (kconv, "conv3x3_nchw_dgrad"),
-                          (kconv, "conv3x3_nchw_wgrad"),
-                          (kpool, "max_pool_2x2_nchw_bwd"),
-                          (kce, "ce_dice_stats"), (kce, "ce_dice_bwd")]:
-            mp.setattr(mod, name, self._wrap(name, getattr(mod, name)))
-
-    def _wrap(self, name, fn):
-        def counted(*a, **kw):
-            self.n[name] = self.n.get(name, 0) + 1
-            return fn(*a, **kw)
-        return counted
+# the kernel-module functions whose calls the routing test counts
+KERNEL_CALLS = [(tunet, "conv3x3_nchw"), (tunet, "max_pool_2x2_nchw"),
+                (kconv, "conv3x3_nchw_dgrad"), (kconv, "conv3x3_nchw_wgrad"),
+                (kpool, "max_pool_2x2_nchw_bwd"), (kce, "ce_dice_stats"),
+                (kce, "ce_dice_bwd")]
 
 
 @pytest.fixture(scope="module")
@@ -186,7 +163,7 @@ def runs():
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tunet, "conv_kernel_ok", lambda *a: True)
         mp.setattr(tunet, "pool_pallas_ok", lambda x: True)
-        counts = _Counts(mp)
+        counts = Counts(mp, KERNEL_CALLS)
         tb = _torch_batch(batches[0])
         model = _port_model(v0, torch.float32)
         with torch.no_grad():
@@ -255,19 +232,6 @@ def test_train_mode_routes_through_kernel_modules(runs):
         "ce_dice_stats": 1, "ce_dice_bwd": 1}
 
 
-def _check_params(jparams, psd, jgrad, steps, lr, atol):
-    scale = max(np.abs(g).max() for g in jgrad.values())
-    for k, pj in jparams.items():
-        pp = psd[k]
-        noisy = np.abs(jgrad[k]) < 1e-6 * scale
-        if k.endswith(ZERO_GRAD_BIASES):
-            noisy[...] = True
-        bound = 2 * steps * lr * 1.05
-        assert np.abs(pp - pj)[noisy].max(initial=0.0) <= bound, k
-        np.testing.assert_allclose(pp[~noisy], pj[~noisy], rtol=0,
-                                   atol=atol, err_msg=k)
-
-
 @pytest.mark.parametrize("n_steps", [1, STEPS])
 def test_baseline_steps_match_jax(runs, n_steps):
     """Losses and metrics of every step, then the params and BN stats after
@@ -284,7 +248,7 @@ def test_baseline_steps_match_jax(runs, n_steps):
     _, jsd = runs["jax_steps"][n_steps - 1]
     _, psd = runs["port_steps"][n_steps - 1]
     jparams = {k: v for k, v in jsd.items() if "running" not in k}
-    _check_params(jparams, psd, runs["jax_grad"][1], n_steps, lr,
+    check_params(jparams, psd, runs["jax_grad"][1], n_steps, lr,
                   atol=2e-6 if n_steps == 1 else 2e-5)
     for k, sj in _running(jsd).items():
         np.testing.assert_allclose(

@@ -1,13 +1,13 @@
 """Training methods of the port, one module per method, as in
 `uaps_tpu/methods`: `init_state(cfg, device) -> (TrainState, model)`,
 `make_train_step(cfg, model) -> (state, batch) -> (state, metrics)`, and
-`base.make_eval_step` for validation. Only `baseline` is ported."""
+`base.make_eval_step` for validation. `baseline` and `uaps` are ported."""
 import importlib
 
 from uaps_tpu_torch.methods.base import build_model, resolve_device
 
 METHODS = ("uaps", "baseline", "mt", "uamt", "cps", "cct", "dct", "ucc")
-_PORTED = ("baseline",)
+_PORTED = ("baseline", "uaps")
 
 
 def get_method(name: str):
@@ -15,11 +15,9 @@ def get_method(name: str):
     if name not in METHODS:
         raise ValueError(f"unknown method {name!r}; known: {METHODS}")
     if name not in _PORTED:
-        item = ("4 (methods/uaps.py, the next slice)" if name == "uaps"
-                else "7 (the other methods)")
         raise NotImplementedError(
-            f"method {name!r} is not ported yet: ROADMAP.md Queue A item "
-            f"{item}")
+            f"method {name!r} is not ported yet: ROADMAP.md Queue A item 7 "
+            "(the other methods)")
     return importlib.import_module(f"uaps_tpu_torch.methods.{name}")
 
 

@@ -3,7 +3,8 @@
 `build_model` (with the JAX enum validation), the train state, Adam with a
 settable learning rate and the host-side plateau scheduler, the train-mode
 forward, the supervised CE + Dice pair (the fused kernel where JAX's gate
-sends it there) and the main-decoder eval step.
+sends it there), the ramped consistency weight and the main-decoder eval
+step.
 
 Where JAX threads an immutable state pytree through a jitted step, the port
 keeps the parameters and BN running stats in the `nn.Module`, which the
@@ -20,7 +21,8 @@ import torch.nn as nn
 from uaps_tpu_torch.kernels.ce_dice import fused_ce_dice
 from uaps_tpu_torch.models import net_factory
 from uaps_tpu_torch.ops import (cross_entropy_loss, mean_dice,
-                                segmentation_metrics, softmax_dice_loss)
+                                segmentation_metrics, sigmoid_rampup,
+                                softmax_dice_loss)
 
 # Accepted values of the ModelConfig enum knobs; a test holds this equal
 # to uaps_tpu.methods.base._MODEL_ENUMS.
@@ -85,7 +87,8 @@ def build_model(cfg, device, generator: Optional[torch.Generator] = None
 class TrainState:
     """What evolves in training besides the model's parameters and BN
     buffers: the step count, the optimizer (with its moments and learning
-    rate) and the dropout generator (JAX's state.key)."""
+    rate) and the generator of every random draw: dropout and perturbation
+    seeds, the Dirichlet mix (JAX's state.key)."""
     step: int
     optimizer: torch.optim.Optimizer
     generator: torch.Generator
@@ -165,6 +168,13 @@ def supervised_ce_dice(logits: torch.Tensor, labels: torch.Tensor,
         return fused_ce_dice(logits, labels)
     return (cross_entropy_loss(logits, labels),
             softmax_dice_loss(logits, labels))
+
+
+def ramp_weight(cmax: float, step: int, ramp_iters: int,
+                rampup_length: float) -> torch.Tensor:
+    """cmax * sigmoid_rampup(step // ramp_iters, rampup), a 0-d f32
+    tensor on the CPU."""
+    return cmax * sigmoid_rampup(step // ramp_iters, rampup_length)
 
 
 def make_eval_step(cfg, model: nn.Module) -> Callable:

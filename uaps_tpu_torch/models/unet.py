@@ -31,13 +31,20 @@ Train mode (`model.train()`), as flax computes it:
     with that biased variance: running = 0.9 running + 0.1 batch (flax
     momentum 0.9, torch momentum 0.1); `nn.BatchNorm2d` would use the
     unbiased variance there;
-  * dropout draws its mask from the `generator` the caller passes to
-    `forward` (flax's "dropout" rng) and scales kept values by 1 / (1 - p)
-    in the compute dtype. It is plain torch for dropout_backend="xla", and
-    for "auto" on CPU tensors or with conv_backend="xla"; the fused dropout
-    kernel that "auto" selects on the GPU (and "pallas" everywhere) is not
-    ported, so those raise (ROADMAP.md Queue B #8).
-The perturbed multi-decoder forward comes with the UAPS step and raises.
+  * dropout draws one seed per level from the `generator` the caller
+    passes to `forward` (flax's "dropout" rng) and keeps an element by the
+    counter-based generator of `kernels/perturb.py`; kept values are scaled
+    by 1 / (1 - p) in f32 and cast once. dropout_backend "auto" (where the
+    conv kernels are on) and "pallas" run the fused dropout module (the
+    CUDA kernel on the GPU, its plain version on the CPU); "xla", and
+    "auto" with conv_backend="xla", run the plain ops. Both draw the same
+    masks from the same seeds.
+
+The multi-decoder forward (`MultiDecoderUNet.forward`) runs the encoder
+once, the main decoder on its features and aux decoder i on the features
+perturbed by `perturbations[i]` (all 5 skips, one seed each, drawn from the
+generator after the encoder's). The perturbations apply in eval mode too,
+as in JAX; only the encoder's dropout is train-only.
 """
 from __future__ import annotations
 
@@ -49,15 +56,28 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from uaps_tpu_torch.kernels.conv3x3_nchw import conv3x3_nchw, conv_kernel_ok
+from uaps_tpu_torch.kernels.perturb import fused_dropout
 from uaps_tpu_torch.kernels.pool_nchw import (max_pool_2x2_nchw,
                                               pool_pallas_ok)
+from uaps_tpu_torch.ops.perturbations import dropout, perturb_features
 
 # Reference channel/dropout schedule (UAPS_unet.py:192-197)
 UNET_FEATURES: Tuple[int, ...] = (16, 32, 64, 128, 256)
 UNET_DROPOUT: Tuple[float, ...] = (0.05, 0.1, 0.2, 0.3, 0.5)
 
-_DROPOUT_ROW = ("the fused dropout kernel is not ported yet: ROADMAP.md "
-                "Queue B #8 (pallas/perturb.py); use dropout_backend='xla'")
+SKIPS = 5   # skip tensors the encoder hands to each decoder
+
+
+def draw_seeds(generator: Optional[torch.Generator], n: int,
+               device: torch.device) -> torch.Tensor:
+    """n int64 seeds in [0, 2^31) on `device`, one draw from `generator`
+    (no host sync: the kernels read them through a pointer)."""
+    if generator is None:
+        raise ValueError("train-mode dropout and the perturbations need a "
+                         "torch.Generator (flax's 'dropout' and 'perturb' "
+                         "rngs)")
+    return torch.randint(0, 2 ** 31 - 1, (n,), generator=generator,
+                         device=device)
 
 
 class Conv3x3(nn.Module):
@@ -124,8 +144,8 @@ class BatchNorm(nn.BatchNorm2d):
 class Dropout(nn.Module):
     """flax nn.Dropout in train mode (keep with probability 1 - p, scale by
     1 / (1 - p)), the identity in eval mode or at p = 0. `backend` "auto"
-    selects the fused kernel on the accelerator, as in JAX (the Encoder
-    turns "auto" into "xla" where the conv kernels are off)."""
+    and "pallas" run the fused dropout module, "xla" the plain ops (the
+    Encoder turns "auto" into "xla" where the conv kernels are off)."""
 
     def __init__(self, rate: float, backend: str):
         super().__init__()
@@ -133,19 +153,12 @@ class Dropout(nn.Module):
         self.backend = backend
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator]) -> torch.Tensor:
+                seed: Optional[torch.Tensor]) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
-        if self.backend == "pallas" or (self.backend == "auto"
-                                        and x.is_cuda):
-            raise NotImplementedError(_DROPOUT_ROW)
-        if generator is None:
-            raise ValueError("train-mode dropout needs a torch.Generator "
-                             "(flax's 'dropout' rng)")
-        keep_prob = 1.0 - self.rate
-        keep = torch.rand(x.shape, generator=generator,
-                          device=x.device) < keep_prob
-        return torch.where(keep, x / keep_prob, x.new_zeros(()))
+        if self.backend == "xla":
+            return dropout(seed, x, self.rate)
+        return fused_dropout(x, seed, self.rate)
 
 
 class ConvBlock(nn.Module):
@@ -163,9 +176,9 @@ class ConvBlock(nn.Module):
             nn.LeakyReLU(0.01))
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                seed: Optional[torch.Tensor] = None) -> torch.Tensor:
         c = self.conv_conv
-        x = c[3](c[2](c[1](c[0](x))), generator)
+        x = c[3](c[2](c[1](c[0](x))), seed)
         return c[6](c[5](c[4](x)))
 
 
@@ -199,9 +212,9 @@ class DownBlock(nn.Module):
                       dropout_backend))
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                seed: Optional[torch.Tensor] = None) -> torch.Tensor:
         pool, block = self.maxpool_conv
-        return block(pool(x), generator)
+        return block(pool(x), seed)
 
 
 def _align_corners_weights(n_in: int, n_out: int, device) -> torch.Tensor:
@@ -288,13 +301,14 @@ class Encoder(nn.Module):
                  dropout_backend: str = "auto"):
         super().__init__()
         ft, dp = features, dropout
+        self.has_dropout = any(r > 0 for r in dp)
         # JAX's "auto" takes the fused dropout kernel only where the conv
         # kernels are on (conv_backend != "xla"), at every level
         drop = ("xla" if dropout_backend == "auto" and not conv_kernel
                 else dropout_backend)
         self.in_conv = ConvBlock(in_chns, ft[0], dp[0], dtype,
                                  conv_kernel and 0 < nchw_levels, drop)
-        for i in range(1, 5):
+        for i in range(1, SKIPS):
             self.add_module(f"down{i}", DownBlock(
                 ft[i - 1], ft[i], dp[i], dtype,
                 pool_kernel and i - 1 < nchw_levels,
@@ -303,9 +317,13 @@ class Encoder(nn.Module):
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None
                 ) -> List[torch.Tensor]:
-        feats = [self.in_conv(x, generator)]
-        for i in range(1, 5):
-            feats.append(getattr(self, f"down{i}")(feats[-1], generator))
+        """The 5 skip features; in train mode the dropout seeds (one per
+        level) come from one draw from `generator`."""
+        seeds = ([None] * SKIPS if not (self.training and self.has_dropout)
+                 else draw_seeds(generator, SKIPS, x.device))
+        feats = [self.in_conv(x, seeds[0])]
+        for i in range(1, SKIPS):
+            feats.append(getattr(self, f"down{i}")(feats[-1], seeds[i]))
         return feats
 
 
@@ -396,9 +414,9 @@ class UNet(nn.Module):
 
 
 class MultiDecoderUNet(nn.Module):
-    """Shared encoder + main decoder + N auxiliary decoders (UNet_UAPS /
-    UNet_CCT / UNet_UCC / UNet_CCPS). The aux decoders are held so that
-    checkpoints load whole; serving runs `main_only`."""
+    """Shared encoder + main decoder + N perturbed auxiliary decoders
+    (UNet_UAPS / UNet_CCT / UNet_UCC / UNet_CCPS); serving runs
+    `main_only`."""
 
     def __init__(self, num_classes: int,
                  perturbations: Tuple[str, ...] = (
@@ -417,6 +435,7 @@ class MultiDecoderUNet(nn.Module):
         conv_k, pool_k = _kernel_flags(conv_backend, pool_backend,
                                        bn_backend)
         self.perturbations = tuple(perturbations)
+        self.conv_backend = conv_backend
         self.encoder = Encoder(in_chns, features, dropout, dtype,
                                nchw_levels, conv_k, pool_k, dropout_backend)
 
@@ -428,11 +447,24 @@ class MultiDecoderUNet(nn.Module):
         for i in range(len(self.perturbations)):
             self.add_module(f"aux_decoder{i + 1}", decoder())
 
-    def forward(self, x: torch.Tensor):
-        raise NotImplementedError(
-            "the perturbed multi-decoder forward comes with the UAPS step: "
-            "ROADMAP.md Queue A item 4, Queue B #8-#10; serving and "
-            "validation use main_only")
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, ...]:
+        """NHWC images -> (main, aux 1, ..., aux N) NHWC f32 logits. The
+        encoder runs once; aux decoder i sees all 5 skips perturbed by
+        `perturbations[i]`, with seeds drawn from `generator` after the
+        encoder's dropout seeds (in eval mode too, as in JAX)."""
+        feats = self.encoder(_to_nchw(x), generator)
+        outs = [self.main_decoder(feats)]
+        n = len(self.perturbations)
+        seeds = ([None] * (SKIPS * n)
+                 if all(k == "none" for k in self.perturbations)
+                 else draw_seeds(generator, SKIPS * n, feats[0].device))
+        for i, kind in enumerate(self.perturbations):
+            pfeats = perturb_features(seeds[SKIPS * i:SKIPS * (i + 1)],
+                                      feats, kind, self.conv_backend)
+            outs.append(getattr(self, f"aux_decoder{i + 1}")(pfeats))
+        return tuple(_to_nhwc(o) for o in outs)
 
     def main_only(self, x: torch.Tensor,
                   generator: Optional[torch.Generator] = None

@@ -1,7 +1,8 @@
 """Segmentation losses: the port's part of `uaps_tpu/ops/losses.py` that the
-supervised step and the eval step use. They are also the plain pair that
-`methods.base.supervised_ce_dice` takes where the fused CE+Dice kernel is
-not used.
+supervised, UAPS and eval steps use. CE and Dice are also the plain pair
+that `methods.base.supervised_ce_dice` takes where the fused CE+Dice kernel
+is not used; `kl_divergence_map` is the plain uncertainty map beside the
+fused uncertainty kernel.
 
 Conventions (as in JAX): logits [..., C] float, labels [...] integer.
 """
@@ -37,3 +38,20 @@ def softmax_dice_loss(logits: torch.Tensor, labels: torch.Tensor,
     intersection = (probs * one_hot).sum(dims)
     cardinality = (probs + one_hot).sum(dims)
     return 1.0 - torch.mean(2.0 * intersection / (cardinality + eps))
+
+
+def symmetric_mse_loss(input1: torch.Tensor,
+                       input2: torch.Tensor) -> torch.Tensor:
+    """mean((a - b)^2), gradients to both sides."""
+    return torch.mean((input1 - input2) ** 2)
+
+
+def kl_divergence_map(logits: torch.Tensor,
+                      target_probs: torch.Tensor) -> torch.Tensor:
+    """Per-pixel KL uncertainty map sum_c p_c (log p_c - log_softmax(x)_c),
+    the class axis reduced. xlogy gives 0 log 0 = 0. Gradients flow
+    through BOTH arguments (the reference never detaches the decoders'
+    mean prediction)."""
+    logq = torch.log_softmax(logits, dim=-1)
+    p = target_probs
+    return (torch.xlogy(p, p) - p * logq).sum(-1)

@@ -8,8 +8,11 @@ normalised as (x / 255 - mean) / std in f32 (float input is taken as
 already normalised), cut into micro-batches of `batch_size` with the last
 one padded by repeating its last image, run through the main decoder,
 softmaxed in f32 and argmaxed; it returns int32 masks [N, H, W] and f32
-probs [N, H, W, C]. For concurrent traffic, `uaps_tpu_torch.server` puts
-its `AsyncBatcher` and HTTP front in front of this engine.
+probs [N, H, W, C]. `uncertainty` (serve.py:171-178) returns the main
+decoder's KL map against the mean of every decoder's softmax, the aux
+decoders seeing perturbed features. For concurrent traffic,
+`uaps_tpu_torch.server` puts its `AsyncBatcher` and HTTP front in front of
+this engine.
 
 Weights come from a `.pth` (a reference checkpoint, one written by the
 port's trainer, or JAX weights written by the JAX package's `save_pth`) or
@@ -23,6 +26,7 @@ import numpy as np
 import torch
 
 from uaps_tpu_torch.methods.base import build_model, resolve_device
+from uaps_tpu_torch.ops import kl_divergence_map
 from uaps_tpu_torch.utils.weights import load_pth, load_state_dict
 
 
@@ -62,9 +66,29 @@ class InferenceEngine:
             "export is not ported yet: ROADMAP.md Queue A item 8")
 
     def uncertainty(self, images: np.ndarray) -> np.ndarray:
-        raise NotImplementedError(
-            "uncertainty() needs the perturbed aux decoders: ROADMAP.md "
-            "Queue A item 8 after Queue B #8 (perturbation kernels)")
+        """images [N,H,W,C] uint8 or normalized float32 -> f32 [N,H,W] KL
+        maps of the main decoder against the decoders' mean softmax (zeros
+        for a single-output model)."""
+        x = self._normalize(images)
+        maps = []
+        for chunk, n in self._microbatches(x):
+            u = self.uncertainty_device(torch.from_numpy(
+                np.ascontiguousarray(chunk)).to(self.device))
+            maps.append(u[:n].cpu().numpy())
+        return np.concatenate(maps)
+
+    def uncertainty_device(self, x: torch.Tensor) -> torch.Tensor:
+        """One normalised NHWC batch on the device -> its uncertainty maps:
+        the eval-mode multi-decoder forward with perturbations drawn from a
+        generator seeded 0 for every batch (JAX: rngs key(0))."""
+        with torch.inference_mode():
+            gen = torch.Generator(device=self.device).manual_seed(0)
+            out = self.model(x, gen)
+            outs = out if isinstance(out, tuple) else (out,)
+            if len(outs) < 2:
+                return torch.zeros(x.shape[:3], device=x.device)
+            preds = sum(torch.softmax(o, -1) for o in outs) / len(outs)
+            return kl_divergence_map(outs[0], preds)
 
     # ------------------------------------------------------------------
     def _normalize(self, images: np.ndarray) -> np.ndarray:

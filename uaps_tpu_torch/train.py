@@ -1,7 +1,7 @@
 """Training CLI and single-device Trainer: the port's `uaps_tpu/train.py`.
 
-    python -m uaps_tpu_torch.train --preset neu --method baseline \
-        --dtype bfloat16 --dropout_backend xla --dataset synthetic \
+    python -m uaps_tpu_torch.train --preset neu --method uaps \
+        --dtype bfloat16 --dataset synthetic \
         [--epochs 2 --iter_per_epoch 20] [--device cuda]
 
 The loop is the JAX one on one device: `iter_per_epoch` train steps, the
@@ -52,13 +52,16 @@ def _prefetch(it: Iterator, size: int = 4) -> Iterator:
         yield q.get()
 
 
+_BATCH_DTYPES = {"image": np.float32, "uimage": np.float32,
+                 "label": np.int32, "mix_w": np.float32}
+
+
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str,
                                                             torch.Tensor]:
-    """Image f32 and label int32 of a host batch, on `device`."""
-    return {"image": torch.from_numpy(np.ascontiguousarray(
-                batch["image"], np.float32)).to(device),
-            "label": torch.from_numpy(np.ascontiguousarray(
-                batch["label"], np.int32)).to(device)}
+    """The step's arrays of a host batch on `device`: image and uimage f32,
+    label int32, and mix_w f32 where the batch has it."""
+    return {k: torch.from_numpy(np.ascontiguousarray(batch[k], dt)).to(
+        device) for k, dt in _BATCH_DTYPES.items() if k in batch}
 
 
 class Trainer:
