@@ -68,10 +68,30 @@ Phases (any failure: exit 1 and no result line):
      InferenceEngine.uncertainty on the trained weights;
  11. UAPS times: per new kernel and step shape, ms (L2 flushed), the plain
      version's, the library call's (F.dropout; none for the others) and
-     the bound, summed per step by launches; a profile of 2 UAPS steps.
+     the bound, summed per step by launches; a profile of 2 UAPS steps;
+ 12. fused-block kernels: chain_conv_plain, chain_conv_bnl (at each level's
+     dropout rate) and conv3x3_bnl, forward and backward, at every block
+     shape of the chain and fused paths (CHAIN_BLOCKS, B=16), f32 and bf16,
+     against their plain versions (tolerances in Smoke.chain_kernels); the
+     dropout keep-mask bit for bit through a centre-tap identity weight;
+ 13. the chain and fused UAPS steps (the UAPS slice with
+     ModelConfig.conv_backend="chain" / "fused"): 3 warm-up and 10 timed
+     steps each with finite losses and CHAIN_STEP_LAUNCHES /
+     FUSED_STEP_LAUNCHES per step; one step of each against the plain path
+     past the ramp as in phase 10 (the encoder's dropout off at levels 0-1
+     for chain, whose hashed mask is not the generator's), the fused
+     blocks' conv biases without a gradient; the eval step; predict of the
+     chain model against the default model on the trained weights in f32,
+     under phase 4's f32 gates;
+ 14. fused-block times: per kernel and block shape, ms, the plain version's,
+     the library composite's (cuDNN F.conv2d; for bnl with the torch
+     normalise, leaky and dropout before it; backwards: autograd of the
+     composite) and the bound, summed per step by launches; the UAPS step of
+     the auto, chain and fused paths in alternating rounds; a profile of 2
+     chain steps.
 It then prints {"kernels": [...]} (launches from phase 7 for the baseline
-kernels and from phase 10 for the UAPS kernels) and, last, {"ok": true,
-"device": ...}. Details go to OUT_DIR/chip_smoke.json. It exits
+kernels, from phase 10 for the UAPS kernels and from phase 13 for the
+fused-block kernels) and, last, {"ok": true, "device": ...}. Details go to OUT_DIR/chip_smoke.json. It exits
 non-zero without CUDA, and outside the repository.
 """
 from __future__ import annotations
@@ -108,13 +128,17 @@ CONV_PER_BATCH, POOL_PER_BATCH = len(CONV_SHAPES), len(POOL_SHAPES)
 DGRAD_SHAPES = CONV_SHAPES[1:]
 NUM_CLASSES = 4
 TRAIN_WARMUP, TRAIN_STEPS = 3, 10
+# the fused-ConvBlock kernels' counters (phases 12-14)
+CHAIN_COUNTERS = ("chain_conv_plain", "chain_conv_bnl", "chain_conv_plain_bwd",
+                  "chain_conv_bnl_bwd", "conv3x3_bnl", "conv3x3_bnl_bwd")
 # kernel launches per baseline step (plain dropout), by launch counter
 STEP_LAUNCHES = {"conv3x3_nchw": 9, "conv3x3_nchw_dgrad": 8,
                  "conv3x3_nchw_wgrad": 9, "max_pool_2x2_nchw": 2,
                  "max_pool_2x2_nchw_bwd": 2, "ce_dice_fwd": 1,
                  "ce_dice_bwd": 1, "fused_dropout": 0, "feature_noise": 0,
                  "feature_dropout": 0, "feature_dropout_bwd": 0,
-                 "uncertainty_fwd": 0, "uncertainty_bwd": 0}
+                 "uncertainty_fwd": 0, "uncertainty_bwd": 0,
+                 **dict.fromkeys(CHAIN_COUNTERS, 0)}
 # ... and per UAPS step: two forwards (labelled, unlabelled), each the
 # encoder (4 kernel convs, 2 pools, 5 dropouts) and 4 decoders (5 kernel
 # convs each), 3 x 5 perturbed skips; 4 + 4 CE+Dice; one uncertainty
@@ -124,8 +148,30 @@ UAPS_STEP_LAUNCHES = {"conv3x3_nchw": 48, "conv3x3_nchw_dgrad": 46,
                       "ce_dice_bwd": 8, "fused_dropout": 40,
                       "feature_noise": 20, "feature_dropout": 10,
                       "feature_dropout_bwd": 10, "uncertainty_fwd": 1,
-                      "uncertainty_bwd": 1}
+                      "uncertainty_bwd": 1,
+                      **dict.fromkeys(CHAIN_COUNTERS, 0)}
 N_DEC = 4
+# the blocks that the fused backends replace in a neu UAPS step (levels 0
+# and 1): (block, conv1's Cin, Cout, H = W, dropout rate, forwards per step:
+# the encoder's run once and each of the 4 decoders' once per forward, for
+# the labelled and the unlabelled batch)
+CHAIN_BLOCKS = [("in_conv", 3, 16, 256, 0.05, 2),
+                ("down1", 16, 32, 128, 0.1, 2),
+                ("up3", 64, 32, 128, 0.0, 8),
+                ("up4", 32, 16, 256, 0.0, 8)]
+# per UAPS step with conv_backend="chain": every level-0/1 block is two chain
+# convs (20 + 20 calls, as many backwards), the heads stay on the conv
+# kernel, the encoder's dropout at levels 0-1 moves into the chain prologue
+CHAIN_STEP_LAUNCHES = {**UAPS_STEP_LAUNCHES, "conv3x3_nchw": 8,
+                       "conv3x3_nchw_dgrad": 8, "conv3x3_nchw_wgrad": 8,
+                       "fused_dropout": 32, "chain_conv_plain": 20,
+                       "chain_conv_bnl": 20, "chain_conv_plain_bwd": 20,
+                       "chain_conv_bnl_bwd": 20}
+# ... and with "fused": the dropout-free blocks (up3, up4) run conv1 on the
+# conv kernel and conv2 as conv3x3_bnl
+FUSED_STEP_LAUNCHES = {**UAPS_STEP_LAUNCHES, "conv3x3_nchw": 32,
+                       "conv3x3_nchw_dgrad": 30, "conv3x3_nchw_wgrad": 32,
+                       "conv3x3_bnl": 16, "conv3x3_bnl_bwd": 16}
 # the 5 encoder levels of a neu step: (channels, H = W); the encoder's
 # dropout rates by level
 LEVELS = [(16, HW), (32, HW // 2), (64, HW // 4), (128, HW // 8),
@@ -147,12 +193,20 @@ def log(*a):
 
 def counters():
     """{kernel name: launch count} of every wrapper."""
+    from uaps_tpu_torch.kernels import block_conv as kbc
     from uaps_tpu_torch.kernels import ce_dice as kce
     from uaps_tpu_torch.kernels import conv3x3_nchw as kc
+    from uaps_tpu_torch.kernels import conv_bnl as kbnl
     from uaps_tpu_torch.kernels import perturb as kpt
     from uaps_tpu_torch.kernels import pool_nchw as kp
     from uaps_tpu_torch.kernels import uncertainty as kun
-    return {"conv3x3_nchw": kc.launches,
+    return {"chain_conv_plain": kbc.plain_launches,
+            "chain_conv_bnl": kbc.bnl_launches,
+            "chain_conv_plain_bwd": kbc.plain_bwd_launches,
+            "chain_conv_bnl_bwd": kbc.bnl_bwd_launches,
+            "conv3x3_bnl": kbnl.fwd_launches,
+            "conv3x3_bnl_bwd": kbnl.bwd_launches,
+            "conv3x3_nchw": kc.launches,
             "conv3x3_nchw_dgrad": kc.dgrad_launches,
             "conv3x3_nchw_wgrad": kc.wgrad_launches,
             "max_pool_2x2_nchw": kp.launches,
@@ -167,11 +221,16 @@ def counters():
 
 
 def reset_counters():
+    from uaps_tpu_torch.kernels import block_conv as kbc
     from uaps_tpu_torch.kernels import ce_dice as kce
     from uaps_tpu_torch.kernels import conv3x3_nchw as kc
+    from uaps_tpu_torch.kernels import conv_bnl as kbnl
     from uaps_tpu_torch.kernels import perturb as kpt
     from uaps_tpu_torch.kernels import pool_nchw as kp
     from uaps_tpu_torch.kernels import uncertainty as kun
+    kbc.plain_launches = kbc.bnl_launches = 0
+    kbc.plain_bwd_launches = kbc.bnl_bwd_launches = 0
+    kbnl.fwd_launches = kbnl.bwd_launches = 0
     kc.launches = kc.dgrad_launches = kc.wgrad_launches = 0
     kp.launches = kp.bwd_launches = 0
     kce.fwd_launches = kce.bwd_launches = 0
@@ -194,6 +253,27 @@ def conv_cost(cin, cout, hw, in_size, out_size):
     px = BATCH * hw * hw
     return (px * cin * in_size + 9 * cin * cout * in_size
             + px * cout * out_size), 2 * px * cin * cout * 9
+
+
+def ptxas_summary(text):
+    """One line from nvcc -Xptxas=-v output: the kernels' register range and
+    every kernel that spills (the whole log is in chip_smoke_build.log)."""
+    import re
+    regs, spills, name = [], [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and int(m.group(1)) and name:
+            spills.append(f"{name} ({m.group(1)} B)")
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            regs.append(int(m.group(1)))
+    if not regs:
+        return text.strip()[-2000:]
+    return (f"{len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
+            f"spilling: {spills or 'none'}")
 
 
 class Smoke:
@@ -289,8 +369,12 @@ class Smoke:
         t0 = time.perf_counter()
         logs = _build.build()
         self.report["build_seconds"] = time.perf_counter() - t0
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, "chip_smoke_build.log"), "w") as f:
+            for name, text in logs.items():
+                f.write(f"-- nvcc {name}:\n{text}\n")
         for name, text in logs.items():
-            log(f"-- nvcc {name}:\n{text.strip()}")
+            log(f"-- nvcc {name}: {ptxas_summary(text)}")
         log(f"built {_build.sources()} in "
             f"{self.report['build_seconds']:.1f} s")
         smi = subprocess.run(
@@ -933,15 +1017,18 @@ class Smoke:
         return cfg
 
     def _step_pair(self, method, cfg, plain_cfg, init_sd, batch, want,
-                   step=0):
+                   step=0, prepare=None):
         """One step of `method` on the kernel path and one on the plain
-        path from the same weights, batch, generator seed and step count;
-        returns both models and their metrics."""
+        path from the same weights, batch, generator seed and step count
+        (`prepare(model)` applied to both models first); returns both
+        models and their metrics."""
         from uaps_tpu_torch.methods import base
         out = []
         for c in (cfg, plain_cfg):
             model = base.build_model(c, self.dev)
             model.load_state_dict(init_sd)
+            if prepare is not None:
+                prepare(model)
             state = base.init_model_state(c, model)
             state.step = step
             before = counters()
@@ -1049,7 +1136,7 @@ class Smoke:
         self.train_step, self.train_batch = step, batches[0]
 
     def _compare_steps(self, km, pm, kmet, pmet, init_sd, lr,
-                       terms=("loss",)):
+                       terms=("loss",), gate="all", label="kernel vs plain"):
         """Kernel path against the plain path after one step from the same
         weights. bf16 tolerances: the two paths round at other places
         (cuDNN's bf16 convs accumulate in their own order, the plain head
@@ -1059,7 +1146,9 @@ class Smoke:
         lr * sign(g), >= 95% of the parameter deltas must agree within
         lr / 2. The biases of the convs that feed a train-mode BN have a
         zero gradient up to rounding, so they are left out of both. Every
-        metric in `terms` is held to the loss's 1e-2 relative."""
+        metric in `terms` is held to the loss's 1e-2 relative.
+        gate="loss" holds only the metrics to that, gate="none" nothing
+        (the numbers are reported either way)."""
         torch = self.torch
         rels = {k: abs(kmet[k] - pmet[k]) / abs(pmet[k]) for k in terms}
         rel = max(rels.values())
@@ -1081,14 +1170,15 @@ class Smoke:
                "loss_rel_diff": rel, "worst_grad_cosine": worst_cos,
                "worst_grad": worst, "delta_agree_share": share,
                "terms": {k: [kmet[k], pmet[k], r] for k, r in rels.items()}}
-        ok = rel <= 1e-2 and worst_cos >= 0.98 and share >= 0.95
-        log("kernel vs plain path, one step: " + "; ".join(
+        ok = {"all": rel <= 1e-2 and worst_cos >= 0.98 and share >= 0.95,
+              "loss": rel <= 1e-2, "none": True}[gate]
+        log(f"{label} path, one step: " + "; ".join(
             f"{k} {kmet[k]:.6f} vs {pmet[k]:.6f} (rel {r:.2e})"
             for k, r in rels.items())
             + f" (tol 1e-2); worst grad cosine {worst_cos:.5f} ({worst}; "
             f"min 0.98); "
             f"param deltas within lr/2: {share:.5f} (min 0.95) "
-            f"{'ok' if ok else 'MISMATCH'}")
+            f"{'ok' if ok else 'MISMATCH'} (gated: {gate})")
         assert ok, res
         return res
 
@@ -1644,6 +1734,504 @@ class Smoke:
             f"{t['uaps_device_idle_share']:.3f}; by device time:\n" + table)
 
 
+    # ------------------------------------------------------------ phase 12
+    def _chain_case(self, cin, cout, hw, dtype, seed):
+        """x [B, Cin, H, W] (a raw conv output where the prologue reads it),
+        w [3, 3, Cin, Cout] (scaled as lecun_normal), BN's f and s [Cin] f32,
+        the cotangents of (y, s1, s2) and a seed, on the card."""
+        torch = self.torch
+        g = self.gen(seed)
+        x = torch.randn((BATCH, cin, hw, hw), generator=g,
+                        device=self.dev).to(dtype)
+        w = (torch.randn((3, 3, cin, cout), generator=g, device=self.dev)
+             / (9 * cin) ** 0.5).to(dtype)
+        f = torch.rand(cin, generator=g, device=self.dev) + 0.5
+        s = torch.randn(cin, generator=g, device=self.dev) * 0.1
+        gy = torch.randn((BATCH, cout, hw, hw), generator=g,
+                         device=self.dev).to(dtype)
+        ds1 = torch.randn(cout, generator=g, device=self.dev) * 0.3
+        ds2 = torch.randn(cout, generator=g, device=self.dev) * 0.1
+        sd = torch.randint(0, 2 ** 31 - 1, (), generator=g, device=self.dev)
+        return x, w, f, s, gy, ds1, ds2, sd
+
+    def chain_kernels(self):
+        """The fused-ConvBlock kernels against their plain versions at every
+        block shape of a neu UAPS step (B=16), f32 and bf16, forward and
+        backward: each block's conv1 as chain_conv_plain, its conv2 as
+        chain_conv_bnl at the level's dropout rate and, for the dropout-free
+        blocks, as conv3x3_bnl. Tolerances (tol = 1e-4 in f32, 1e-2 in
+        bf16): y and dx rtol = atol = tol; dW within tol x max |dW|; the
+        moments within tol x the sum of their terms' magnitudes (s1: sum |y|,
+        s2 itself; in bf16 the kernel sums the f32 accumulator, the plain
+        version the bf16 output, as JAX's kernel and twin differ); df and ds
+        within tol x the sums of |dz x| and |dz| / (1 - rate). The dropout
+        keep-mask bit for bit: with Cin = Cout and a centre-tap identity
+        weight the conv's output is z, equal to the plain prologue's z, zero
+        exactly where the mask drops, and the backward zeroes the same
+        elements."""
+        from uaps_tpu_torch.kernels import block_conv as kbc
+        from uaps_tpu_torch.kernels import conv_bnl as kbnl
+        from uaps_tpu_torch.kernels.conv3x3_nchw import conv3x3_nchw_plain
+        torch = self.torch
+        errs = dict.fromkeys(CHAIN_COUNTERS, 0.0)
+        bad = []
+
+        def check(name, label, got, ref, tol, scale=None):
+            """rtol = atol = tol elementwise, or |err| <= tol * scale."""
+            got, ref = got.float(), ref.float()
+            err = float((got - ref).abs().max())
+            errs[name] = max(errs[name], err)
+            if scale is None:
+                ok = bool(torch.isfinite(got).all()) and torch.allclose(
+                    got, ref, rtol=tol, atol=tol)
+                note = f"(rtol = atol = {tol})"
+            else:
+                lim = tol * scale
+                ok = bool(torch.isfinite(got).all()) and bool(
+                    ((got - ref).abs() <= lim).all())
+                note = f"(limit {tol} x scale, max {float(lim.max()):.3e})"
+            log(f"{label}: max_abs_err {err:.3e} {note} "
+                f"{'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                bad.append(label)
+
+        def chain_case(x, w, f, s, gy, ds1, ds2, sd, rate, label, tol):
+            pro = f is not None
+            name = "chain_conv_bnl" if pro else "chain_conv_plain"
+            ins = [t.clone().requires_grad_() if t is not None else None
+                   for t in (x, f, s, w)]
+            if pro:
+                y, s1, s2 = kbc.chain_conv_bnl(*ins, sd, rate)
+            else:
+                y, s1, s2 = kbc.chain_conv_plain(ins[0], ins[3])
+            torch.autograd.backward([y, s1, s2], [gy, ds1, ds2])
+            self.sync()
+            with torch.no_grad():
+                ry, r1, r2 = (kbc.chain_bnl_ref(x, f, s, w, sd, rate) if pro
+                              else kbc.chain_plain_ref(x, w))
+                # the backward from the kernel's own y, as autograd gives it
+                ge = kbc.fold_plain(gy, y, ds1, ds2)
+                rdx, rdw, rdf, rds = kbc.chain_bwd_plain(ge, x, w, f, s, sd,
+                                                         rate)
+                w_rot = w.flip((0, 1)).transpose(2, 3)
+                dz = conv3x3_nchw_plain(ge, w_rot, torch.float32).abs()
+            check(name, f"{label} y", y, ry, tol)
+            check(name, f"{label} s1", s1, r1, tol,
+                  ry.float().abs().sum((0, 2, 3)))
+            check(name, f"{label} s2", s2, r2, tol, r2)
+            check(name + "_bwd", f"{label} dx", ins[0].grad, rdx, tol)
+            check(name + "_bwd", f"{label} dW", ins[3].grad, rdw, tol,
+                  rdw.abs().max())
+            if pro:
+                keep = 1.0 / (1.0 - rate)
+                check(name + "_bwd", f"{label} df", ins[1].grad, rdf, tol,
+                      (dz * x.float().abs()).sum((0, 2, 3)) * keep)
+                check(name + "_bwd", f"{label} ds", ins[2].grad, rds, tol,
+                      dz.sum((0, 2, 3)) * keep)
+            return ry
+
+        def bnl_case(x, w, f, s, gy, label, tol):
+            ins = [t.clone().requires_grad_() for t in (x, f, s, w)]
+            y = kbnl.conv3x3_bnl(*ins)
+            y.backward(gy)
+            self.sync()
+            with torch.no_grad():
+                ry = kbnl.conv3x3_bnl_ref(x, f, s, w)
+                rdx, rdw, rdf, rds = kbc.chain_bwd_plain(gy, x, w, f, s,
+                                                         None, 0.0)
+                w_rot = w.flip((0, 1)).transpose(2, 3)
+                dz = conv3x3_nchw_plain(gy, w_rot, torch.float32).abs()
+            check("conv3x3_bnl", f"{label} y", y, ry, tol)
+            check("conv3x3_bnl_bwd", f"{label} dy", ins[0].grad, rdx, tol)
+            check("conv3x3_bnl_bwd", f"{label} dW", ins[3].grad, rdw, tol,
+                  rdw.abs().max())
+            check("conv3x3_bnl_bwd", f"{label} df", ins[1].grad, rdf, tol,
+                  (dz * x.float().abs()).sum((0, 2, 3)))
+            check("conv3x3_bnl_bwd", f"{label} ds", ins[2].grad, rds, tol,
+                  dz.sum((0, 2, 3)))
+
+        def mask_case(x, f, s, sd, rate, label):
+            """The keep-mask through a centre-tap identity weight."""
+            c = x.shape[1]
+            w = torch.zeros((3, 3, c, c), device=self.dev)
+            w[1, 1] = torch.eye(c, device=self.dev)
+            w = w.to(x.dtype)
+            xr = x.clone().requires_grad_()
+            y, _, _ = kbc.chain_conv_bnl(xr, f, s, w, sd, rate)
+            y.backward(torch.ones_like(y))
+            self.sync()
+            with torch.no_grad():
+                z = kbc.prologue_plain(x, f, s, sd, rate)
+                live = kbc.prologue_plain(x, f, s, None, 0.0) != 0
+                keep = kbc.hash_keep(sd, x.shape, rate)
+            same = bool(torch.equal(y.detach(), z))
+            mask = bool(torch.equal(y.detach() != 0, keep & live))
+            bwd = bool((xr.grad[~keep] == 0).all())
+            drop = 1.0 - float(keep.float().mean())
+            ok = same and mask and bwd and abs(drop - rate) < 0.01
+            log(f"{label} keep-mask: y = z bit for bit {same}, nonzeros = "
+                f"kept (of the nonzero z) {mask}, backward zero where "
+                f"dropped {bwd}, dropped share {drop:.6f} (p = {rate}) "
+                f"{'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                bad.append(f"{label} keep-mask")
+
+        for dname, dtype in (("f32", torch.float32),
+                             ("bf16", torch.bfloat16)):
+            tol = 1e-4 if dname == "f32" else 1e-2
+            for i, (blk, cin, cout, hw, rate, _) in enumerate(CHAIN_BLOCKS):
+                x, w, _, _, gy, ds1, ds2, sd = self._chain_case(
+                    cin, cout, hw, dtype, SEED + 400 + i)
+                chain_case(x, w, None, None, gy, ds1, ds2, sd, 0.0,
+                           f"chain plain {blk}.0 {cin}->{cout} @{hw} "
+                           f"{dname}", tol)
+                x, w, f, s, gy, ds1, ds2, sd = self._chain_case(
+                    cout, cout, hw, dtype, SEED + 420 + i)
+                chain_case(x, w, f, s, gy, ds1, ds2, sd, rate,
+                           f"chain bnl {blk}.4 {cout}->{cout} @{hw} p={rate} "
+                           f"{dname}", tol)
+                if rate > 0:
+                    mask_case(x, f, s, sd, rate,
+                              f"chain bnl {blk}.4 @{hw} p={rate} {dname}")
+                else:
+                    bnl_case(x, w, f, s, gy, f"conv3x3_bnl {blk}.4 "
+                             f"{cout}->{cout} @{hw} {dname}", tol)
+        for name, e in errs.items():
+            self.report["kernels"][name] = {"max_abs_err": e}
+        if bad:
+            raise AssertionError(f"fused-block kernel mismatches: {bad}")
+
+    # ------------------------------------------------------------ phase 13
+    def _no_level01_dropout(self, model):
+        """Encoder dropout off at levels 0-1, where the chain blocks draw the
+        position-hash mask and the plain path the generator's (phase 12
+        holds the hashed mask to its plain version)."""
+        for block in (model.encoder.in_conv,
+                      model.encoder.down1.maxpool_conv[1]):
+            block.conv_conv[3].rate = 0.0
+
+    def chain_training(self):
+        """The chain and fused UAPS steps at full width (see phase 13 in the
+        module docstring)."""
+        import numpy as np
+        from uaps_tpu_torch.data import SyntheticDefects
+        from uaps_tpu_torch.methods import base, get_method
+        from uaps_tpu_torch.serve import InferenceEngine
+        from uaps_tpu_torch.train import to_device
+        torch = self.torch
+        data = SyntheticDefects(self._uaps_config().data, seed=SEED)
+        it = data.train_iter()
+        batches = [to_device(next(it), self.dev)
+                   for _ in range(TRAIN_WARMUP + TRAIN_STEPS + 1)]
+        val = to_device(next(data.val_iter(1)), self.dev)
+        method = get_method("uaps")
+        t = self.report["times"]
+        self.fused_paths, self.fused_launches = {}, {}
+        n_steps = TRAIN_WARMUP + TRAIN_STEPS
+        for backend, per_step, blocks in (
+                ("chain", CHAIN_STEP_LAUNCHES,
+                 ("encoder.in_conv.", "encoder.down1.", ".up3.", ".up4.")),
+                ("fused", FUSED_STEP_LAUNCHES, (".up3.", ".up4."))):
+            cfg = self._uaps_config(conv_backend=backend)
+            state, model = method.init_state(
+                cfg, self.dev, torch.Generator().manual_seed(SEED))
+            init_sd = {k: v.detach().clone() for k, v in
+                       model.state_dict().items()}
+            step = method.make_train_step(cfg, model)
+            self.sync()
+            if self.dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            reset_counters()       # this path's run starts here
+            losses, step_ms = [], []
+            for i in range(n_steps):
+                t0 = time.perf_counter()
+                state, m = step(state, batches[i])
+                self.sync()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append({k: float(v) for k, v in m.items()})
+            launches = counters()   # ... and ends here
+            self.fused_launches[backend] = launches
+            timed = step_ms[TRAIN_WARMUP:]
+            t[f"{backend}_step_ms"] = {"median": statistics.median(timed),
+                                       "min": min(timed), "max": max(timed),
+                                       "all": step_ms}
+            if self.dev.type == "cuda":
+                t[f"{backend}_peak_mem_gib"] = (
+                    torch.cuda.max_memory_allocated() / 2 ** 30)
+            log(f"{backend} UAPS losses: "
+                + ", ".join(f"{m['loss']:.4f}" for m in losses))
+            log(f"launches over {n_steps} {backend} UAPS steps: "
+                f"{json.dumps(launches)}")
+            log(f"time {backend} UAPS step bf16 B={BATCH}+{BATCH} (host "
+                f"clock, sync each step): median "
+                f"{t[f'{backend}_step_ms']['median']:.3f} ms [min "
+                f"{min(timed):.3f}, max {max(timed):.3f}] over {TRAIN_STEPS} "
+                f"steps; peak memory "
+                f"{t.get(f'{backend}_peak_mem_gib', 0.0):.3f} GiB")
+            self.report[backend] = {"losses": losses, "launches": launches}
+            assert all(np.isfinite(v) for m in losses for v in m.values()), \
+                f"non-finite {backend} metrics"
+            want = {k: v * n_steps for k, v in per_step.items()}
+            assert launches == want, (launches, want)
+
+            # one step on each path past the ramp, every perturbation on
+            mcfg = cfg.method
+            ramp_end = int(mcfg.ramp_iters * mcfg.consistency_rampup)
+            batch = dict(batches[-1], mix_w=torch.tensor(
+                [0.4, 0.3, 0.2, 0.1], device=self.dev))
+            (km, kmet, _), (pm, pmet, _) = self._step_pair(
+                method, cfg, self._uaps_config(conv_backend="xla"), init_sd,
+                batch, per_step, step=ramp_end,
+                prepare=(self._no_level01_dropout if backend == "chain"
+                         else None))
+            # the fused blocks' conv biases fold into BN: no gradient
+            none = {k for k, p in km.named_parameters() if p.grad is None}
+            want_none = {k for k, _ in km.named_parameters()
+                         if k.endswith(("conv_conv.0.bias", "conv_conv.4.bias"))
+                         and any(b in k for b in blocks)}
+            assert none == want_none, sorted(none ^ want_none)
+            log(f"{backend}: {len(none)} fused-block conv biases have no "
+                "gradient (left out of the comparison)")
+            # the same pair in f32, where the two paths round alike
+            (k32, k32met, _), (p32, p32met, _) = self._step_pair(
+                method, self._uaps_config(conv_backend=backend,
+                                          compute_dtype="float32"),
+                self._uaps_config(conv_backend="xla",
+                                  compute_dtype="float32"), init_sd, batch,
+                per_step, step=ramp_end,
+                prepare=(self._no_level01_dropout if backend == "chain"
+                         else None))
+            terms = ("loss", "sup_loss", "ps_loss", "uncertainty_loss")
+            lr = cfg.optim.base_lr
+            cmp = {
+                # bf16: the fused blocks round BN's factor and shift to bf16
+                # before y * f + sh (JAX's recipe) where the plain path
+                # normalises in f32, so their gradients carry independent
+                # bf16 rounding: the loss terms are held, the gradients
+                # reported beside each bf16 step's distance to the f32 step
+                "kernel_vs_plain": self._compare_steps(
+                    km, pm, kmet, pmet, init_sd, lr, terms, gate="loss"),
+                "kernel_vs_plain_f32": self._compare_steps(
+                    k32, p32, k32met, p32met, init_sd, lr, terms,
+                    label="f32 kernel vs plain"),
+                "kernel_bf16_vs_plain_f32": self._compare_steps(
+                    km, p32, kmet, p32met, init_sd, lr, terms, gate="none",
+                    label="bf16 kernel vs f32 plain"),
+                "plain_bf16_vs_plain_f32": self._compare_steps(
+                    pm, p32, pmet, p32met, init_sd, lr, terms, gate="none",
+                    label="bf16 plain vs f32 plain")}
+            self.report[backend].update(cmp)
+            del km, pm, k32, p32
+            ev = base.make_eval_step(cfg, model)(val)
+            ev = {k: float(v) for k, v in ev.items()}
+            log(f"{backend} eval step (bf16, B={BATCH}): {json.dumps(ev)}")
+            assert all(np.isfinite(v) for v in ev.values()), ev
+            self.fused_paths[backend] = (model, state, step, batches[0])
+
+        # predict of the trained chain weights: the chain model against the
+        # default model, f32, phase 4's gates
+        sd = self.fused_paths["chain"][0].state_dict()
+        imgs = np.random.default_rng(SEED).integers(
+            0, 256, (2 * BATCH, HW, HW, 3), dtype=np.uint8)
+        engines = [InferenceEngine(self._uaps_config(
+            conv_backend=b, compute_dtype="float32"), state_dict=sd,
+            device=self.dev) for b in ("chain", "auto")]
+        before = counters()
+        cm, cp = engines[0].predict(imgs)
+        fwd = counters()["chain_conv_plain"] - before["chain_conv_plain"]
+        am, ap = engines[1].predict(imgs)
+        agree = float((cm == am).mean())
+        err = float(np.abs(cp - ap).max())
+        ok = (agree >= 0.9999 and err <= 1e-4 and np.isfinite(cp).all()
+              and (self.dev.type != "cuda" or fwd == 8))
+        log(f"predict f32, chain vs default model on the chain weights: "
+            f"masks agree {agree:.6f} (min 0.9999), probs max abs diff "
+            f"{err:.3e} (atol 1e-4); chain_conv_plain launches {fwd} "
+            f"{'ok' if ok else 'MISMATCH'}")
+        self.report["chain"]["predict_vs_default"] = {
+            "mask_agree": agree, "probs_max_abs_diff": err}
+        assert ok
+
+    # ------------------------------------------------------------ phase 14
+    def chain_times(self):
+        """Per fused-block kernel and step shape (bf16, warm L2, as the conv
+        rows): the kernel's ms, its plain version's, the library composite's
+        (cuDNN F.conv2d; for bnl the torch normalise, leaky and F.dropout
+        before it; backwards: autograd of that composite) and the bound,
+        summed per step by launches; the UAPS step of the auto, chain and
+        fused paths in alternating rounds; a profile of 2 chain steps."""
+        import torch.nn.functional as F
+        from uaps_tpu_torch.kernels import block_conv as kbc
+        from uaps_tpu_torch.kernels import conv_bnl as kbnl
+        torch = self.torch
+        bf = torch.bfloat16
+        rows = {k: [] for k in CHAIN_COUNTERS}
+
+        def add(name, label, per_step, kern, plain, lib, nbytes, ops):
+            row = {"shape": label, "per_step": per_step,
+                   "ms": self.time_ms(kern), "plain_ms": self.time_ms(plain),
+                   "library_ms": self.time_ms(lib)}
+            row["bound_ms"], row["bound_by"] = bound(nbytes, ops, "bf16")
+            rows[name].append(row)
+            log(f"time {name} {label} x{per_step}/step: kernel "
+                f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
+                f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']})")
+
+        def composite(x, f, s, w, rate):
+            """The library's forward of the same function, and a backward
+            of it (autograd) for the cotangent g."""
+            ins = [None if t is None else t.detach().clone()
+                   .requires_grad_() for t in (x, f, s)]
+            w_oihw = w.permute(3, 2, 0, 1).contiguous().requires_grad_()
+
+            def fwd():
+                z = ins[0]
+                if f is not None:
+                    z = F.leaky_relu(ins[0].float() * ins[1][:, None, None]
+                                     + ins[2][:, None, None], 0.01)
+                    if rate > 0:
+                        z = F.dropout(z, rate)
+                return F.conv2d(z.to(x.dtype), w_oihw, padding=1)
+            out = fwd()
+            grads = ([ins[0], w_oihw] if f is None
+                     else [ins[0], ins[1], ins[2], w_oihw])
+            return fwd, lambda g: torch.autograd.grad(out, grads, g,
+                                                      retain_graph=True)
+
+        for i, (blk, cin, cout, hw, rate, n) in enumerate(CHAIN_BLOCKS):
+            px = BATCH * hw * hw
+            x, w, f, s, gy, ds1, ds2, sd = self._chain_case(
+                cin, cout, hw, bf, SEED + 400 + i)
+            y, _, _ = kbc.chain_conv_plain(x, w)
+            need_dx = blk != "in_conv"   # the image needs no gradient
+            lib_f, lib_b = composite(x, None, None, w, 0.0)
+            label = f"{blk}.0 {cin}->{cout} @{hw}"
+            add("chain_conv_plain", label, n,
+                lambda: kbc.chain_conv_plain(x, w),
+                lambda: kbc.chain_plain_ref(x, w), lib_f,
+                2 * (px * cin + 9 * cin * cout + px * cout),
+                2 * px * cin * cout * 9)
+            add("chain_conv_plain_bwd", label, n,
+                lambda: kbc._backward(gy, ds1, ds2, y, x, None, None, w,
+                                      None, 0.0, need_dx),
+                lambda: kbc.chain_bwd_plain(kbc.fold_plain(gy, y, ds1, ds2),
+                                            x, w, None, None, None, 0.0,
+                                            need_dx),
+                lambda: lib_b(gy),
+                2 * (2 * px * cout + px * cin * (1 + need_dx))
+                + 9 * cin * cout * (2 + 4),
+                2 * px * cin * cout * 9 * (1 + need_dx))
+            x, w, f, s, gy, ds1, ds2, sd = self._chain_case(
+                cout, cout, hw, bf, SEED + 420 + i)
+            y, _, _ = kbc.chain_conv_bnl(x, f, s, w, sd, rate)
+            lib_f, lib_b = composite(x, f, s, w, rate)
+            label = f"{blk}.4 {cout}->{cout} @{hw} p={rate}"
+            nb_fwd = 2 * (2 * px * cout + 9 * cout * cout)
+            ops = 2 * px * cout * cout * 9
+            add("chain_conv_bnl", label, n,
+                lambda: kbc.chain_conv_bnl(x, f, s, w, sd, rate),
+                lambda: kbc.chain_bnl_ref(x, f, s, w, sd, rate), lib_f,
+                nb_fwd, ops)
+            add("chain_conv_bnl_bwd", label, n,
+                lambda: kbc._backward(gy, ds1, ds2, y, x, f, s, w, sd, rate,
+                                      True),
+                lambda: kbc.chain_bwd_plain(kbc.fold_plain(gy, y, ds1, ds2),
+                                            x, w, f, s, sd, rate),
+                lambda: lib_b(gy),
+                2 * 4 * px * cout + 9 * cout * cout * (2 + 4), 2 * ops)
+            if rate == 0:
+                label = f"{blk}.4 {cout}->{cout} @{hw}"
+                add("conv3x3_bnl", label, n,
+                    lambda: kbnl.conv3x3_bnl(x, f, s, w),
+                    lambda: kbnl.conv3x3_bnl_ref(x, f, s, w), lib_f,
+                    nb_fwd, ops)
+                add("conv3x3_bnl_bwd", label, n,
+                    lambda: kbnl._backward(gy, x, f, s, w),
+                    lambda: kbc.chain_bwd_plain(gy, x, w, f, s, None, 0.0),
+                    lambda: lib_b(gy),
+                    2 * 3 * px * cout + 9 * cout * cout * (2 + 4), 2 * ops)
+        t = self.report["times"]
+        t["chain_kernels"] = rows
+        for name, rs in rows.items():
+            def per_step(key):
+                return sum(r[key] * r["per_step"] for r in rs)
+            by_bytes = sum(r["bound_ms"] * r["per_step"] for r in rs
+                           if r["bound_by"] == "bytes")
+            self.report["kernels"][name].update(
+                ms=per_step("ms"), plain_ms=per_step("plain_ms"),
+                library_ms=per_step("library_ms"),
+                bound_ms=per_step("bound_ms"),
+                bound_by=("bytes" if by_bytes * 2 >= per_step("bound_ms")
+                          else "operations"))
+            k = self.report["kernels"][name]
+            log(f"per UAPS step, {name}: kernel {k['ms']:.4f} ms, plain "
+                f"{k['plain_ms']:.4f} ms, library {k['library_ms']:.4f} ms, "
+                f"bound {k['bound_ms']:.4f} ms")
+        self.step_rounds(t)
+        self.profile_chain()
+
+    def step_rounds(self, t, rounds=5, reps=3):
+        """The UAPS step of the auto, chain and fused paths in alternating
+        rounds (the order rotates each round), so that drift in the host's
+        or the card's speed falls on all three: per round and path the
+        median of `reps` steps (host clock, sync each step); reported:
+        median, min and max over the rounds."""
+        paths = {"auto": (self.uaps_step, self.uaps_state, self.uaps_batch)}
+        for b, (_, state, step, batch) in self.fused_paths.items():
+            paths[b] = (step, state, batch)
+        labs = list(paths)
+        got = {lab: [] for lab in labs}
+        for r in range(rounds):
+            for lab in labs[r % 3:] + labs[:r % 3]:
+                step, state, batch = paths[lab]
+                ms = []
+                for _ in range(reps):
+                    t0 = time.perf_counter()
+                    step(state, batch)
+                    self.sync()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                got[lab].append(statistics.median(ms))
+        t["step_rounds"] = {
+            lab: {"rounds": v, "median": statistics.median(v),
+                  "min": min(v), "max": max(v)} for lab, v in got.items()}
+        log(f"time UAPS step bf16 B={BATCH}+{BATCH}, {rounds} alternating "
+            f"rounds of {reps} steps, median [min, max] ms: " + "; ".join(
+                f"{lab} {statistics.median(v):.3f} [{min(v):.3f}, "
+                f"{max(v):.3f}]" for lab, v in got.items()))
+
+    def profile_chain(self):
+        """Device time by kernel over 2 chain UAPS steps. Best effort, as
+        the other profiles."""
+        from torch.profiler import ProfilerActivity, profile
+        cuda = self.torch.autograd.DeviceType.CUDA
+        t = self.report["times"]
+        _, state, step, batch = self.fused_paths["chain"]
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(2):
+                    step(state, batch)
+                self.sync()
+            events = prof.key_averages()
+            table = events.table(sort_by="cuda_time_total", row_limit=40)
+        except RuntimeError as exc:
+            log(f"profiler unavailable: {exc}")
+            return
+        busy = sum(e.self_device_time_total for e in events
+                   if e.device_type == cuda) / 2 / 1e3
+        step_ms = t["step_rounds"]["chain"]["median"]
+        t["chain_device_busy_ms"] = busy
+        t["chain_device_idle_share"] = 1.0 - busy / step_ms
+        with open(os.path.join(OUT_DIR, "chip_smoke_profile_chain.txt"),
+                  "w") as f:
+            f.write(table)
+        log(f"device busy {busy:.3f} ms per chain UAPS step (profiler) of "
+            f"{step_ms:.3f} ms (host clock, median of the rounds): idle "
+            f"share {t['chain_device_idle_share']:.3f}; by device time:\n"
+            + table)
+
+
 # the kernels line: (launch counter, CUDA source, the TPU kernel replaced)
 KERNELS = [
     ("conv3x3_nchw", "conv3x3_nchw", "uaps_tpu/pallas/conv3x3_nchw.py:289"),
@@ -1665,6 +2253,26 @@ KERNELS = [
 # the kernels whose launches the UAPS run (phase 10) reports
 UAPS_KERNELS = ("fused_dropout", "feature_noise", "feature_dropout",
                 "feature_dropout_bwd", "uncertainty_fwd", "uncertainty_bwd")
+# ... and the fused-block kernels, whose launches the chain and fused runs
+# (phase 13) report
+KERNELS += [
+    ("chain_conv_plain", "block_conv", "uaps_tpu/pallas/block_conv.py:217"),
+    ("chain_conv_bnl", "block_conv", "uaps_tpu/pallas/block_conv.py:217"),
+    ("chain_conv_plain_bwd", "block_conv",
+     "uaps_tpu/pallas/block_conv.py:345"),
+    ("chain_conv_bnl_bwd", "block_conv", "uaps_tpu/pallas/block_conv.py:345"),
+    ("conv3x3_bnl", "block_conv", "uaps_tpu/pallas/conv_bnl.py:149"),
+    ("conv3x3_bnl_bwd", "block_conv", "uaps_tpu/pallas/conv_bnl.py:196"),
+]
+
+
+def launches_of(s, name):
+    """The kernel's launches on the run of the path that reports it."""
+    if name in CHAIN_COUNTERS:
+        path = "fused" if name.startswith("conv3x3_bnl") else "chain"
+        return s.fused_launches[path][name]
+    return (s.uaps_launches if name in UAPS_KERNELS
+            else s.train_launches)[name]
 
 
 def main() -> int:
@@ -1697,6 +2305,9 @@ def main() -> int:
         s.phase("9 UAPS kernels vs plain", s.uaps_kernels)
         if s.phase("10 UAPS training", s.uaps_training):
             s.phase("11 UAPS times", s.uaps_times)
+        s.phase("12 fused-block kernels vs plain", s.chain_kernels)
+        if s.phase("13 chain and fused UAPS training", s.chain_training):
+            s.phase("14 fused-block times", s.chain_times)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(s.report, f, indent=1, default=str)
@@ -1709,8 +2320,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"uaps_tpu_torch/csrc/{src}.cu", "replaces": replaces,
-            "launches": (s.uaps_launches if name in UAPS_KERNELS
-                         else s.train_launches)[name],
+            "launches": launches_of(s, name),
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"]})

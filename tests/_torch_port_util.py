@@ -82,15 +82,15 @@ def running(sd):
     return {k: v for k, v in sd.items() if "running" in k}
 
 
-def check_params(jparams, psd, jgrad, steps, lr, atol):
+def check_params(jparams, psd, jgrad, steps, lr, atol, noise=1e-6):
     """Params after `steps` Adam steps: elements whose JAX step-1 gradient
-    is at the packages' rounding noise (below 1e-6 of the largest, or a
+    is at the packages' rounding noise (below `noise` of the largest, or a
     BN-fed conv bias) held to 2 * steps * lr * 1.05, the rest to `atol`
     (tests/test_torch_port_train.py docstring)."""
     scale = max(np.abs(g).max() for g in jgrad.values())
     for k, pj in jparams.items():
         pp = psd[k]
-        noisy = np.abs(jgrad[k]) < 1e-6 * scale
+        noisy = np.abs(jgrad[k]) < noise * scale
         if k.endswith(ZERO_GRAD_BIASES):
             noisy[...] = True
         bound = 2 * steps * lr * 1.05

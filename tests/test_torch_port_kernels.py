@@ -263,6 +263,6 @@ def test_build_raises_without_nvcc(monkeypatch):
     monkeypatch.setattr(_build.os, "access", lambda *a: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.find_nvcc()
-    assert _build.sources() == ["ce_dice", "conv3x3_nchw",
+    assert _build.sources() == ["block_conv", "ce_dice", "conv3x3_nchw",
                                 "conv3x3_wgrad_nchw", "perturb", "pool_nchw",
                                 "uncertainty"]

@@ -120,7 +120,6 @@ def test_state_dict_names_match_export():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("conv_backend", "fused"), ("conv_backend", "chain"),
     ("bn_backend", "flat"), ("packed_heads", True),
     ("stack_decoders", True)])
 def test_unported_knobs_raise(knob, value):

@@ -39,150 +39,45 @@
 
 #include <stdint.h>
 
-#include "common.cuh"
+#include "conv3x3_tile.cuh"
 
 namespace {
 
-constexpr int kTH = 8;                      // output rows per block
-constexpr int kTW = 64;                     // output columns per block
-constexpr int kPX = 4;                      // neighbouring columns per thread
-constexpr int kThreads = kTH * kTW / kPX;   // 128
-constexpr int kCK = 8;                      // input channels per chunk
-constexpr int kSH = kTH + 2;                // tile rows with halo
-constexpr int kSW = kTW + 2;                // tile columns with halo
+using uaps::conv::kPX;
+using uaps::conv::kThreads;
 
 // element strides of the HWIO weight view
 struct WStrides {
   int kh, kw, ci, co;
 };
 
-__device__ __forceinline__ void store4(float* p, float a, float b, float c,
-                                       float d) {
-  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b,
-                                       float c, float d) {
-  union {
-    __nv_bfloat162 h[2];
-    uint2 u;
-  } v;
-  v.h[0] = __floats2bfloat162_rn(a, b);  // .x lands at the lower address
-  v.h[1] = __floats2bfloat162_rn(c, d);
-  *reinterpret_cast<uint2*>(p) = v.u;
-}
-
 // COP: the block's output channels, Cout rounded up to 4, 8, 16 or 32 (the
 // accumulator count per pixel); blockIdx.z = image * groups + group, and
 // group g computes channels [g * COP, g * COP + COP). Channels >= cout carry
 // zero weights and are not stored.
 template <typename Tin, typename Tout, int COP>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, uaps::conv::min_blocks(COP))
     conv3x3_fwd_kernel(const Tin* __restrict__ x, const Tin* __restrict__ w,
                        WStrides wst, Tout* __restrict__ y, int cin, int cout,
                        int h, int wd, int groups) {
-  __shared__ float xs[kCK][kSH][kSW];
-  __shared__ __align__(16) float ws[kCK][9][COP];
-
-  const int b = blockIdx.z / groups;
-  const int co0 = (blockIdx.z % groups) * COP;
-  const int y0 = blockIdx.y * kTH;
-  const int x0 = blockIdx.x * kTW;
-  const int tid = threadIdx.x;
-  const int ty = tid / (kTW / kPX);          // output row inside the tile
-  const int tx = (tid % (kTW / kPX)) * kPX;  // first output column inside
-
+  __shared__ uaps::conv::TileSmem<COP> sm;
+  const uaps::conv::Tile t = uaps::conv::tile_of_block(groups, COP);
+  const uaps::conv::PlainLoad<Tin> in{x, cin, h, wd};
+  auto wt = [&](int c, int tap, int co) {
+    return uaps::to_f32(w[(tap / 3) * wst.kh + (tap % 3) * wst.kw +
+                          c * wst.ci + co * wst.co]);
+  };
   float acc[kPX][COP];
-#pragma unroll
-  for (int p = 0; p < kPX; ++p)
-#pragma unroll
-    for (int co = 0; co < COP; ++co) acc[p][co] = 0.f;
-
-  const size_t plane = static_cast<size_t>(h) * wd;
-  const Tin* xb = x + static_cast<size_t>(b) * cin * plane;
-
-  for (int c0 = 0; c0 < cin; c0 += kCK) {
-    const int nc = min(kCK, cin - c0);
-    __syncthreads();  // the previous chunk is consumed by every thread
-    for (int i = tid; i < kCK * kSH * kSW; i += kThreads) {
-      const int c = i / (kSH * kSW);
-      const int r = (i / kSW) % kSH;
-      const int col = i % kSW;
-      const int gy = y0 - 1 + r;
-      const int gx = x0 - 1 + col;
-      float v = 0.f;
-      if (c < nc && gy >= 0 && gy < h && gx >= 0 && gx < wd)
-        v = uaps::to_f32(xb[(c0 + c) * plane + static_cast<size_t>(gy) * wd +
-                            gx]);
-      xs[c][r][col] = v;
-    }
-    for (int i = tid; i < kCK * 9 * COP; i += kThreads) {
-      const int c = i / (9 * COP);
-      const int t = (i / COP) % 9;
-      const int co = i % COP;
-      ws[c][t][co] = (c < nc && co0 + co < cout)
-                         ? uaps::to_f32(w[(t / 3) * wst.kh + (t % 3) * wst.kw +
-                                          (c0 + c) * wst.ci +
-                                          (co0 + co) * wst.co])
-                         : 0.f;
-    }
-    __syncthreads();
-
-    for (int c = 0; c < nc; ++c) {
-#pragma unroll
-      for (int dh = 0; dh < 3; ++dh) {
-        float xv[kPX + 2];
-#pragma unroll
-        for (int j = 0; j < kPX + 2; ++j) xv[j] = xs[c][ty + dh][tx + j];
-#pragma unroll
-        for (int dw = 0; dw < 3; ++dw) {
-          const float4* wv =
-              reinterpret_cast<const float4*>(&ws[c][dh * 3 + dw][0]);
-#pragma unroll
-          for (int q = 0; q < COP / 4; ++q) {
-            const float4 w4 = wv[q];
-#pragma unroll
-            for (int p = 0; p < kPX; ++p) {
-              const float xp = xv[p + dw];
-              acc[p][4 * q + 0] = fmaf(xp, w4.x, acc[p][4 * q + 0]);
-              acc[p][4 * q + 1] = fmaf(xp, w4.y, acc[p][4 * q + 1]);
-              acc[p][4 * q + 2] = fmaf(xp, w4.z, acc[p][4 * q + 2]);
-              acc[p][4 * q + 3] = fmaf(xp, w4.w, acc[p][4 * q + 3]);
-            }
-          }
-        }
-      }
-    }
-  }
-
-  const int oy = y0 + ty;
-  const int ox = x0 + tx;
-  if (oy >= h || ox >= wd) return;
-  Tout* yr = y + (static_cast<size_t>(b) * cout + co0) * plane +
-             static_cast<size_t>(oy) * wd + ox;
-  // wd % 4 == 0 makes every row start and every ox 4-aligned (the output is
-  // a fresh allocation), so the kPX = 4 pixels go out as one vector store.
-  const bool vec = (wd % 4) == 0;
-#pragma unroll
-  for (int co = 0; co < COP; ++co) {
-    if (co0 + co >= cout) break;
-    Tout* p = yr + co * plane;
-    if (vec) {
-      store4(p, acc[0][co], acc[1][co], acc[2][co], acc[3][co]);
-    } else {
-#pragma unroll
-      for (int q = 0; q < kPX; ++q)
-        if (ox + q < wd) p[q] = uaps::from_f32<Tout>(acc[q][co]);
-    }
-  }
+  uaps::conv::conv_tile(acc, sm, t, in, wt, cin, cout, h, wd);
+  uaps::conv::store_tile<Tout, COP>(y, acc, t, cout, h, wd);
 }
 
 template <typename Tin, typename Tout>
 cudaError_t launch(const void* x, const void* w, WStrides wst, void* y,
                    int batch, int cin, int cout, int h, int wd,
                    cudaStream_t stream) {
-  const int groups = (cout + 31) / 32;
-  const dim3 grid((wd + kTW - 1) / kTW, (h + kTH - 1) / kTH, batch * groups);
+  const int groups = uaps::conv::tile_groups(cout);
+  const dim3 grid = uaps::conv::tile_grid(batch, cout, h, wd);
   const Tin* xi = static_cast<const Tin*>(x);
   const Tin* wi = static_cast<const Tin*>(w);
   Tout* yo = static_cast<Tout*>(y);
@@ -214,6 +109,7 @@ extern "C" int uaps_conv3x3_nchw_fwd(const void* x, const void* w, void* y,
                                      int w_co, int in_dtype, int out_dtype,
                                      void* stream) {
   if (batch < 1 || cin < 1 || cout < 1 || h < 1 || wd < 1 ||
+      !uaps::conv::index_fits(batch, cin > cout ? cin : cout, h, wd) ||
       static_cast<long long>(batch) * ((cout + 31) / 32) > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const WStrides wst{w_kh, w_kw, w_ci, w_co};

@@ -40,6 +40,25 @@ Train mode (`model.train()`), as flax computes it:
     "auto" with conv_backend="xla", run the plain ops. Both draw the same
     masks from the same seeds.
 
+The fused ConvBlock backends (ModelConfig.conv_backend, JAX
+models/unet.py:311-498) replace every ConvBlock at the levels below
+nchw_levels (JAX's NCHW levels); deeper levels keep the default block:
+  * "chain": conv1 emits its output's moments (kernels/block_conv.py
+    `chain_conv_plain`), `BNFactorShift` turns them into BN's per-channel
+    factor and shift, conv2 applies normalise + LeakyReLU + the level's
+    dropout (train mode only; the position-hashed mask, seeded by the
+    level's seed) to its input and emits its moments (`chain_conv_bnl`), and
+    the block ends with y2 * f2 + sh2 and LeakyReLU in the compute dtype.
+    The Dropout module is not applied there;
+  * "fused": only blocks with dropout rate 0 (the decoders' up3 and up4);
+    conv1 is the plain conv without its bias, its moments come from torch
+    reductions, conv2 is `conv3x3_bnl` (kernels/conv_bnl.py).
+Both run their kernel modules under the JAX gate (`conv_kernel_ok` of the
+block's input), their plain versions elsewhere. The conv biases fold into
+BN: in train mode they cancel and get no gradient (None; JAX's is an exact
+zero), and only the running mean sees them. Module names and state dicts
+are the default block's.
+
 The multi-decoder forward (`MultiDecoderUNet.forward`) runs the encoder
 once, the main decoder on its features and aux decoder i on the features
 perturbed by `perturbations[i]` (all 5 skips, one seed each, drawn from the
@@ -55,7 +74,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from uaps_tpu_torch.kernels.block_conv import (chain_bnl_ref, chain_conv_bnl,
+                                               chain_conv_plain,
+                                               chain_plain_ref, moments)
 from uaps_tpu_torch.kernels.conv3x3_nchw import conv3x3_nchw, conv_kernel_ok
+from uaps_tpu_torch.kernels.conv_bnl import conv3x3_bnl, conv3x3_bnl_ref
 from uaps_tpu_torch.kernels.perturb import fused_dropout
 from uaps_tpu_torch.kernels.pool_nchw import (max_pool_2x2_nchw,
                                               pool_pallas_ok)
@@ -97,16 +120,29 @@ class Conv3x3(nn.Module):
         self.out_dtype = out_dtype or dtype
         self.kernel = kernel
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, apply_bias: bool = True,
+                bnl: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> torch.Tensor:
+        """apply_bias=False returns the raw conv (the caller folds the bias
+        into a following BN); bnl=(factor, shift) convolves
+        leaky(x * factor + shift) instead of x (the fused ConvBlock's second
+        conv)."""
         x = x.to(self.dtype)
         w = self.weight.to(self.dtype)
         cout, cin = w.shape[:2]
-        if self.kernel and conv_kernel_ok(x.shape[2], x.shape[3], cin, cout):
+        use_k = self.kernel and conv_kernel_ok(x.shape[2], x.shape[3], cin,
+                                               cout)
+        if bnl is not None:
+            fn = conv3x3_bnl if use_k else conv3x3_bnl_ref
+            y = fn(x, bnl[0], bnl[1], w.permute(2, 3, 1, 0), self.out_dtype)
+        elif use_k:
             y = conv3x3_nchw(x, w.permute(2, 3, 1, 0), self.out_dtype)
         else:
             # the JAX fallback: a plain conv in the wider of the two dtypes
             y = F.conv2d(x.to(self.out_dtype), w.to(self.out_dtype),
                          padding=1)
+        if not apply_bias:
+            return y
         return y + self.bias.to(y.dtype)[:, None, None]
 
 
@@ -141,6 +177,33 @@ class BatchNorm(nn.BatchNorm2d):
         return y.to(self.dtype)
 
 
+class BNFactorShift(BatchNorm):
+    """BN folded to a per-channel (factor, shift) for the fused ConvBlocks
+    (JAX `BNFactorShift`), from the moments (s1, s2) of the raw conv output
+    over n elements and the conv bias b: BN(y + b) = y * factor + shift.
+    Train mode: mean = s1 / n, var = max(s2 / n - mean^2, 0), factor =
+    rsqrt(var + eps) * scale, shift = bias - mean * factor (b cancels); the
+    running mean takes mean + b. Eval mode: the running stats with b folded
+    in. The parameters and buffers are nn.BatchNorm2d's."""
+
+    def factor_shift(self, s1: torch.Tensor, s2: torch.Tensor, n: int,
+                     conv_bias: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        b = conv_bias.to(torch.float32)
+        if self.training:
+            mean = s1 / n
+            var = torch.clamp(s2 / n - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_((1 - m) * self.running_mean
+                                        + m * (mean + b))
+                self.running_var.copy_((1 - m) * self.running_var + m * var)
+            factor = torch.rsqrt(var + self.eps) * self.weight
+            return factor, self.bias - mean * factor
+        factor = torch.rsqrt(self.running_var + self.eps) * self.weight
+        return factor, self.bias - (self.running_mean - b) * factor
+
+
 class Dropout(nn.Module):
     """flax nn.Dropout in train mode (keep with probability 1 - p, scale by
     1 / (1 - p)), the identity in eval mode or at p = 0. `backend` "auto"
@@ -161,25 +224,78 @@ class Dropout(nn.Module):
         return fused_dropout(x, seed, self.rate)
 
 
+def block_kind(conv_backend: str, level: int, nchw_levels: int) -> str:
+    """The ConvBlock recipe at `level`: "chain" or "fused" where that backend
+    is chosen and the level is below nchw_levels, else "default"."""
+    if conv_backend in ("chain", "fused") and level < nchw_levels:
+        return conv_backend
+    return "default"
+
+
 class ConvBlock(nn.Module):
     """Conv3x3-BN-LeakyReLU, Dropout, Conv3x3-BN-LeakyReLU
-    (UAPS_unet.py:31-47)."""
+    (UAPS_unet.py:31-47). `block` "chain" and "fused" take the fused
+    recipes of the module docstring ("fused" only at dropout rate 0, as
+    JAX's `use_fused`)."""
 
     def __init__(self, cin: int, cout: int, dropout: float,
                  dtype: torch.dtype, kernel: bool,
-                 dropout_backend: str = "auto"):
+                 dropout_backend: str = "auto", block: str = "default"):
         super().__init__()
+        if block == "fused" and dropout != 0.0:
+            block = "default"
+        self.block = block
+        self.dtype = dtype
+        bn = BatchNorm if block == "default" else BNFactorShift
         self.conv_conv = nn.Sequential(
-            Conv3x3(cin, cout, dtype, kernel=kernel), BatchNorm(cout, dtype),
+            Conv3x3(cin, cout, dtype, kernel=kernel), bn(cout, dtype),
             nn.LeakyReLU(0.01), Dropout(dropout, dropout_backend),
-            Conv3x3(cout, cout, dtype, kernel=kernel), BatchNorm(cout, dtype),
+            Conv3x3(cout, cout, dtype, kernel=kernel), bn(cout, dtype),
             nn.LeakyReLU(0.01))
 
     def forward(self, x: torch.Tensor,
                 seed: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.block == "chain":
+            return self._chain(x, seed)
+        if self.block == "fused":
+            return self._fused(x)
         c = self.conv_conv
         x = c[3](c[2](c[1](c[0](x))), seed)
         return c[6](c[5](c[4](x)))
+
+    def _bn_leaky(self, y, factor, shift) -> torch.Tensor:
+        dt = self.dtype
+        return F.leaky_relu(y * factor.to(dt)[:, None, None]
+                            + shift.to(dt)[:, None, None], 0.01)
+
+    def _chain(self, x: torch.Tensor,
+               seed: Optional[torch.Tensor]) -> torch.Tensor:
+        """JAX `ConvBlock._chain`."""
+        conv1, bn1, _, drop, conv2, bn2, _ = self.conv_conv
+        dt = self.dtype
+        b, cin, h, w = x.shape
+        n = b * h * w
+        if conv1.kernel and conv_kernel_ok(h, w, cin, conv1.weight.shape[0]):
+            plain, bnl = chain_conv_plain, chain_conv_bnl
+        else:
+            plain, bnl = chain_plain_ref, chain_bnl_ref
+        y1, s1, s2 = plain(x.to(dt), conv1.weight.to(dt).permute(2, 3, 1, 0))
+        f1, sh1 = bn1.factor_shift(s1, s2, n, conv1.bias)
+        rate = drop.rate if self.training else 0.0
+        y2, s1, s2 = bnl(y1, f1, sh1, conv2.weight.to(dt).permute(2, 3, 1, 0),
+                         seed if rate > 0 else None, rate)
+        f2, sh2 = bn2.factor_shift(s1, s2, n, conv2.bias)
+        return self._bn_leaky(y2, f2, sh2)
+
+    def _fused(self, x: torch.Tensor) -> torch.Tensor:
+        """JAX `ConvBlock._fused`."""
+        conv1, bn1, _, _, conv2, bn2, _ = self.conv_conv
+        n = x.shape[0] * x.shape[2] * x.shape[3]
+        y1 = conv1(x, apply_bias=False)
+        f1, sh1 = bn1.factor_shift(*moments(y1), n, conv1.bias)
+        y2 = conv2(y1, apply_bias=False, bnl=(f1, sh1))
+        f2, sh2 = bn2.factor_shift(*moments(y2), n, conv2.bias)
+        return self._bn_leaky(y2, f2, sh2)
 
 
 def max_pool_2x2(x: torch.Tensor, kernel: bool) -> torch.Tensor:
@@ -204,12 +320,12 @@ class DownBlock(nn.Module):
 
     def __init__(self, cin: int, cout: int, dropout: float,
                  dtype: torch.dtype, pool_kernel: bool, conv_kernel: bool,
-                 dropout_backend: str = "auto"):
+                 dropout_backend: str = "auto", block: str = "default"):
         super().__init__()
         self.maxpool_conv = nn.Sequential(
             MaxPool2x2(pool_kernel),
             ConvBlock(cin, cout, dropout, dtype, conv_kernel,
-                      dropout_backend))
+                      dropout_backend, block))
 
     def forward(self, x: torch.Tensor,
                 seed: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -271,10 +387,11 @@ class UpBlock(nn.Module):
     (UAPS_unet.py:65-86; the reference's default bilinear=True path)."""
 
     def __init__(self, cin: int, skip: int, cout: int, dtype: torch.dtype,
-                 conv_kernel: bool):
+                 conv_kernel: bool, block: str = "default"):
         super().__init__()
         self.conv1x1 = PointwiseConv(cin, skip, dtype)
-        self.conv = ConvBlock(2 * skip, cout, 0.0, dtype, conv_kernel)
+        self.conv = ConvBlock(2 * skip, cout, 0.0, dtype, conv_kernel,
+                              block=block)
         # interpolation matrices by (h, w, dtype, device): built on the
         # device once instead of in every forward (a dozen small launches)
         self._mats = {}
@@ -298,7 +415,7 @@ class Encoder(nn.Module):
     def __init__(self, in_chns: int, features: Sequence[int],
                  dropout: Sequence[float], dtype: torch.dtype,
                  nchw_levels: int, conv_kernel: bool, pool_kernel: bool,
-                 dropout_backend: str = "auto"):
+                 dropout_backend: str = "auto", conv_backend: str = "auto"):
         super().__init__()
         ft, dp = features, dropout
         self.has_dropout = any(r > 0 for r in dp)
@@ -307,12 +424,14 @@ class Encoder(nn.Module):
         drop = ("xla" if dropout_backend == "auto" and not conv_kernel
                 else dropout_backend)
         self.in_conv = ConvBlock(in_chns, ft[0], dp[0], dtype,
-                                 conv_kernel and 0 < nchw_levels, drop)
+                                 conv_kernel and 0 < nchw_levels, drop,
+                                 block_kind(conv_backend, 0, nchw_levels))
         for i in range(1, SKIPS):
             self.add_module(f"down{i}", DownBlock(
                 ft[i - 1], ft[i], dp[i], dtype,
                 pool_kernel and i - 1 < nchw_levels,
-                conv_kernel and i < nchw_levels, drop))
+                conv_kernel and i < nchw_levels, drop,
+                block_kind(conv_backend, i, nchw_levels)))
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None
@@ -335,14 +454,15 @@ class Decoder(nn.Module):
 
     def __init__(self, num_classes: int, features: Sequence[int],
                  dtype: torch.dtype, nchw_levels: int, conv_kernel: bool,
-                 head_variant: str):
+                 head_variant: str, conv_backend: str = "auto"):
         super().__init__()
         ft = features
         for j in range(4):
             lvl = 3 - j
             self.add_module(f"up{j + 1}", UpBlock(
                 ft[lvl + 1], ft[lvl], ft[lvl], dtype,
-                conv_kernel and lvl < nchw_levels))
+                conv_kernel and lvl < nchw_levels,
+                block_kind(conv_backend, lvl, nchw_levels)))
         if nchw_levels > 0 and head_variant != "xla":
             self.out_conv = Conv3x3(ft[0], num_classes, dtype,
                                     out_dtype=torch.float32,
@@ -361,13 +481,7 @@ class Decoder(nn.Module):
 def _kernel_flags(conv_backend: str, pool_backend: str,
                   bn_backend: str) -> Tuple[bool, bool]:
     """(conv kernel allowed, pool kernel allowed) for the model knobs;
-    raises for the ablation backends this slice does not port."""
-    if conv_backend in ("fused", "chain"):
-        row = {"fused": "Queue B #13 (pallas/conv_bnl.py)",
-               "chain": "Queue B #14 (pallas/block_conv.py)"}[conv_backend]
-        raise NotImplementedError(
-            f"conv_backend={conv_backend!r} is not ported yet: ROADMAP.md "
-            f"{row}")
+    raises for the ablation backend the port does not have."""
     if bn_backend == "flat":
         raise NotImplementedError(
             "bn_backend='flat' (the bn_stats ablation) is not ported yet: "
@@ -402,9 +516,10 @@ class UNet(nn.Module):
         conv_k, pool_k = _kernel_flags(conv_backend, pool_backend,
                                        bn_backend)
         self.encoder = Encoder(in_chns, features, dropout, dtype,
-                               nchw_levels, conv_k, pool_k, dropout_backend)
+                               nchw_levels, conv_k, pool_k, dropout_backend,
+                               conv_backend)
         self.decoder = Decoder(num_classes, features, dtype, nchw_levels,
-                               conv_k, head_variant)
+                               conv_k, head_variant, conv_backend)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -437,11 +552,12 @@ class MultiDecoderUNet(nn.Module):
         self.perturbations = tuple(perturbations)
         self.conv_backend = conv_backend
         self.encoder = Encoder(in_chns, features, dropout, dtype,
-                               nchw_levels, conv_k, pool_k, dropout_backend)
+                               nchw_levels, conv_k, pool_k, dropout_backend,
+                               conv_backend)
 
         def decoder():
             return Decoder(num_classes, features, dtype, nchw_levels,
-                           conv_k, head_variant)
+                           conv_k, head_variant, conv_backend)
 
         self.main_decoder = decoder()
         for i in range(len(self.perturbations)):
