@@ -88,11 +88,38 @@ Phases (any failure: exit 1 and no result line):
      normalise, leaky and dropout before it; backwards: autograd of the
      composite) and the bound, summed per step by launches; the UAPS step of
      the auto, chain and fused paths in alternating rounds; a profile of 2
-     chain steps.
+     chain steps;
+ 15. the fused pseudo-label kernel against its plain version at the logits
+     of each preset's UAPS step (PSEUDO_GEOMS: 4 x [16, 256, 256, 4 / 7 /
+     6] and 4 x [12, 256, 512, 2]), f32 and bf16, as NHWC views of NCHW
+     tensors: labels equal on >= 99.99% of pixels and, where they differ,
+     the plain mix's top two within 2e-6 (phase 9's gate); built exact
+     ties go to the lowest class on both sides; the f32 labels against the
+     fused uncertainty kernel's under the same gate; ms (L2 flushed), the
+     plain version's, the torch composite's (softmax, weighted sum, argmax:
+     no single PyTorch call computes it) and the bound; the kernels line's
+     max_abs_err is the largest difference of the plain mix between the
+     kernel's and the plain version's classes;
+ 16. (a) the unfused UAPS route: the phase-10 step with
+     MethodConfig.fused_uncertainty=False (softmaxes and KL maps as torch
+     ops, the pseudo-label kernel): 3 warm-up and 10 timed steps with finite
+     losses and UNFUSED_STEP_LAUNCHES per step; one step against the plain
+     path past the ramp within phase 10's gates; peak memory; this step and
+     the auto step in alternating rounds; a profile of 2 steps;
+     (b) the dagm, mtiles and kosdd2 presets as `python -m
+     uaps_tpu_torch.train --preset NAME --dataset synthetic --dtype
+     bfloat16` builds them (PRESETS: 1 input channel and 7 classes; 6
+     classes, lr 2e-3, the unramped uncertainty term; 2 classes at 256 x
+     512, batch 12): 3 warm-up and 5 timed steps each with finite losses and
+     UAPS_STEP_LAUNCHES per step, one step against the plain path past the
+     ramp within phase 10's gates (on a miss the same pair in f32 is
+     reported, to tell a kernel fault from bf16 rounding, and the phase
+     fails), one eval step, peak memory, a profile of 2 steps.
 It then prints {"kernels": [...]} (launches from phase 7 for the baseline
-kernels, from phase 10 for the UAPS kernels and from phase 13 for the
-fused-block kernels) and, last, {"ok": true, "device": ...}. Details go to OUT_DIR/chip_smoke.json. It exits
-non-zero without CUDA, and outside the repository.
+kernels, from phase 10 for the UAPS kernels, from phase 13 for the
+fused-block kernels and from phase 16a for the pseudo-label kernel) and,
+last, {"ok": true, "device": ...}. Details go to OUT_DIR/chip_smoke.json.
+It exits non-zero without CUDA, and outside the repository.
 """
 from __future__ import annotations
 
@@ -138,7 +165,7 @@ STEP_LAUNCHES = {"conv3x3_nchw": 9, "conv3x3_nchw_dgrad": 8,
                  "ce_dice_bwd": 1, "fused_dropout": 0, "feature_noise": 0,
                  "feature_dropout": 0, "feature_dropout_bwd": 0,
                  "uncertainty_fwd": 0, "uncertainty_bwd": 0,
-                 **dict.fromkeys(CHAIN_COUNTERS, 0)}
+                 "pseudo_label": 0, **dict.fromkeys(CHAIN_COUNTERS, 0)}
 # ... and per UAPS step: two forwards (labelled, unlabelled), each the
 # encoder (4 kernel convs, 2 pools, 5 dropouts) and 4 decoders (5 kernel
 # convs each), 3 x 5 perturbed skips; 4 + 4 CE+Dice; one uncertainty
@@ -148,7 +175,7 @@ UAPS_STEP_LAUNCHES = {"conv3x3_nchw": 48, "conv3x3_nchw_dgrad": 46,
                       "ce_dice_bwd": 8, "fused_dropout": 40,
                       "feature_noise": 20, "feature_dropout": 10,
                       "feature_dropout_bwd": 10, "uncertainty_fwd": 1,
-                      "uncertainty_bwd": 1,
+                      "uncertainty_bwd": 1, "pseudo_label": 0,
                       **dict.fromkeys(CHAIN_COUNTERS, 0)}
 N_DEC = 4
 # the blocks that the fused backends replace in a neu UAPS step (levels 0
@@ -172,6 +199,18 @@ CHAIN_STEP_LAUNCHES = {**UAPS_STEP_LAUNCHES, "conv3x3_nchw": 8,
 FUSED_STEP_LAUNCHES = {**UAPS_STEP_LAUNCHES, "conv3x3_nchw": 32,
                        "conv3x3_nchw_dgrad": 30, "conv3x3_nchw_wgrad": 32,
                        "conv3x3_bnl": 16, "conv3x3_bnl_bwd": 16}
+# ... and with MethodConfig.fused_uncertainty=False (phase 16): the
+# softmaxes and KL maps as torch ops, the pseudo-label kernel once
+UNFUSED_STEP_LAUNCHES = {**UAPS_STEP_LAUNCHES, "uncertainty_fwd": 0,
+                         "uncertainty_bwd": 0, "pseudo_label": 1}
+# the presets of phase 16 as the CLI builds them: (batch, H, W, classes,
+# input channels); they take the default (auto) UAPS step
+PRESETS = {"dagm": (16, 256, 256, 7, 1), "mtiles": (16, 256, 256, 6, 3),
+           "kosdd2": (12, 256, 512, 2, 3)}
+PRESET_WARMUP, PRESET_STEPS = 3, 5
+# phase 15: the pseudo-label kernel at each preset's logits (B, H, W, C)
+PSEUDO_GEOMS = {"neu": (BATCH, HW, HW, NUM_CLASSES),
+                **{k: v[:4] for k, v in PRESETS.items()}}
 # the 5 encoder levels of a neu step: (channels, H = W); the encoder's
 # dropout rates by level
 LEVELS = [(16, HW), (32, HW // 2), (64, HW // 4), (128, HW // 8),
@@ -199,6 +238,7 @@ def counters():
     from uaps_tpu_torch.kernels import conv_bnl as kbnl
     from uaps_tpu_torch.kernels import perturb as kpt
     from uaps_tpu_torch.kernels import pool_nchw as kp
+    from uaps_tpu_torch.kernels import pseudo_label as kpl
     from uaps_tpu_torch.kernels import uncertainty as kun
     return {"chain_conv_plain": kbc.plain_launches,
             "chain_conv_bnl": kbc.bnl_launches,
@@ -217,7 +257,8 @@ def counters():
             "feature_dropout": kpt.fdrop_launches,
             "feature_dropout_bwd": kpt.fdrop_bwd_launches,
             "uncertainty_fwd": kun.fwd_launches,
-            "uncertainty_bwd": kun.bwd_launches}
+            "uncertainty_bwd": kun.bwd_launches,
+            "pseudo_label": kpl.launches}
 
 
 def reset_counters():
@@ -227,6 +268,7 @@ def reset_counters():
     from uaps_tpu_torch.kernels import conv_bnl as kbnl
     from uaps_tpu_torch.kernels import perturb as kpt
     from uaps_tpu_torch.kernels import pool_nchw as kp
+    from uaps_tpu_torch.kernels import pseudo_label as kpl
     from uaps_tpu_torch.kernels import uncertainty as kun
     kbc.plain_launches = kbc.bnl_launches = 0
     kbc.plain_bwd_launches = kbc.bnl_bwd_launches = 0
@@ -237,6 +279,7 @@ def reset_counters():
     kpt.dropout_launches = kpt.noise_launches = 0
     kpt.fdrop_launches = kpt.fdrop_bwd_launches = 0
     kun.fwd_launches = kun.bwd_launches = 0
+    kpl.launches = 0
 
 
 def bound(nbytes, ops, kind):
@@ -1275,11 +1318,17 @@ class Smoke:
                 bound_ms=sum(r["bound_ms"] for r in rs),
                 bound_by=("bytes" if by_bytes * 2 >= sum(
                     r["bound_ms"] for r in rs) else "operations"))
-        self.profile_step()
+        self.profile_steps("train", "train", self.train_step,
+                           self.train_state, self.train_batch,
+                           t["train_step_ms"]["median"])
 
-    def profile_step(self):
-        """Device time by kernel over 2 kernel-path train steps. Best
-        effort, as the serving profile."""
+    def profile_steps(self, key, label, step, state, batch, step_ms):
+        """Device time by kernel over 2 steps of `step`, beside the step's
+        host-clock time `step_ms`: times[key + "_device_busy_ms"],
+        "_device_idle_share" and "_device_top_ms" (the 20 largest device
+        entries a step: name, ms, count), the operator table in
+        chip_smoke_profile_<key>.txt. Best effort, as the serving
+        profile."""
         from torch.profiler import ProfilerActivity, profile
         cuda = self.torch.autograd.DeviceType.CUDA
         t = self.report["times"]
@@ -1287,25 +1336,31 @@ class Smoke:
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 for _ in range(2):
-                    self.train_step(self.train_state, self.train_batch)
+                    step(state, batch)
                 self.sync()
             events = prof.key_averages()
-            table = events.table(sort_by="cuda_time_total", row_limit=30)
+            table = events.table(sort_by="cuda_time_total", row_limit=40)
         except RuntimeError as exc:
             log(f"profiler unavailable: {exc}")
             return
-        busy = sum(e.self_device_time_total for e in events
-                   if e.device_type == cuda) / 2 / 1e3
-        step = t["train_step_ms"]["median"]
-        t["train_device_busy_ms"] = busy
-        t["train_device_idle_share"] = 1.0 - busy / step
-        with open(os.path.join(OUT_DIR, "chip_smoke_profile_train.txt"),
+        device = sorted((e for e in events if e.device_type == cuda),
+                        key=lambda e: -e.self_device_time_total)
+        busy = sum(e.self_device_time_total for e in device) / 2 / 1e3
+        t[f"{key}_device_busy_ms"] = busy
+        t[f"{key}_device_idle_share"] = 1.0 - busy / step_ms
+        # the device's own entries (kernels, copies, memsets), by time
+        t[f"{key}_device_top_ms"] = [
+            [e.key, e.self_device_time_total / 2 / 1e3, e.count // 2]
+            for e in device[:20]]
+        with open(os.path.join(OUT_DIR, f"chip_smoke_profile_{key}.txt"),
                   "w") as f:
             f.write(table)
-        log(f"device busy {busy:.3f} ms per train step (profiler) of "
-            f"{step:.3f} ms (host clock, median): idle share "
-            f"{t['train_device_idle_share']:.3f}; by device time:\n"
-            + table)
+        log(f"device busy {busy:.3f} ms per {label} step (profiler) of "
+            f"{step_ms:.3f} ms (host clock, median): idle share "
+            f"{t[f'{key}_device_idle_share']:.3f}; by device time:\n"
+            + "\n".join(f"  {ms:9.3f} ms x{n:4d}  {name[:100]}"
+                        for name, ms, n in t[f"{key}_device_top_ms"])
+            + "\n" + table)
 
     # ------------------------------------------------------------ phase 9
     def _level_case(self, lvl, dtype, seed):
@@ -1502,6 +1557,79 @@ class Smoke:
             f"{max(f[1] for f in fracs):.4f})")
 
     # ------------------------------------------------------------ phase 10
+    def _run_steps(self, cfg, batches, warmup, steps, key, label, per_step):
+        """`warmup` + `steps` UAPS steps of `cfg` from seeded weights, with
+        the launch counters read around them (the path's run): finite
+        metrics, per_step launches a step, times[key + "_step_ms"] and the
+        peak memory; returns (model, state, step, initial state dict,
+        launches)."""
+        import numpy as np
+        from uaps_tpu_torch.methods import get_method
+        torch = self.torch
+        method = get_method("uaps")
+        state, model = method.init_state(
+            cfg, self.dev, torch.Generator().manual_seed(SEED))
+        init_sd = {k: v.detach().clone() for k, v in
+                   model.state_dict().items()}
+        step = method.make_train_step(cfg, model)
+        self.sync()
+        if self.dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        reset_counters()       # this path's run starts here
+        losses, step_ms = [], []
+        n_steps = warmup + steps
+        for i in range(n_steps):
+            t0 = time.perf_counter()
+            state, m = step(state, batches[i])
+            self.sync()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append({k: float(v) for k, v in m.items()})
+        launches = counters()   # ... and ends here
+        timed = step_ms[warmup:]
+        t = self.report["times"]
+        t[f"{key}_step_ms"] = {"median": statistics.median(timed),
+                               "min": min(timed), "max": max(timed),
+                               "all": step_ms}
+        if self.dev.type == "cuda":
+            t[f"{key}_peak_mem_gib"] = (torch.cuda.max_memory_allocated()
+                                        / 2 ** 30)
+        b = cfg.data.batch_size
+        log(f"{label} losses: "
+            + ", ".join(f"{m['loss']:.4f}" for m in losses))
+        log(f"launches over {n_steps} {label} steps: {json.dumps(launches)}")
+        log(f"time {label} step bf16 B={b}+{b} {cfg.data.image_size} (host "
+            f"clock, sync each step): median {statistics.median(timed):.3f} "
+            f"ms [min {min(timed):.3f}, max {max(timed):.3f}] over {steps} "
+            f"steps; peak memory "
+            f"{t.get(f'{key}_peak_mem_gib', 0.0):.3f} GiB")
+        self.report[key] = {"losses": losses, "launches": launches}
+        assert all(np.isfinite(v) for m in losses for v in m.values()), \
+            f"non-finite {label} metrics"
+        want = {k: v * n_steps for k, v in per_step.items()}
+        assert launches == want, (launches, want)
+        return model, state, step, init_sd, launches
+
+    def _pair_past_ramp(self, cfg, plain_cfg, init_sd, batch, per_step,
+                        label):
+        """One step of `cfg` on the kernel path and one of `plain_cfg` past
+        the ramp (w1 = w2 = 0.1) from the same weights, batch, seeds and
+        mix_w, within phase 10's bf16 gates on every loss term."""
+        from uaps_tpu_torch.methods import get_method
+        torch = self.torch
+        mcfg = cfg.method
+        ramp_end = int(mcfg.ramp_iters * mcfg.consistency_rampup)
+        batch = dict(batch, mix_w=torch.tensor([0.4, 0.3, 0.2, 0.1],
+                                               device=self.dev))
+        (km, kmet, _), (pm, pmet, _) = self._step_pair(
+            get_method("uaps"), cfg, plain_cfg, init_sd, batch, per_step,
+            step=ramp_end)
+        assert abs(kmet["consistency_w1"] - 0.1) < 1e-7, kmet
+        assert abs(kmet["consistency_w2"] - 0.1) < 1e-7, kmet
+        return self._compare_steps(
+            km, pm, kmet, pmet, init_sd, cfg.optim.base_lr,
+            terms=("loss", "sup_loss", "ps_loss", "uncertainty_loss"),
+            label=label)
+
     def _uaps_config(self, **model_kw):
         """The UAPS slice as `python -m uaps_tpu_torch.train --preset neu
         --method uaps --dtype bfloat16 --dataset synthetic` builds it, with
@@ -1521,10 +1649,8 @@ class Smoke:
         docstring)."""
         import numpy as np
         from uaps_tpu_torch.data import SyntheticDefects
-        from uaps_tpu_torch.methods import get_method
         from uaps_tpu_torch.serve import InferenceEngine
         from uaps_tpu_torch.train import to_device
-        torch = self.torch
         cfg = self._uaps_config()
         assert (cfg.model.name, cfg.model.compute_dtype,
                 cfg.model.dropout_backend, cfg.model.n_aux + 1) == (
@@ -1536,75 +1662,18 @@ class Smoke:
                    for _ in range(TRAIN_WARMUP + TRAIN_STEPS + 1)]
         log(f"UAPS data: {len(batches)} synthetic batches of {BATCH} + "
             f"{BATCH} images in {time.perf_counter() - t0:.1f} s")
-        method = get_method("uaps")
-        state, model = method.init_state(
-            cfg, self.dev, torch.Generator().manual_seed(SEED))
-        init_sd = {k: v.detach().clone() for k, v in
-                   model.state_dict().items()}
-        step = method.make_train_step(cfg, model)
-        self.sync()
-        if self.dev.type == "cuda":
-            torch.cuda.reset_peak_memory_stats()
-        reset_counters()       # the UAPS path's run starts here
-        losses, step_ms = [], []
-        n_steps = TRAIN_WARMUP + TRAIN_STEPS
-        for i in range(n_steps):
-            t0 = time.perf_counter()
-            state, m = step(state, batches[i])
-            self.sync()
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-            losses.append({k: float(v) for k, v in m.items()})
-        self.uaps_launches = counters()   # ... and ends here
-        timed = step_ms[TRAIN_WARMUP:]
+        model, state, step, init_sd, self.uaps_launches = self._run_steps(
+            cfg, batches, TRAIN_WARMUP, TRAIN_STEPS, "uaps", "UAPS",
+            UAPS_STEP_LAUNCHES)
         t = self.report["times"]
-        t["uaps_step_ms"] = {"median": statistics.median(timed),
-                             "min": min(timed), "max": max(timed),
-                             "all": step_ms}
-        t["uaps_imgs_per_s"] = 2 * BATCH / statistics.median(timed) * 1e3
-        if self.dev.type == "cuda":
-            t["uaps_peak_mem_gib"] = (torch.cuda.max_memory_allocated()
-                                      / 2 ** 30)
-        log("UAPS losses: " + ", ".join(f"{m['loss']:.4f}" for m in losses))
-        log(f"launches over {n_steps} UAPS steps: "
-            f"{json.dumps(self.uaps_launches)}")
-        log(f"time UAPS step bf16 B={BATCH}+{BATCH} (host clock, sync each "
-            f"step): median {t['uaps_step_ms']['median']:.3f} ms [min "
-            f"{t['uaps_step_ms']['min']:.3f}, max "
-            f"{t['uaps_step_ms']['max']:.3f}] over {TRAIN_STEPS} steps = "
-            f"{t['uaps_imgs_per_s']:.1f} imgs/s (labelled + unlabelled); "
-            f"peak memory {t.get('uaps_peak_mem_gib', 0.0):.3f} GiB")
-        self.report["uaps"] = {"losses": losses,
-                               "launches": self.uaps_launches}
-        assert all(np.isfinite(v) for m in losses for v in m.values()), \
-            "non-finite UAPS metrics"
-        want = {k: v * n_steps for k, v in UAPS_STEP_LAUNCHES.items()}
-        assert self.uaps_launches == want, (self.uaps_launches, want)
-
+        t["uaps_imgs_per_s"] = (2 * BATCH / t["uaps_step_ms"]["median"]
+                                * 1e3)
+        log(f"UAPS: {t['uaps_imgs_per_s']:.1f} imgs/s (labelled + "
+            "unlabelled, at the median step)")
         # one step on each path past the ramp, every perturbation on
-        mcfg = cfg.method
-        ramp_end = int(mcfg.ramp_iters * mcfg.consistency_rampup)
-        batch = dict(batches[-1], mix_w=torch.tensor(
-            [0.4, 0.3, 0.2, 0.1], device=self.dev))
-        plain_cfg = self._uaps_config(conv_backend="xla")
-        (km, kmet, _), (pm, pmet, _) = self._step_pair(
-            method, cfg, plain_cfg, init_sd, batch, UAPS_STEP_LAUNCHES,
-            step=ramp_end)
-        assert abs(kmet["consistency_w1"] - 0.1) < 1e-7, kmet
-        assert abs(kmet["consistency_w2"] - 0.1) < 1e-7, kmet
-        self.report["uaps"]["kernel_vs_plain"] = self._compare_steps(
-            km, pm, kmet, pmet, init_sd, cfg.optim.base_lr,
-            terms=("loss", "sup_loss", "ps_loss", "uncertainty_loss"))
-
-        # on the card, the unfused uncertainty route needs the fused
-        # pseudo-label kernel (not ported) and says so
-        if self.dev.type == "cuda":
-            try:
-                method.make_train_step(dataclasses.replace(
-                    cfg, method=dataclasses.replace(
-                        mcfg, fused_uncertainty=False)), model)
-                raise AssertionError("fused_uncertainty=False did not raise")
-            except NotImplementedError as exc:
-                assert "Queue B #12" in str(exc), exc
+        self.report["uaps"]["kernel_vs_plain"] = self._pair_past_ramp(
+            cfg, self._uaps_config(conv_backend="xla"), init_sd,
+            batches[-1], UAPS_STEP_LAUNCHES, "kernel vs plain")
 
         engine = InferenceEngine(cfg, state_dict=model.state_dict(),
                                  device=self.dev)
@@ -1702,37 +1771,8 @@ class Smoke:
             k = self.report["kernels"][name]
             log(f"per UAPS step, {name}: kernel {k['ms']:.4f} ms, plain "
                 f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms")
-        self.profile_uaps()
-
-    def profile_uaps(self):
-        """Device time by kernel over 2 UAPS steps. Best effort, as the
-        other profiles."""
-        from torch.profiler import ProfilerActivity, profile
-        cuda = self.torch.autograd.DeviceType.CUDA
-        t = self.report["times"]
-        try:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                for _ in range(2):
-                    self.uaps_step(self.uaps_state, self.uaps_batch)
-                self.sync()
-            events = prof.key_averages()
-            table = events.table(sort_by="cuda_time_total", row_limit=40)
-        except RuntimeError as exc:
-            log(f"profiler unavailable: {exc}")
-            return
-        busy = sum(e.self_device_time_total for e in events
-                   if e.device_type == cuda) / 2 / 1e3
-        step = t["uaps_step_ms"]["median"]
-        t["uaps_device_busy_ms"] = busy
-        t["uaps_device_idle_share"] = 1.0 - busy / step
-        with open(os.path.join(OUT_DIR, "chip_smoke_profile_uaps.txt"),
-                  "w") as f:
-            f.write(table)
-        log(f"device busy {busy:.3f} ms per UAPS step (profiler) of "
-            f"{step:.3f} ms (host clock, median): idle share "
-            f"{t['uaps_device_idle_share']:.3f}; by device time:\n" + table)
-
+        self.profile_steps("uaps", "UAPS", self.uaps_step, self.uaps_state,
+                           self.uaps_batch, t["uaps_step_ms"]["median"])
 
     # ------------------------------------------------------------ phase 12
     def _chain_case(self, cin, cout, hw, dtype, seed):
@@ -1925,54 +1965,16 @@ class Smoke:
                    for _ in range(TRAIN_WARMUP + TRAIN_STEPS + 1)]
         val = to_device(next(data.val_iter(1)), self.dev)
         method = get_method("uaps")
-        t = self.report["times"]
         self.fused_paths, self.fused_launches = {}, {}
-        n_steps = TRAIN_WARMUP + TRAIN_STEPS
         for backend, per_step, blocks in (
                 ("chain", CHAIN_STEP_LAUNCHES,
                  ("encoder.in_conv.", "encoder.down1.", ".up3.", ".up4.")),
                 ("fused", FUSED_STEP_LAUNCHES, (".up3.", ".up4."))):
             cfg = self._uaps_config(conv_backend=backend)
-            state, model = method.init_state(
-                cfg, self.dev, torch.Generator().manual_seed(SEED))
-            init_sd = {k: v.detach().clone() for k, v in
-                       model.state_dict().items()}
-            step = method.make_train_step(cfg, model)
-            self.sync()
-            if self.dev.type == "cuda":
-                torch.cuda.reset_peak_memory_stats()
-            reset_counters()       # this path's run starts here
-            losses, step_ms = [], []
-            for i in range(n_steps):
-                t0 = time.perf_counter()
-                state, m = step(state, batches[i])
-                self.sync()
-                step_ms.append((time.perf_counter() - t0) * 1e3)
-                losses.append({k: float(v) for k, v in m.items()})
-            launches = counters()   # ... and ends here
+            model, state, step, init_sd, launches = self._run_steps(
+                cfg, batches, TRAIN_WARMUP, TRAIN_STEPS, backend,
+                f"{backend} UAPS", per_step)
             self.fused_launches[backend] = launches
-            timed = step_ms[TRAIN_WARMUP:]
-            t[f"{backend}_step_ms"] = {"median": statistics.median(timed),
-                                       "min": min(timed), "max": max(timed),
-                                       "all": step_ms}
-            if self.dev.type == "cuda":
-                t[f"{backend}_peak_mem_gib"] = (
-                    torch.cuda.max_memory_allocated() / 2 ** 30)
-            log(f"{backend} UAPS losses: "
-                + ", ".join(f"{m['loss']:.4f}" for m in losses))
-            log(f"launches over {n_steps} {backend} UAPS steps: "
-                f"{json.dumps(launches)}")
-            log(f"time {backend} UAPS step bf16 B={BATCH}+{BATCH} (host "
-                f"clock, sync each step): median "
-                f"{t[f'{backend}_step_ms']['median']:.3f} ms [min "
-                f"{min(timed):.3f}, max {max(timed):.3f}] over {TRAIN_STEPS} "
-                f"steps; peak memory "
-                f"{t.get(f'{backend}_peak_mem_gib', 0.0):.3f} GiB")
-            self.report[backend] = {"losses": losses, "launches": launches}
-            assert all(np.isfinite(v) for m in losses for v in m.values()), \
-                f"non-finite {backend} metrics"
-            want = {k: v * n_steps for k, v in per_step.items()}
-            assert launches == want, (launches, want)
 
             # one step on each path past the ramp, every perturbation on
             mcfg = cfg.method
@@ -2168,22 +2170,25 @@ class Smoke:
             log(f"per UAPS step, {name}: kernel {k['ms']:.4f} ms, plain "
                 f"{k['plain_ms']:.4f} ms, library {k['library_ms']:.4f} ms, "
                 f"bound {k['bound_ms']:.4f} ms")
-        self.step_rounds(t)
-        self.profile_chain()
-
-    def step_rounds(self, t, rounds=5, reps=3):
-        """The UAPS step of the auto, chain and fused paths in alternating
-        rounds (the order rotates each round), so that drift in the host's
-        or the card's speed falls on all three: per round and path the
-        median of `reps` steps (host clock, sync each step); reported:
-        median, min and max over the rounds."""
         paths = {"auto": (self.uaps_step, self.uaps_state, self.uaps_batch)}
         for b, (_, state, step, batch) in self.fused_paths.items():
             paths[b] = (step, state, batch)
+        self.step_rounds(t, "step_rounds", paths)
+        _, state, step, batch = self.fused_paths["chain"]
+        self.profile_steps("chain", "chain UAPS", step, state, batch,
+                           t["step_rounds"]["chain"]["median"])
+
+    def step_rounds(self, t, key, paths, rounds=5, reps=3):
+        """The UAPS steps of `paths` ({label: (step, state, batch)}) in
+        alternating rounds (the order rotates each round), so that drift in
+        the host's or the card's speed falls on all of them: per round and
+        path the median of `reps` steps (host clock, sync each step);
+        t[key] gets the median, min and max over the rounds."""
         labs = list(paths)
         got = {lab: [] for lab in labs}
         for r in range(rounds):
-            for lab in labs[r % 3:] + labs[:r % 3]:
+            k = r % len(labs)
+            for lab in labs[k:] + labs[:k]:
                 step, state, batch = paths[lab]
                 ms = []
                 for _ in range(reps):
@@ -2192,7 +2197,7 @@ class Smoke:
                     self.sync()
                     ms.append((time.perf_counter() - t0) * 1e3)
                 got[lab].append(statistics.median(ms))
-        t["step_rounds"] = {
+        t[key] = {
             lab: {"rounds": v, "median": statistics.median(v),
                   "min": min(v), "max": max(v)} for lab, v in got.items()}
         log(f"time UAPS step bf16 B={BATCH}+{BATCH}, {rounds} alternating "
@@ -2200,36 +2205,214 @@ class Smoke:
                 f"{lab} {statistics.median(v):.3f} [{min(v):.3f}, "
                 f"{max(v):.3f}]" for lab, v in got.items()))
 
-    def profile_chain(self):
-        """Device time by kernel over 2 chain UAPS steps. Best effort, as
-        the other profiles."""
-        from torch.profiler import ProfilerActivity, profile
-        cuda = self.torch.autograd.DeviceType.CUDA
-        t = self.report["times"]
-        _, state, step, batch = self.fused_paths["chain"]
-        try:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                for _ in range(2):
-                    step(state, batch)
+    # ------------------------------------------------------------ phase 15
+    def _pseudo_case(self, b, h, w, c, seed):
+        """N_DEC f32 logits [b, h, w, c] as the model hands them over (NHWC
+        views of NCHW heads), with built exact ties: at image row 0 every
+        class equal (class 0 must win), at row 1 classes c - 2 and c - 1
+        equal and far above the rest (class c - 2 must win); and Dirichlet
+        mix weights."""
+        torch = self.torch
+        g = self.gen(seed)
+        logits = []
+        for _ in range(N_DEC):
+            x = torch.randn((b, c, h, w), generator=g, device=self.dev) * 3
+            x[:, :, 0] = 0.0
+            x[:, c - 2:, 1] = 100.0
+            logits.append(x.permute(0, 2, 3, 1))
+        wts = torch.empty(N_DEC, device=self.dev).exponential_(generator=g)
+        return logits, wts / wts.sum()
+
+    def _label_gate(self, got, ref, mix):
+        """(ok, {agree, differ, gap, err}): labels equal on >= 99.99% of
+        pixels, and where they differ the top two of the plain mix within
+        2e-6 (`gap`, phase 9's gate); int32, contiguous, of the plain
+        version's shape. `err` is the largest difference of the plain mix
+        between the two labels' classes (0 where the labels agree)."""
+        torch = self.torch
+        diff = got != ref
+        top = mix.topk(2, dim=-1).values
+        at = [mix.gather(-1, lab.long()[..., None])[..., 0]
+              for lab in (got, ref)]
+        res = {"agree": 1.0 - float(diff.float().mean()),
+               "differ": int(diff.sum()),
+               "gap": (float((top[..., 0] - top[..., 1])[diff].max())
+                       if bool(diff.any()) else 0.0),
+               "err": float((at[0] - at[1]).abs().max())}
+        ok = (got.shape == ref.shape and got.dtype == torch.int32
+              and got.is_contiguous() and res["agree"] >= 0.9999
+              and res["gap"] <= 2e-6)
+        return ok, res
+
+    def pseudo_kernels(self):
+        """The fused pseudo-label kernel against its plain version at each
+        preset's logits (see phase 15 in the module docstring)."""
+        from uaps_tpu_torch.kernels import pseudo_label as kpl
+        from uaps_tpu_torch.kernels import uncertainty as kun
+        torch = self.torch
+        bad, rows, err = [], [], 0.0
+        for i, (geom, (b, h, w, c)) in enumerate(PSEUDO_GEOMS.items()):
+            logits, wts = self._pseudo_case(b, h, w, c, SEED + 400 + i)
+            for dname, dtype in (("f32", torch.float32),
+                                 ("bf16", torch.bfloat16)):
+                lg = [x.to(dtype) for x in logits]
+                got = kpl.fused_pseudo_label(lg, wts)
                 self.sync()
-            events = prof.key_averages()
-            table = events.table(sort_by="cuda_time_total", row_limit=40)
-        except RuntimeError as exc:
-            log(f"profiler unavailable: {exc}")
-            return
-        busy = sum(e.self_device_time_total for e in events
-                   if e.device_type == cuda) / 2 / 1e3
-        step_ms = t["step_rounds"]["chain"]["median"]
-        t["chain_device_busy_ms"] = busy
-        t["chain_device_idle_share"] = 1.0 - busy / step_ms
-        with open(os.path.join(OUT_DIR, "chip_smoke_profile_chain.txt"),
-                  "w") as f:
-            f.write(table)
-        log(f"device busy {busy:.3f} ms per chain UAPS step (profiler) of "
-            f"{step_ms:.3f} ms (host clock, median of the rounds): idle "
-            f"share {t['chain_device_idle_share']:.3f}; by device time:\n"
-            + table)
+                ref = kpl.pseudo_label_plain(lg, wts)
+                mix = kpl.mixture(lg, wts)
+                ok, gate = self._label_gate(got, ref, mix)
+                gate["ties"] = all(bool((lab[:, 0] == 0).all())
+                                   and bool((lab[:, 1] == c - 2).all())
+                                   for lab in (got, ref))
+                err = max(err, gate["err"])
+                label = f"pseudo_label {geom} {N_DEC} x [{b},{h},{w},{c}] " \
+                        f"{dname}"
+                log(f"{label}: agree {gate['agree']:.7f} (min 0.9999), "
+                    f"{gate['differ']} differ, largest top-two mix gap there "
+                    f"{gate['gap']:.2e} (max 2e-6), mix error "
+                    f"{gate['err']:.2e}; built ties to the lowest class "
+                    f"{gate['ties']} "
+                    f"{'ok' if ok and gate['ties'] else 'MISMATCH'}")
+                if not (ok and gate["ties"]):
+                    bad.append(label)
+                if dname == "f32":
+                    # the fused uncertainty kernel's labels, same gate
+                    _, ups = kun.uncertainty_fwd(lg, wts)
+                    self.sync()
+                    ok, vs = self._label_gate(got, ups, mix)
+                    vs["bit_equal"] = bool(torch.equal(got, ups))
+                    gate["vs_uncertainty"] = vs
+                    log(f"{label} vs the uncertainty kernel's labels: agree "
+                        f"{vs['agree']:.7f}, {vs['differ']} differ, gap "
+                        f"{vs['gap']:.2e}; bit-equal {vs['bit_equal']} "
+                        f"{'ok' if ok else 'MISMATCH'}")
+                    if not ok:
+                        bad.append(f"{label} vs uncertainty")
+                px = b * h * w
+                size = 4 if dtype == torch.float32 else 2
+
+                def composite(lg=lg):
+                    return sum(wts[d] * torch.softmax(x.float(), -1)
+                               for d, x in enumerate(lg)).argmax(-1)
+
+                row = {"geometry": geom, "dtype": dname,
+                       "shape": [N_DEC, b, h, w, c], "gate": gate,
+                       "ms": self.time_ms(
+                           lambda lg=lg: kpl.fused_pseudo_label(lg, wts),
+                           cold=True),
+                       "plain_ms": self.time_ms(
+                           lambda lg=lg: kpl.pseudo_label_plain(lg, wts),
+                           cold=True),
+                       "composite_ms": self.time_ms(composite, cold=True)}
+                row["bound_ms"], row["bound_by"] = bound(
+                    N_DEC * px * c * size + px * 4, N_DEC * px * c * 5,
+                    "f32")
+                rows.append(row)
+                log(f"time {label}: kernel {row['ms']:.4f} ms, plain "
+                    f"{row['plain_ms']:.4f} ms, composite (softmax, "
+                    f"weighted sum, argmax) {row['composite_ms']:.4f} ms, "
+                    f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        self.report["times"]["pseudo_label"] = rows
+        # the kernels line: the main path's shape (neu, f32 logits)
+        main = rows[0]
+        self.report["kernels"]["pseudo_label"] = {
+            "max_abs_err": err, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None,
+            "composite_ms": main["composite_ms"]}
+        if bad:
+            raise AssertionError(f"pseudo-label mismatches: {bad}")
+
+    # ------------------------------------------------------------ phase 16
+    def unfused_training(self):
+        """The neu UAPS step with fused_uncertainty=False (see phase 16 in
+        the module docstring)."""
+        from uaps_tpu_torch.data import SyntheticDefects
+        from uaps_tpu_torch.train import to_device
+        cfg = self._uaps_config()
+        cfg.method = dataclasses.replace(cfg.method, fused_uncertainty=False)
+        data = SyntheticDefects(cfg.data, seed=SEED)
+        it = data.train_iter()
+        batches = [to_device(next(it), self.dev)
+                   for _ in range(TRAIN_WARMUP + TRAIN_STEPS + 1)]
+        _, state, step, init_sd, self.unfused_launches = self._run_steps(
+            cfg, batches, TRAIN_WARMUP, TRAIN_STEPS, "unfused",
+            "unfused UAPS", UNFUSED_STEP_LAUNCHES)
+        plain_cfg = self._uaps_config(conv_backend="xla")
+        plain_cfg.method = cfg.method
+        self.report["unfused"]["kernel_vs_plain"] = self._pair_past_ramp(
+            cfg, plain_cfg, init_sd, batches[-1], UNFUSED_STEP_LAUNCHES,
+            "unfused kernel vs plain")
+        t = self.report["times"]
+        self.step_rounds(t, "unfused_step_rounds", {
+            "auto": (self.uaps_step, self.uaps_state, self.uaps_batch),
+            "unfused": (step, state, batches[0])})
+        self.profile_steps("unfused", "unfused UAPS", step, state,
+                           batches[0],
+                           t["unfused_step_rounds"]["unfused"]["median"])
+
+    def _preset_config(self, name, **model_kw):
+        """Preset `name` as `python -m uaps_tpu_torch.train --preset NAME
+        --dataset synthetic --dtype bfloat16` builds it, with `model_kw` on
+        top; on the card at the preset's own batch and image size, which a
+        CPU rehearsal may shrink through PRESETS."""
+        from uaps_tpu_torch.utils.cli import parse_args
+        cfg, _ = parse_args(["--preset", name, "--dataset", "synthetic",
+                             "--dtype", "bfloat16"])
+        cfg.model = dataclasses.replace(cfg.model, **model_kw)
+        b, h, w, c, chans = PRESETS[name]
+        assert (cfg.data.num_classes, cfg.data.in_channels, cfg.model.name,
+                cfg.method.name, cfg.model.n_aux + 1) == (
+                    c, chans, "unet_uaps", "uaps", N_DEC), cfg
+        if (cfg.data.batch_size, cfg.data.image_size) != (b, (h, w)):
+            assert self.dev.type != "cuda", (name, cfg.data)
+            cfg.data = dataclasses.replace(cfg.data, batch_size=b,
+                                           image_size=(h, w))
+        return cfg
+
+    def preset_training(self):
+        """The dagm, mtiles and kosdd2 presets (see phase 16 in the module
+        docstring)."""
+        import numpy as np
+        from uaps_tpu_torch.data import SyntheticDefects
+        from uaps_tpu_torch.methods import base
+        from uaps_tpu_torch.train import to_device
+        t = self.report["times"]
+        for name in PRESETS:
+            cfg = self._preset_config(name)
+            data = SyntheticDefects(cfg.data, seed=SEED)
+            it = data.train_iter()
+            batches = [to_device(next(it), self.dev)
+                       for _ in range(PRESET_WARMUP + PRESET_STEPS + 1)]
+            val = to_device(next(data.val_iter(1)), self.dev)
+            model, state, step, init_sd, _ = self._run_steps(
+                cfg, batches, PRESET_WARMUP, PRESET_STEPS, name,
+                f"{name} UAPS", UAPS_STEP_LAUNCHES)
+            try:
+                self.report[name]["kernel_vs_plain"] = self._pair_past_ramp(
+                    cfg, self._preset_config(name, conv_backend="xla"),
+                    init_sd, batches[-1], UAPS_STEP_LAUNCHES,
+                    f"{name} kernel vs plain")
+            except AssertionError:
+                # tell a kernel fault from bf16 rounding: the same pair in
+                # f32, reported, and the phase still fails
+                self.report[name]["kernel_vs_plain_f32"] = \
+                    self._pair_past_ramp(
+                        self._preset_config(name, compute_dtype="float32"),
+                        self._preset_config(name, conv_backend="xla",
+                                            compute_dtype="float32"),
+                        init_sd, batches[-1], UAPS_STEP_LAUNCHES,
+                        f"{name} f32 kernel vs plain")
+                raise
+            ev = base.make_eval_step(cfg, model)(val)
+            ev = {k: float(v) for k, v in ev.items()}
+            log(f"{name} eval step (bf16, B={cfg.data.batch_size}): "
+                f"{json.dumps(ev)}")
+            assert all(np.isfinite(v) for v in ev.values()), ev
+            self.report[name]["eval"] = ev
+            self.profile_steps(name, f"{name} UAPS", step, state, batches[0],
+                               t[f"{name}_step_ms"]["median"])
+            del model, state, step, batches
 
 
 # the kernels line: (launch counter, CUDA source, the TPU kernel replaced)
@@ -2264,6 +2447,10 @@ KERNELS += [
     ("conv3x3_bnl", "block_conv", "uaps_tpu/pallas/conv_bnl.py:149"),
     ("conv3x3_bnl_bwd", "block_conv", "uaps_tpu/pallas/conv_bnl.py:196"),
 ]
+# ... and the pseudo-label kernel, whose launches the unfused run (phase
+# 16a) reports
+KERNELS += [("pseudo_label", "pseudo_label",
+             "uaps_tpu/pallas/pseudo_label.py:60")]
 
 
 def launches_of(s, name):
@@ -2271,6 +2458,8 @@ def launches_of(s, name):
     if name in CHAIN_COUNTERS:
         path = "fused" if name.startswith("conv3x3_bnl") else "chain"
         return s.fused_launches[path][name]
+    if name == "pseudo_label":
+        return s.unfused_launches[name]
     return (s.uaps_launches if name in UAPS_KERNELS
             else s.train_launches)[name]
 
@@ -2303,11 +2492,17 @@ def main() -> int:
         if s.phase("7 training", s.training):
             s.phase("8 training times", s.train_times)
         s.phase("9 UAPS kernels vs plain", s.uaps_kernels)
-        if s.phase("10 UAPS training", s.uaps_training):
+        uaps_ok = s.phase("10 UAPS training", s.uaps_training)
+        if uaps_ok:
             s.phase("11 UAPS times", s.uaps_times)
         s.phase("12 fused-block kernels vs plain", s.chain_kernels)
         if s.phase("13 chain and fused UAPS training", s.chain_training):
             s.phase("14 fused-block times", s.chain_times)
+        s.phase("15 pseudo-label kernel vs plain", s.pseudo_kernels)
+        if uaps_ok:
+            s.phase("16a the unfused UAPS route", s.unfused_training)
+        s.phase("16b the dagm, mtiles and kosdd2 presets",
+                s.preset_training)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(s.report, f, indent=1, default=str)

@@ -4,15 +4,34 @@ JAX models get cheap seeded variables: `jax.eval_shape(model.init, ...)`
 gives the tree's shapes (about 2 s, where `model.init` takes 12-17 s on
 this CPU) and numpy fills them from a seed; the same numbers then go to the
 port through `load_jax_params`.
+
+Every port test file imports `torch_threads`, an autouse fixture that caps
+torch's intra-op threads at TORCH_THREADS while the file's tests run: the
+port's test tensors are small, and under `pytest -n 6` torch's default (one
+thread per core) mostly takes CPU from the workers running the JAX
+package's tests.
 """
 import dataclasses
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from uaps_tpu.utils.config import preset
+
+TORCH_THREADS = 1
+
+
+@pytest.fixture(scope="module", autouse=True)
+def torch_threads():
+    """torch's intra-op threads capped at TORCH_THREADS for the module's
+    tests and fixtures, restored after."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(TORCH_THREADS)
+    yield
+    torch.set_num_threads(before)
 
 
 def neu_config(method="uaps", dtype="float32", **model_kw):
@@ -22,15 +41,28 @@ def neu_config(method="uaps", dtype="float32", **model_kw):
     return cfg
 
 
-def seeded_variables(model, hw, seed):
-    """{'params', 'batch_stats'} for a flax model, filled from a numpy
-    seed: lecun-scaled normal kernels, small biases, BN scale near 1, BN
-    running mean near 0 and running var from U(0.5, 1.5)."""
-    shapes = jax.eval_shape(
-        lambda: model.init({"params": jax.random.key(0),
-                            "dropout": jax.random.key(1),
-                            "perturb": jax.random.key(2)},
-                           jnp.zeros((1, *hw, 3)), train=False))
+_SHAPES = {}
+
+
+def _variable_shapes(model, hw, channels):
+    """The variable tree's shapes, traced once per model configuration (a
+    flax module's repr lists every field) and input shape."""
+    key = (repr(model), tuple(hw), channels)
+    if key not in _SHAPES:
+        _SHAPES[key] = jax.eval_shape(
+            lambda: model.init({"params": jax.random.key(0),
+                                "dropout": jax.random.key(1),
+                                "perturb": jax.random.key(2)},
+                               jnp.zeros((1, *hw, channels)), train=False))
+    return _SHAPES[key]
+
+
+def seeded_variables(model, hw, seed, channels=3):
+    """{'params', 'batch_stats'} for a flax model on `channels`-channel
+    images, filled from a numpy seed: lecun-scaled normal kernels, small
+    biases, BN scale near 1, BN running mean near 0 and running var from
+    U(0.5, 1.5)."""
+    shapes = _variable_shapes(model, hw, channels)
     rng = np.random.default_rng(seed)
 
     def fill(path, s):

@@ -34,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_util import torch_threads  # noqa: F401 (autouse)
 from _torch_port_util import (Counts, check_params, jax_sd, neu_config,
                               running, seeded_variables)
 from uaps_tpu.methods import base as jbase

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_util import torch_threads  # noqa: F401 (autouse)
 from uaps_tpu_torch.kernels import _build
 from uaps_tpu_torch.kernels import ce_dice as kce
 from uaps_tpu_torch.kernels import conv3x3_nchw as kconv
@@ -265,4 +266,4 @@ def test_build_raises_without_nvcc(monkeypatch):
         _build.find_nvcc()
     assert _build.sources() == ["block_conv", "ce_dice", "conv3x3_nchw",
                                 "conv3x3_wgrad_nchw", "perturb", "pool_nchw",
-                                "uncertainty"]
+                                "pseudo_label", "uncertainty"]

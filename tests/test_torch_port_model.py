@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_util import torch_threads  # noqa: F401 (autouse)
 from _torch_port_util import (jax_main_only, neu_config, port_logits,
                               seeded_variables)
 from uaps_tpu.methods.base import build_model as jax_build_model

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_util import torch_threads  # noqa: F401 (autouse)
 from _torch_port_util import neu_config, seeded_variables
 from uaps_tpu import native
 from uaps_tpu.methods.base import build_model as jax_build_model

@@ -52,6 +52,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_util import torch_threads  # noqa: F401 (autouse)
 from _torch_port_util import (ZERO_GRAD_BIASES, Counts, check_params,
                               neu_config, seeded_variables)
 from _torch_port_util import jax_sd as _sd

@@ -2,9 +2,10 @@
 uncertainty module against the Pallas kernel (interpret mode), the
 perturbation applies against `uaps_tpu.ops.perturbations` given JAX's own
 draws, the port's generator contracts, the KL / MSE losses and the ramps,
-the perturbed multi-decoder forward, 1 and 3 UAPS steps,
-`InferenceEngine.uncertainty`, the routing of one step through the kernel
-modules, and the Trainer.
+the perturbed multi-decoder forward, 1 and 3 UAPS steps, one step of the
+unfused route (fused_uncertainty=False, through the pseudo-label module)
+with the MTiles loss terms and fused_batch, `InferenceEngine.uncertainty`,
+the routing of one step through the kernel modules, and the Trainer.
 
 The deterministic recipe (ROADMAP.md): perturbations "none" and dropout 0
 on both sides, the same seeded f32 weights (tests/_torch_port_util.py), the
@@ -41,6 +42,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_util import torch_threads  # noqa: F401 (autouse)
 from _torch_port_util import (Counts, check_params, jax_sd, neu_config,
                               running, seeded_variables)
 from uaps_tpu.methods import base as jbase
@@ -50,8 +52,10 @@ from uaps_tpu_torch.kernels import ce_dice as kce
 from uaps_tpu_torch.kernels import conv3x3_nchw as kconv
 from uaps_tpu_torch.kernels import perturb as kpt
 from uaps_tpu_torch.kernels import pool_nchw as kpool
+from uaps_tpu_torch.kernels import pseudo_label as kpl
 from uaps_tpu_torch.kernels import uncertainty as kun
 from uaps_tpu_torch.methods import base, build_model, get_method
+from uaps_tpu_torch.methods import uaps as puaps
 from uaps_tpu_torch.models import unet as tunet
 from uaps_tpu_torch.ops import perturbations as pops
 from uaps_tpu_torch.utils.weights import load_jax_params
@@ -475,21 +479,91 @@ def test_uaps_steps_match_jax(uaps_runs, start, n_steps):
             err_msg=k)
 
 
+@pytest.fixture(scope="module")
+def unfused_run():
+    """One UAPS step past the ramp (D = 2, f64) of the route that takes the
+    fused pseudo-label module on the kernel path (fused_uncertainty=False)
+    with the MTiles loss shape (decoder_consistency_weight=0.1,
+    unramped_uncertainty) and fused_batch, in each package: one JAX
+    compile. JAX on the CPU takes its plain ops for every route, so its
+    step is the reference of the port's kernel-module route."""
+    n_aux = 1
+    cfg, pcfg = _cfgs(n_aux)
+    knobs = dict(fused_uncertainty=False, decoder_consistency_weight=0.1,
+                 unramped_uncertainty=True, fused_batch=True)
+    cfg.method = dataclasses.replace(cfg.method, **knobs)
+    pcfg.method = dataclasses.replace(pcfg.method, **knobs)
+    v0 = _variables(n_aux)
+    batch = _batches(1 + n_aux)[0]
+    ramp_end = int(cfg.method.ramp_iters * cfg.method.consistency_rampup)
+    with jax.enable_x64(True):
+        jm = _jax_model(n_aux, jnp.float64)
+        tx = jbase.make_optimizer(cfg.optim)
+        state = jbase.TrainState(
+            step=jnp.asarray(ramp_end, jnp.int32), params=v0["params"],
+            batch_stats=v0["batch_stats"], opt_state=tx.init(v0["params"]),
+            key=jax.random.key(0))
+        new, m = jax.jit(juaps.make_train_step(cfg, jm, tx))(state, batch)
+        jax_out = ({k: float(v) for k, v in m.items()},
+                   jax_sd(new.params, new.batch_stats),
+                   {k: g / (1 - cfg.optim.b1) for k, g in jax_sd(
+                       new.opt_state.inner_state[0].mu).items()})
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tunet, "conv_kernel_ok", lambda *a: True)
+        mp.setattr(tunet, "pool_pallas_ok", lambda x: True)
+        calls = Counts(mp, [(kpl, "pseudo_label_plain"),
+                            (kun, "uncertainty_fwd")])
+        model = _port_model(n_aux, v0, torch.float64)
+        state = base.init_model_state(pcfg, model)
+        state.step = ramp_end
+        _, pm = get_method("uaps").make_train_step(pcfg, model)(
+            state, _torch_batch(batch))
+    return {"cfg": cfg, "jax": jax_out, "calls": dict(calls.n),
+            "port": ({k: float(v) for k, v in pm.items()},
+                     {k: v.detach().clone().numpy()
+                      for k, v in model.state_dict().items()})}
+
+
+def test_unfused_mtiles_step_matches_jax(unfused_run):
+    """Every metric, the params and the BN stats after one step of the
+    unfused route with the decoder-consistency term, the unramped
+    uncertainty term and one fused labelled + unlabelled forward, at
+    test_uaps_steps_match_jax's one-step tolerances (metrics rtol 1e-5,
+    params atol 2e-6, BN stats rtol 1e-4 / atol 1e-5)."""
+    cfg = unfused_run["cfg"]
+    (jm, jsd, jgrad), (pm, psd) = unfused_run["jax"], unfused_run["port"]
+    assert unfused_run["calls"] == {"pseudo_label_plain": 1}
+    assert jm["consistency_w1"] == pytest.approx(0.1)
+    assert set(pm) == set(jm)
+    for k in jm:
+        np.testing.assert_allclose(pm[k], jm[k], rtol=1e-5, err_msg=k)
+    jparams = {k: v for k, v in jsd.items() if "running" not in k}
+    check_params(jparams, psd, jgrad, 1, cfg.optim.base_lr, 2e-6)
+    for k, sj in running(jsd).items():
+        np.testing.assert_allclose(psd[k], sj, rtol=1e-4, atol=1e-5,
+                                   err_msg=k)
+
+
 def test_uaps_step_routes_through_kernel_modules(gates_open):
     """One CPU UAPS step of the neu unet_uaps (4 decoders, every
     perturbation and the encoder dropout on) calls each kernel module as
-    often as a GPU step launches it (chip_smoke.py UAPS_STEP_LAUNCHES);
-    conv_backend="xla" calls none."""
+    often as a GPU step launches it (chip_smoke.py UAPS_STEP_LAUNCHES): the
+    fused route calls the uncertainty module and never the pseudo-label
+    module; with fused_uncertainty=False the pseudo-label module runs once
+    and the uncertainty module never; conv_backend="xla" calls none."""
     targets = [(tunet, "conv3x3_nchw"), (tunet, "max_pool_2x2_nchw"),
                (kconv, "conv3x3_nchw_dgrad"), (kconv, "conv3x3_nchw_wgrad"),
                (kpool, "max_pool_2x2_nchw_bwd"), (kce, "ce_dice_stats"),
                (kce, "ce_dice_bwd"), (kpt, "_dropout"), (kpt, "_noise"),
                (kpt, "_fdrop_fwd"), (kpt, "_fdrop_bwd"),
-               (kun, "uncertainty_fwd"), (kun, "uncertainty_bwd")]
+               (kun, "uncertainty_fwd"), (kun, "uncertainty_bwd"),
+               (puaps, "fused_pseudo_label")]
     counts = Counts(gates_open, targets)
-    for backend in ("auto", "xla"):
+    for backend, fused in (("auto", True), ("auto", False), ("xla", True)):
         _, cfg = _cfgs(3)
         cfg.model = dataclasses.replace(cfg.model, conv_backend=backend)
+        cfg.method = dataclasses.replace(cfg.method,
+                                         fused_uncertainty=fused)
         method = get_method("uaps")
         state, model = method.init_state(cfg, "cpu")
         batch = _torch_batch({k: v for k, v in _batches(4)[0].items()
@@ -505,8 +579,9 @@ def test_uaps_step_routes_through_kernel_modules(gates_open):
             "conv3x3_nchw_wgrad": 48, "max_pool_2x2_nchw": 4,
             "max_pool_2x2_nchw_bwd": 4, "ce_dice_stats": 8,
             "ce_dice_bwd": 8, "_dropout": 40, "_noise": 20,
-            "_fdrop_fwd": 10, "_fdrop_bwd": 10, "uncertainty_fwd": 1,
-            "uncertainty_bwd": 1}
+            "_fdrop_fwd": 10, "_fdrop_bwd": 10,
+            **({"uncertainty_fwd": 1, "uncertainty_bwd": 1} if fused
+               else {"fused_pseudo_label": 1})}
 
 
 def test_trainer_one_uaps_epoch_on_cpu(tmp_path):

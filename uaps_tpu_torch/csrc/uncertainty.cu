@@ -3,11 +3,9 @@
 //
 // Replaces uaps_tpu/pallas/uncertainty.py: the forward _pallas_fwd
 // (_fwd_kernel) and the backward _fused_bwd (_bwd_kernel). The D decoders'
-// logits are f32 in JAX's public layout [B, H, W, C], each read through its
-// own element strides (the port's heads write NCHW and the model hands over
-// permuted views, so nothing is stacked, transposed or copied). One thread
-// takes one pixel and keeps every decoder's logits in registers (C <= 8 is a
-// template, D <= 8 a guarded unrolled loop). In f32:
+// logits are f32 [B, H, W, C] views, read as decoder_logits.cuh describes
+// (one thread a pixel, every decoder's logits in registers, nothing stacked
+// or copied). In f32:
 //
 //   forward  s_d = softmax(x_d), p = mean_d s_d,
 //            var_d = sum_c p_c (log max(p_c, 1e-30) - log s_{d,c})
@@ -26,49 +24,18 @@
 // take consecutive pixels, so each (decoder, class) load and store is
 // coalesced in the NCHW storage the strides describe.
 
-#include <stdint.h>
-
-#include "common.cuh"
+#include "decoder_logits.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxDec = 8;
+using uaps::logits::kMaxDec;
+using uaps::logits::kThreads;
+using Decoders = uaps::logits::Decoders<float>;
 
-struct Decoders {
-  const float* x[kMaxDec];
-  float* dx[kMaxDec];   // the backward's outputs, with the logits' strides
-  long long sb[kMaxDec], sh[kMaxDec], sw[kMaxDec], sc[kMaxDec];
+// the backward's outputs, one per decoder, with its logits' strides
+struct Grads {
+  float* dx[kMaxDec];
 };
-
-__device__ __forceinline__ long long pixel_offset(const Decoders& dec, int d,
-                                                  long long b, int y, int x) {
-  return b * dec.sb[d] + y * dec.sh[d] + x * dec.sw[d];
-}
-
-// log-softmax and softmax of decoder d at one pixel
-template <int C>
-__device__ __forceinline__ void softmax_pixel(const Decoders& dec, int d,
-                                              long long off, float (&ls)[C],
-                                              float (&s)[C]) {
-  const float* p = dec.x[d] + off;
-  float v[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) v[c] = p[c * dec.sc[d]];
-  float m = v[0];
-#pragma unroll
-  for (int c = 1; c < C; ++c) m = fmaxf(m, v[c]);
-  float sum = 0.f;
-#pragma unroll
-  for (int c = 0; c < C; ++c) sum += expf(v[c] - m);
-  const float inv = 1.f / sum;
-  const float lsum = logf(sum);
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    s[c] = expf(v[c] - m) * inv;
-    ls[c] = v[c] - m - lsum;
-  }
-}
 
 template <int C>
 __global__ void __launch_bounds__(kThreads)
@@ -79,10 +46,7 @@ __global__ void __launch_bounds__(kThreads)
   const long long i = blockIdx.x * static_cast<long long>(kThreads) +
                       threadIdx.x;
   if (i >= n) return;
-  const int x = static_cast<int>(i % wd);
-  const long long r = i / wd;
-  const int y = static_cast<int>(r % h);
-  const long long b = r / h;
+  const uaps::logits::Pixel px = uaps::logits::pixel_of(i, h, wd);
   float ls[kMaxDec][C], s[kMaxDec][C];
   float p[C], mix[C];
 #pragma unroll
@@ -90,7 +54,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int d = 0; d < kMaxDec; ++d) {
     if (d < n_dec) {
-      softmax_pixel<C>(dec, d, pixel_offset(dec, d, b, y, x), ls[d], s[d]);
+      uaps::logits::softmax_pixel<C>(dec, d, dec.offset(d, px.b, px.y, px.x),
+                                     ls[d], s[d]);
       const float wdec = w[d];
 #pragma unroll
       for (int c = 0; c < C; ++c) {
@@ -126,16 +91,13 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int C>
 __global__ void __launch_bounds__(kThreads)
-    uncertainty_bwd_kernel(Decoders dec, int n_dec,
+    uncertainty_bwd_kernel(Decoders dec, Grads out, int n_dec,
                            const float* __restrict__ g_var, long long n, int h,
                            int wd) {
   const long long i = blockIdx.x * static_cast<long long>(kThreads) +
                       threadIdx.x;
   if (i >= n) return;
-  const int x = static_cast<int>(i % wd);
-  const long long r = i / wd;
-  const int y = static_cast<int>(r % h);
-  const long long b = r / h;
+  const uaps::logits::Pixel px = uaps::logits::pixel_of(i, h, wd);
   float ls[kMaxDec][C], s[kMaxDec][C], g[kMaxDec];
   float p[C], lsg[C];   // sum_d s_{d,c}, then p; sum_d g_d log s_{d,c}
   float g_tot = 0.f;
@@ -144,7 +106,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int d = 0; d < kMaxDec; ++d) {
     if (d < n_dec) {
-      softmax_pixel<C>(dec, d, pixel_offset(dec, d, b, y, x), ls[d], s[d]);
+      uaps::logits::softmax_pixel<C>(dec, d, dec.offset(d, px.b, px.y, px.x),
+                                     ls[d], s[d]);
       g[d] = g_var[d * n + i];
       g_tot += g[d];
 #pragma unroll
@@ -167,51 +130,13 @@ __global__ void __launch_bounds__(kThreads)
       float t = 0.f;
 #pragma unroll
       for (int c = 0; c < C; ++c) t += s[d][c] * q[c];
-      float* o = dec.dx[d] + pixel_offset(dec, d, b, y, x);
+      float* o = out.dx[d] + dec.offset(d, px.b, px.y, px.x);
 #pragma unroll
       for (int c = 0; c < C; ++c)
         o[c * dec.sc[d]] =
             g[d] * (s[d][c] - p[c]) + inv_d * s[d][c] * (q[c] - t);
     }
   }
-}
-
-unsigned blocks_for(long long n) {
-  return static_cast<unsigned>((n + kThreads - 1) / kThreads);
-}
-
-template <int C>
-cudaError_t fwd(const Decoders& dec, int n_dec, const float* w, float* var,
-                int* pseudo, long long n, int h, int wd, cudaStream_t s) {
-  uncertainty_fwd_kernel<C><<<blocks_for(n), kThreads, 0, s>>>(
-      dec, n_dec, w, var, pseudo, n, h, wd);
-  return cudaGetLastError();
-}
-
-template <int C>
-cudaError_t bwd(const Decoders& dec, int n_dec, const float* g, long long n,
-                int h, int wd, cudaStream_t s) {
-  uncertainty_bwd_kernel<C><<<blocks_for(n), kThreads, 0, s>>>(dec, n_dec, g,
-                                                              n, h, wd);
-  return cudaGetLastError();
-}
-
-void fill(Decoders& dec, const void* const* logits, void* const* dx,
-          const long long* strides, int n_dec) {
-  for (int d = 0; d < n_dec; ++d) {
-    dec.x[d] = static_cast<const float*>(logits[d]);
-    dec.dx[d] = dx ? static_cast<float*>(dx[d]) : nullptr;
-    dec.sb[d] = strides[4 * d];
-    dec.sh[d] = strides[4 * d + 1];
-    dec.sw[d] = strides[4 * d + 2];
-    dec.sc[d] = strides[4 * d + 3];
-  }
-}
-
-bool bad_shape(int n_dec, int batch, int h, int w, int c) {
-  const long long n = static_cast<long long>(batch) * h * w;
-  return n_dec < 1 || n_dec > kMaxDec || batch < 1 || h < 1 || w < 1 ||
-         c < 1 || c > 8 || (n + kThreads - 1) / kThreads > 0x7fffffffLL;
 }
 
 }  // namespace
@@ -226,26 +151,21 @@ extern "C" int uaps_uncertainty_fwd(const void* const* logits,
                                     const void* w, void* var, void* pseudo,
                                     int batch, int h, int wd, int c,
                                     void* stream) {
-  if (bad_shape(n_dec, batch, h, wd, c))
+  if (uaps::logits::bad_shape(n_dec, batch, h, wd, c))
     return static_cast<int>(cudaErrorInvalidValue);
-  Decoders dec{};
-  fill(dec, logits, nullptr, strides, n_dec);
+  const Decoders dec =
+      uaps::logits::decoders<float>(logits, strides, n_dec);
   const float* ww = static_cast<const float*>(w);
   float* v = static_cast<float*>(var);
   int* ps = static_cast<int*>(pseudo);
   const long long n = static_cast<long long>(batch) * h * wd;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (c) {
-    case 1: err = fwd<1>(dec, n_dec, ww, v, ps, n, h, wd, s); break;
-    case 2: err = fwd<2>(dec, n_dec, ww, v, ps, n, h, wd, s); break;
-    case 3: err = fwd<3>(dec, n_dec, ww, v, ps, n, h, wd, s); break;
-    case 4: err = fwd<4>(dec, n_dec, ww, v, ps, n, h, wd, s); break;
-    case 5: err = fwd<5>(dec, n_dec, ww, v, ps, n, h, wd, s); break;
-    case 6: err = fwd<6>(dec, n_dec, ww, v, ps, n, h, wd, s); break;
-    case 7: err = fwd<7>(dec, n_dec, ww, v, ps, n, h, wd, s); break;
-    default: err = fwd<8>(dec, n_dec, ww, v, ps, n, h, wd, s); break;
-  }
+  const cudaError_t err = uaps::logits::with_classes(c, [&](auto k) {
+    uncertainty_fwd_kernel<decltype(k)::value>
+        <<<uaps::logits::blocks_for(n), kThreads, 0, s>>>(dec, n_dec, ww, v,
+                                                          ps, n, h, wd);
+    return cudaGetLastError();
+  });
   return static_cast<int>(err);
 }
 
@@ -256,23 +176,20 @@ extern "C" int uaps_uncertainty_bwd(const void* const* logits,
                                     const void* g_var, void* const* dx,
                                     int batch, int h, int wd, int c,
                                     void* stream) {
-  if (bad_shape(n_dec, batch, h, wd, c))
+  if (uaps::logits::bad_shape(n_dec, batch, h, wd, c))
     return static_cast<int>(cudaErrorInvalidValue);
-  Decoders dec{};
-  fill(dec, logits, dx, strides, n_dec);
+  const Decoders dec =
+      uaps::logits::decoders<float>(logits, strides, n_dec);
+  Grads out{};
+  for (int d = 0; d < n_dec; ++d) out.dx[d] = static_cast<float*>(dx[d]);
   const float* g = static_cast<const float*>(g_var);
   const long long n = static_cast<long long>(batch) * h * wd;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (c) {
-    case 1: err = bwd<1>(dec, n_dec, g, n, h, wd, s); break;
-    case 2: err = bwd<2>(dec, n_dec, g, n, h, wd, s); break;
-    case 3: err = bwd<3>(dec, n_dec, g, n, h, wd, s); break;
-    case 4: err = bwd<4>(dec, n_dec, g, n, h, wd, s); break;
-    case 5: err = bwd<5>(dec, n_dec, g, n, h, wd, s); break;
-    case 6: err = bwd<6>(dec, n_dec, g, n, h, wd, s); break;
-    case 7: err = bwd<7>(dec, n_dec, g, n, h, wd, s); break;
-    default: err = bwd<8>(dec, n_dec, g, n, h, wd, s); break;
-  }
+  const cudaError_t err = uaps::logits::with_classes(c, [&](auto k) {
+    uncertainty_bwd_kernel<decltype(k)::value>
+        <<<uaps::logits::blocks_for(n), kThreads, 0, s>>>(dec, out, n_dec, g,
+                                                          n, h, wd);
+    return cudaGetLastError();
+  });
   return static_cast<int>(err);
 }

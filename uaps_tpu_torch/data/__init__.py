@@ -10,7 +10,8 @@ class DefectDataset:
     def __init__(self, cfg, seed: int = 0):
         raise NotImplementedError(
             f"dataset {cfg.name!r}: the image pipeline needs cv2 and is not "
-            "ported yet (ROADMAP.md Queue A item 6); train on "
+            "ported yet (ROADMAP.md Queue A, 'The rest of the Trainer and "
+            "CLIs'); train on "
             "'--dataset synthetic'")
 
 

@@ -118,6 +118,16 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def decoder_arrays(logits):
+    """(pointers, element strides) of D logits [B, H, W, C] as the entry
+    points of csrc/decoder_logits.cuh take them: a void* [D] array and a
+    long long [4 D] array of (sb, sh, sw, sc) per decoder."""
+    ptrs = (ctypes.c_void_p * len(logits))(*[lg.data_ptr() for lg in logits])
+    strides = (ctypes.c_longlong * (4 * len(logits)))(
+        *[s for lg in logits for s in lg.stride()])
+    return ptrs, strides
+
+
 def call(lib: ctypes.CDLL, fn, device: torch.device, what: str,
          *args) -> None:
     """Run entry point `fn(*args, stream)` on `device` with PyTorch's

@@ -108,14 +108,6 @@ def _kernel_path(logits: Sequence[torch.Tensor], what: str) -> bool:
     return True
 
 
-def _arrays(logits: Sequence[torch.Tensor]):
-    d = len(logits)
-    ptrs = (ctypes.c_void_p * d)(*[lg.data_ptr() for lg in logits])
-    strides = (ctypes.c_longlong * (4 * d))(
-        *[s for lg in logits for s in lg.stride()])
-    return ptrs, strides
-
-
 def uncertainty_fwd(logits: Sequence[torch.Tensor], w: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(var [D, B, H, W] f32, pseudo [B, H, W] int32) of D logits."""
@@ -133,7 +125,7 @@ def uncertainty_fwd(logits: Sequence[torch.Tensor], w: torch.Tensor
     pseudo = torch.empty((b, h, wd), dtype=torch.int32,
                          device=logits[0].device)
     lib, fwd, _, _ = _fns()
-    ptrs, strides = _arrays(logits)
+    ptrs, strides = _build.decoder_arrays(logits)
     _build.call(lib, fwd, logits[0].device, "fused_uncertainty kernel launch",
                 ptrs, strides, d, w.data_ptr(), var.data_ptr(),
                 pseudo.data_ptr(), b, h, wd, c)
@@ -159,7 +151,7 @@ def uncertainty_bwd(logits: Sequence[torch.Tensor],
                          "permuted view is fine)")
     g = g_var.float().contiguous()
     lib, _, bwd, _ = _fns()
-    ptrs, strides = _arrays(logits)
+    ptrs, strides = _build.decoder_arrays(logits)
     out = (ctypes.c_void_p * d)(*[o.data_ptr() for o in dx])
     _build.call(lib, bwd, logits[0].device,
                 "fused_uncertainty_bwd kernel launch", ptrs, strides, d,

@@ -16,8 +16,8 @@ def get_method(name: str):
         raise ValueError(f"unknown method {name!r}; known: {METHODS}")
     if name not in _PORTED:
         raise NotImplementedError(
-            f"method {name!r} is not ported yet: ROADMAP.md Queue A item 7 "
-            "(the other methods)")
+            f"method {name!r} is not ported yet: ROADMAP.md Queue A, "
+            "'The other methods'")
     return importlib.import_module(f"uaps_tpu_torch.methods.{name}")
 
 

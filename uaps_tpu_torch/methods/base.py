@@ -61,7 +61,8 @@ def build_model(cfg, device, generator: Optional[torch.Generator] = None
                              f"expected one of {sorted(allowed)}")
     if cfg.model.stack_decoders:
         raise NotImplementedError(
-            "stack_decoders is not ported yet: ROADMAP.md Queue A item 10")
+            "stack_decoders is not ported yet: ROADMAP.md Queue A, "
+            "'Remainder'")
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.run.seed)

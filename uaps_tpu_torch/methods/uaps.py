@@ -11,18 +11,24 @@ The port's `uaps_tpu/methods/uaps.py`. One step:
   ps_loss  = mean_d [ps_d * mean(exp(-var_d))]   (the reference's quirk: a
              SCALAR loss times the mean gate)
   loss     = sup + w1(t) ps_loss + w2(t) l_uncert
+             (+ l_uncert unramped with `unramped_uncertainty`, the MTiles
+             variant; + decoder_consistency_weight * mean_{d>0}
+             MSE(softmax(un_0), softmax(un_d)) where that weight is > 0)
 with w_i(t) = consistency_i * sigmoid_rampup(step // ramp_iters, rampup),
 then Adam. The labelled and unlabelled forwards run one after the other in
 train mode, so the second continues the first's BN running stats
 (`fused_batch` runs them as one batch instead). Every random draw (dropout
 and perturbation seeds, the Dirichlet mix) comes from `state.generator`.
 
-The uncertainty maps and the pseudo-label go through the fused uncertainty
-module where JAX takes its fused kernel: kernels on (conv_backend != "xla"),
-`fused_uncertainty`, no decoder-consistency term. conv_backend="xla" takes
-the plain ops. On the GPU with the kernels on, the other route needs the
-fused pseudo-label kernel (pallas/pseudo_label.py), which is not ported: it
-raises rather than take the plain ops quietly.
+The routes of the uncertainty maps and the pseudo-label are JAX's
+(methods/uaps.py:116-144):
+  * kernels on (conv_backend != "xla"), `fused_uncertainty` and no
+    decoder-consistency term: both from the fused uncertainty module;
+  * kernels on otherwise (`fused_uncertainty=False`, or
+    `decoder_consistency_weight > 0`, which needs the softmaxes): the
+    softmaxes, mean prediction and KL maps as plain torch ops, the
+    pseudo-label from the fused pseudo-label module;
+  * conv_backend="xla": all plain ops, the argmax of the detached mix.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn as nn
 
+from uaps_tpu_torch.kernels.pseudo_label import fused_pseudo_label
 from uaps_tpu_torch.kernels.uncertainty import fused_uncertainty
 from uaps_tpu_torch.methods import base
 from uaps_tpu_torch.ops import (kl_divergence_map, segmentation_metrics,
@@ -56,12 +63,6 @@ def make_train_step(cfg, model: nn.Module):
     kernels = backend != "xla"
     fused = (kernels and mcfg.fused_uncertainty
              and mcfg.decoder_consistency_weight == 0)
-    if (kernels and not fused
-            and next(model.parameters()).device.type == "cuda"):
-        raise NotImplementedError(
-            "fused_uncertainty=False or decoder_consistency_weight > 0 with "
-            "the kernels on needs the fused pseudo-label kernel, which is "
-            "not ported yet: ROADMAP.md Queue B #12 (pallas/pseudo_label.py)")
 
     def forwards(state, batch):
         if mcfg.fused_batch:
@@ -101,8 +102,11 @@ def make_train_step(cfg, model: nn.Module):
             preds = sum(softmaxes) / n_dec
             variances = [kl_divergence_map(o, preds) for o in un_outs]
             l_uncert = torch.mean(sum(variances) / n_dec)
-            mixed = sum(wi * s.detach() for wi, s in zip(w, softmaxes))
-            pseudo = mixed.argmax(-1).to(torch.int32)
+            if kernels:
+                pseudo = fused_pseudo_label(un_outs, w)
+            else:
+                mixed = sum(wi * s.detach() for wi, s in zip(w, softmaxes))
+                pseudo = mixed.argmax(-1).to(torch.int32)
 
         ps_terms = []
         for o, var in zip(un_outs, variances):

@@ -5,7 +5,8 @@ Registers the U-Net family (`unet`, `unet_uaps`,
 arguments, and initialises the weights as flax does (lecun_normal conv
 kernels, zero biases, BN scale 1 / bias 0, running mean 0 / var 1) from an
 explicit `torch.Generator`. The deep-supervision nets and the ResNet
-BaseNets come with their methods (ROADMAP.md Queue A items 7 and 10).
+BaseNets come later (ROADMAP.md Queue A, "The other methods" and
+"Remainder").
 """
 from __future__ import annotations
 
@@ -21,9 +22,10 @@ from uaps_tpu_torch.models.unet import (Conv3x3, MultiDecoderUNet,
 MODEL_REGISTRY: Dict[str, Callable[..., nn.Module]] = {}
 
 _UNPORTED = {
-    **{n: "ROADMAP.md Queue A item 7 (DeepSupervisionUNet, with cps)"
+    **{n: "ROADMAP.md Queue A, 'The other methods' (DeepSupervisionUNet, "
+          "with cps)"
        for n in ("unet_f", "unet_g", "unet_h")},
-    **{f"basenet_{bk}": "ROADMAP.md Queue A item 10 (models/resnet.py)"
+    **{f"basenet_{bk}": "ROADMAP.md Queue A, 'Remainder' (models/resnet.py)"
        for bk in ("resnet18", "resnet34", "resnet50", "resnet101",
                   "resnet152")},
 }

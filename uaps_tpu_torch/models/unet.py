@@ -484,8 +484,10 @@ def _kernel_flags(conv_backend: str, pool_backend: str,
     raises for the ablation backend the port does not have."""
     if bn_backend == "flat":
         raise NotImplementedError(
-            "bn_backend='flat' (the bn_stats ablation) is not ported yet: "
-            "ROADMAP.md Queue A item 10")
+            "bn_backend='flat' (StatsBatchNorm fed by plain sums of the flat "
+            "view, JAX models/unet.py:338-344; not the bn_stats=True route, "
+            "ROADMAP.md Queue B #5) is not ported yet: ROADMAP.md Queue A, "
+            "'Remainder'")
     conv_k = conv_backend != "xla"
     pool_k = conv_k and pool_backend in ("auto", "pallas")
     return conv_k, pool_k
@@ -546,7 +548,8 @@ class MultiDecoderUNet(nn.Module):
         super().__init__()
         if packed_heads:
             raise NotImplementedError(
-                "packed_heads is not ported yet: ROADMAP.md Queue A item 10")
+                "packed_heads is not ported yet: ROADMAP.md Queue A, "
+                "'Remainder'")
         conv_k, pool_k = _kernel_flags(conv_backend, pool_backend,
                                        bn_backend)
         self.perturbations = tuple(perturbations)

@@ -41,7 +41,7 @@ class InferenceEngine:
         if tta:
             raise NotImplementedError(
                 "test-time augmentation is not ported yet: ROADMAP.md "
-                "Queue A item 10 (ops/tta.py)")
+                "Queue A, 'The rest of serving and checkpoints' (ops/tta.py)")
         if (ckpt is None) == (state_dict is None):
             raise ValueError("pass exactly one of ckpt (.pth path) and "
                              "state_dict")
@@ -63,7 +63,8 @@ class InferenceEngine:
 
     def export(self, path: str) -> None:
         raise NotImplementedError(
-            "export is not ported yet: ROADMAP.md Queue A item 8")
+            "export is not ported yet: ROADMAP.md Queue A, 'The rest of "
+            "serving and checkpoints'")
 
     def uncertainty(self, images: np.ndarray) -> np.ndarray:
         """images [N,H,W,C] uint8 or normalized float32 -> f32 [N,H,W] KL

@@ -9,8 +9,9 @@ epoch's metric means (the step metrics stay on the device until then), a
 validation sweep of the main decoder, the plateau scheduler on val mDice, a
 keep-best `best_model.pth` (the reference's training dict) and one line of
 metrics JSONL per epoch under `--out_dir`. The step runs on `cuda` unless
-`--device cpu` is given. Not ported yet (ROADMAP.md Queue A items 6 and 9):
-`--resume`, more than one device, device-resident pools.
+`--device cpu` is given. Not ported yet: `--resume` and device-resident
+pools (ROADMAP.md Queue A, "The rest of the Trainer and CLIs"), more than
+one device ("Multi-GPU").
 """
 from __future__ import annotations
 
@@ -158,7 +159,7 @@ def main(argv=None) -> float:
     if extra.resume or (extra.num_devices or 1) > 1:
         raise NotImplementedError(
             "--resume and --num_devices > 1 are not ported yet: ROADMAP.md "
-            "Queue A items 6 and 9")
+            "Queue A, 'The rest of the Trainer and CLIs' and 'Multi-GPU'")
     trainer = Trainer(cfg, device=extra.device)
     best = trainer.run()
     trainer.logger.info(f"done; best val mDice {best:.4f}")

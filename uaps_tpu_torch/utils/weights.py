@@ -59,7 +59,7 @@ def _name_map(params) -> Dict:
             if "out_conv_dp1" in params[top]:
                 raise NotImplementedError(
                     "deep-supervision decoders are not ported yet: "
-                    "ROADMAP.md Queue A item 7")
+                    "ROADMAP.md Queue A, 'The other methods'")
             m[top] = _decoder(top)
         else:
             raise ValueError(f"no torch mapping for module {top!r}")
