@@ -114,11 +114,36 @@ Phases (any failure: exit 1 and no result line):
      UAPS_STEP_LAUNCHES per step, one step against the plain path past the
      ramp within phase 10's gates (on a miss the same pair in f32 is
      reported, to tell a kernel fault from bf16 rounding, and the phase
-     fails), one eval step, peak memory, a profile of 2 steps.
+     fails), one eval step, peak memory, a profile of 2 steps;
+ 17. the fullh entries (`conv3x3_nchw_fullh`, its dgrad,
+     `conv3x3_nchw_wgrad_fullh`) at every ConvBlock conv shape of levels
+     0-1 of a neu UAPS step (FULLH_SHAPES), the stats conv
+     (`conv3x3_fast_nchw_stats`: y, s1, s2 and the backward with all three
+     cotangents) at the bn_stats blocks' shapes (STATS_SHAPES) and the NHWC
+     conv (`conv3x3_small`: y, dx, dW) at [16, 256, 256, 16] -> 16 and two
+     odd shapes, f32 and bf16, against their plain versions (phase 12's
+     tolerances; max abs and rel errors); fullh's bf16-in, f32-out output
+     equal to the bf16 rounding of the default variant's; then per shape
+     (bf16, warm L2) ms, the plain version's, the library call's (cuDNN
+     F.conv2d, conv2d_input, conv2d_weight; F.conv2d + the two f32 sums and
+     autograd of that for the stats conv; the same calls on channels_last
+     tensors for the NHWC conv) and the bound;
+ 18. (a) the neu UAPS step (phase 10's) with ModelConfig.conv_variant=
+     "fullh" and bn_backend="flat": 3 warm-up and 10 timed steps with
+     finite losses and FULLH_STEP_LAUNCHES per step (20 StatsBatchNorms),
+     one step against the plain path (conv_backend="xla", the same
+     StatsBatchNorm) past the ramp within phase 10's gates (on a miss the
+     same pair in f32 is reported, and the phase fails), this step and the
+     auto step in alternating rounds, peak memory, a profile of 2 steps;
+     (b) ConvBlock(bn_stats=True) at the neu level-0 and level-1 shapes in
+     train mode, forward and backward, against the default ConvBlock with
+     the same weights, f32 (tolerances in Smoke._stats_blocks); (c)
+     conv3x3_small forward and backward at [16, 256, 256, 16] -> 16, bf16.
 It then prints {"kernels": [...]} (launches from phase 7 for the baseline
 kernels, from phase 10 for the UAPS kernels, from phase 13 for the
-fused-block kernels and from phase 16a for the pseudo-label kernel) and,
-last, {"ok": true, "device": ...}. Details go to OUT_DIR/chip_smoke.json.
+fused-block kernels, from phase 16a for the pseudo-label kernel and from
+phase 18's runs for the fullh, stats and NHWC kernels) and, last, {"ok":
+true, "device": ...}. Details go to OUT_DIR/chip_smoke.json.
 It exits non-zero without CUDA, and outside the repository.
 """
 from __future__ import annotations
@@ -158,6 +183,13 @@ TRAIN_WARMUP, TRAIN_STEPS = 3, 10
 # the fused-ConvBlock kernels' counters (phases 12-14)
 CHAIN_COUNTERS = ("chain_conv_plain", "chain_conv_bnl", "chain_conv_plain_bwd",
                   "chain_conv_bnl_bwd", "conv3x3_bnl", "conv3x3_bnl_bwd")
+# ... and those of the fullh conv entries, the stats conv and the NHWC conv
+# (phases 17-18)
+FULLH_COUNTERS = ("conv3x3_nchw_fullh", "conv3x3_nchw_fullh_dgrad",
+                  "conv3x3_nchw_wgrad_fullh")
+STATS_COUNTERS = ("conv3x3_nchw_stats", "conv3x3_nchw_stats_bwd")
+NHWC_COUNTERS = ("conv3x3_nhwc", "conv3x3_nhwc_wgrad")
+OTHER_CONV_COUNTERS = FULLH_COUNTERS + STATS_COUNTERS + NHWC_COUNTERS
 # kernel launches per baseline step (plain dropout), by launch counter
 STEP_LAUNCHES = {"conv3x3_nchw": 9, "conv3x3_nchw_dgrad": 8,
                  "conv3x3_nchw_wgrad": 9, "max_pool_2x2_nchw": 2,
@@ -165,7 +197,8 @@ STEP_LAUNCHES = {"conv3x3_nchw": 9, "conv3x3_nchw_dgrad": 8,
                  "ce_dice_bwd": 1, "fused_dropout": 0, "feature_noise": 0,
                  "feature_dropout": 0, "feature_dropout_bwd": 0,
                  "uncertainty_fwd": 0, "uncertainty_bwd": 0,
-                 "pseudo_label": 0, **dict.fromkeys(CHAIN_COUNTERS, 0)}
+                 "pseudo_label": 0, **dict.fromkeys(CHAIN_COUNTERS, 0),
+                 **dict.fromkeys(OTHER_CONV_COUNTERS, 0)}
 # ... and per UAPS step: two forwards (labelled, unlabelled), each the
 # encoder (4 kernel convs, 2 pools, 5 dropouts) and 4 decoders (5 kernel
 # convs each), 3 x 5 perturbed skips; 4 + 4 CE+Dice; one uncertainty
@@ -176,7 +209,8 @@ UAPS_STEP_LAUNCHES = {"conv3x3_nchw": 48, "conv3x3_nchw_dgrad": 46,
                       "feature_noise": 20, "feature_dropout": 10,
                       "feature_dropout_bwd": 10, "uncertainty_fwd": 1,
                       "uncertainty_bwd": 1, "pseudo_label": 0,
-                      **dict.fromkeys(CHAIN_COUNTERS, 0)}
+                      **dict.fromkeys(CHAIN_COUNTERS, 0),
+                      **dict.fromkeys(OTHER_CONV_COUNTERS, 0)}
 N_DEC = 4
 # the blocks that the fused backends replace in a neu UAPS step (levels 0
 # and 1): (block, conv1's Cin, Cout, H = W, dropout rate, forwards per step:
@@ -203,6 +237,32 @@ FUSED_STEP_LAUNCHES = {**UAPS_STEP_LAUNCHES, "conv3x3_nchw": 32,
 # softmaxes and KL maps as torch ops, the pseudo-label kernel once
 UNFUSED_STEP_LAUNCHES = {**UAPS_STEP_LAUNCHES, "uncertainty_fwd": 0,
                          "uncertainty_bwd": 0, "pseudo_label": 1}
+# ... and with conv_variant="fullh", bn_backend="flat" (phase 18): every
+# ConvBlock conv at levels 0-1 on the fullh entries, the heads (head_variant
+# dwmf) on the default ones
+FULLH_STEP_LAUNCHES = {**UAPS_STEP_LAUNCHES, "conv3x3_nchw": 8,
+                       "conv3x3_nchw_dgrad": 8, "conv3x3_nchw_wgrad": 8,
+                       "conv3x3_nchw_fullh": 40,
+                       "conv3x3_nchw_fullh_dgrad": 38,
+                       "conv3x3_nchw_wgrad_fullh": 40}
+# the ConvBlock convs at levels 0-1 of a neu UAPS step: (module(s), Cin,
+# Cout, H = W, fullh forwards, dgrads and wgrads a step); the image needs no
+# gradient
+FULLH_SHAPES = [("in_conv.0", 3, 16, 256, 2, 0, 2),
+                ("in_conv.4 + up4.4", 16, 16, 256, 10, 10, 10),
+                ("down1.0", 16, 32, 128, 2, 2, 2),
+                ("down1.4 + up3.4", 32, 32, 128, 10, 10, 10),
+                ("up3.0", 64, 32, 128, 8, 8, 8),
+                ("up4.0", 32, 16, 256, 8, 8, 8)]
+# the bn_stats ConvBlocks of phase 18 at the neu level-0 and level-1 shapes:
+# (block, Cin, Cout, H = W, dropout rate); their 4 convs are phase 17's
+# stats shapes
+STATS_BLOCKS = [("in_conv", 3, 16, 256, 0.05), ("down1", 16, 32, 128, 0.1)]
+STATS_SHAPES = [(blk + ".0", cin, cout, hw) for blk, cin, cout, hw, _ in
+                STATS_BLOCKS] + [(blk + ".4", cout, cout, hw) for
+                                 blk, _, cout, hw, _ in STATS_BLOCKS]
+# the NHWC conv at the neu level-0 shape: (B, H, W, Cin, Cout)
+NHWC_SHAPE = (16, 256, 256, 16, 16)
 # the presets of phase 16 as the CLI builds them: (batch, H, W, classes,
 # input channels); they take the default (auto) UAPS step
 PRESETS = {"dagm": (16, 256, 256, 7, 1), "mtiles": (16, 256, 256, 6, 3),
@@ -234,6 +294,7 @@ def counters():
     """{kernel name: launch count} of every wrapper."""
     from uaps_tpu_torch.kernels import block_conv as kbc
     from uaps_tpu_torch.kernels import ce_dice as kce
+    from uaps_tpu_torch.kernels import conv3x3 as kn
     from uaps_tpu_torch.kernels import conv3x3_nchw as kc
     from uaps_tpu_torch.kernels import conv_bnl as kbnl
     from uaps_tpu_torch.kernels import perturb as kpt
@@ -258,12 +319,20 @@ def counters():
             "feature_dropout_bwd": kpt.fdrop_bwd_launches,
             "uncertainty_fwd": kun.fwd_launches,
             "uncertainty_bwd": kun.bwd_launches,
-            "pseudo_label": kpl.launches}
+            "pseudo_label": kpl.launches,
+            "conv3x3_nchw_fullh": kc.fullh_launches,
+            "conv3x3_nchw_fullh_dgrad": kc.fullh_dgrad_launches,
+            "conv3x3_nchw_wgrad_fullh": kc.fullh_wgrad_launches,
+            "conv3x3_nchw_stats": kc.stats_launches,
+            "conv3x3_nchw_stats_bwd": kc.stats_bwd_launches,
+            "conv3x3_nhwc": kn.nhwc_launches,
+            "conv3x3_nhwc_wgrad": kn.nhwc_wgrad_launches}
 
 
 def reset_counters():
     from uaps_tpu_torch.kernels import block_conv as kbc
     from uaps_tpu_torch.kernels import ce_dice as kce
+    from uaps_tpu_torch.kernels import conv3x3 as kn
     from uaps_tpu_torch.kernels import conv3x3_nchw as kc
     from uaps_tpu_torch.kernels import conv_bnl as kbnl
     from uaps_tpu_torch.kernels import perturb as kpt
@@ -274,6 +343,9 @@ def reset_counters():
     kbc.plain_bwd_launches = kbc.bnl_bwd_launches = 0
     kbnl.fwd_launches = kbnl.bwd_launches = 0
     kc.launches = kc.dgrad_launches = kc.wgrad_launches = 0
+    kc.fullh_launches = kc.fullh_dgrad_launches = kc.fullh_wgrad_launches = 0
+    kc.stats_launches = kc.stats_bwd_launches = 0
+    kn.nhwc_launches = kn.nhwc_wgrad_launches = 0
     kp.launches = kp.bwd_launches = 0
     kce.fwd_launches = kce.bwd_launches = 0
     kpt.dropout_launches = kpt.noise_launches = 0
@@ -2415,6 +2487,428 @@ class Smoke:
             del model, state, step, batches
 
 
+    # ------------------------------------------------------------ phase 17
+    def _nhwc_case(self, b, h, wd, cin, cout, dtype, seed):
+        """x [b, h, wd, Cin], w [3, 3, Cin, Cout] (scaled as lecun_normal)
+        and a cotangent g [b, h, wd, Cout], all in `dtype`, on the card."""
+        torch = self.torch
+        g = self.gen(seed)
+        x = torch.randn((b, h, wd, cin), generator=g,
+                        device=self.dev).to(dtype)
+        w = (torch.randn((3, 3, cin, cout), generator=g, device=self.dev)
+             / (9 * cin) ** 0.5).to(dtype)
+        gy = torch.randn((b, h, wd, cout), generator=g,
+                         device=self.dev).to(dtype)
+        return x, w, gy
+
+    def other_conv_kernels(self):
+        """The fullh entries, the stats conv and the NHWC conv against their
+        plain versions, then their times (see phase 17 in the module
+        docstring). Tolerances (tol = 1e-4 in f32, 1e-2 in bf16, phase
+        12's): y and dx rtol = atol = tol; dW within tol x max |dW|; the
+        moments within tol x the sums of their terms' magnitudes (s1: sum
+        |y|, s2 itself). Each check also reports max |err| / max |ref|."""
+        import torch.nn.functional as F
+        from uaps_tpu_torch.kernels import block_conv as kbc
+        from uaps_tpu_torch.kernels import conv3x3 as kn
+        from uaps_tpu_torch.kernels import conv3x3_nchw as kc
+        torch = self.torch
+        errs = {n: {"max_abs_err": 0.0, "max_rel_err": 0.0}
+                for n in OTHER_CONV_COUNTERS}
+        bad = []
+
+        def check(name, label, got, ref, tol, scale=None):
+            """rtol = atol = tol elementwise, or |err| <= tol * scale."""
+            got, ref = got.detach().float(), ref.float()
+            d = (got - ref).abs()
+            err = float(d.max())
+            rel = err / max(float(ref.abs().max()), 1e-30)
+            e = errs[name]
+            e["max_abs_err"] = max(e["max_abs_err"], err)
+            e["max_rel_err"] = max(e["max_rel_err"], rel)
+            ok = got.shape == ref.shape and bool(torch.isfinite(got).all())
+            if scale is None:
+                ok = ok and torch.allclose(got, ref, rtol=tol, atol=tol)
+                note = f"(rtol = atol = {tol})"
+            else:
+                lim = tol * scale
+                ok = ok and bool((d <= lim).all())
+                note = f"(limit {tol} x scale, max {float(lim.max()):.3e})"
+            log(f"{label}: max_abs_err {err:.3e}, max_rel_err {rel:.3e} "
+                f"{note} {'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                bad.append(label)
+
+        for dname, dtype in (("f32", torch.float32),
+                             ("bf16", torch.bfloat16)):
+            tol = 1e-4 if dname == "f32" else 1e-2
+            for i, (mod, cin, cout, hw, *_) in enumerate(FULLH_SHAPES):
+                x, w, gy = self._grad_case(cin, cout, hw, dtype, SEED + 500 + i)
+                label = f"fullh {mod} {cin}->{cout} @{hw} {dname}"
+                y = kc.conv3x3_nchw_fullh(x, w)
+                dx = kc.conv3x3_nchw_dgrad_fullh(gy, w)
+                dw = kc.conv3x3_nchw_wgrad_fullh(x, gy)
+                self.sync()
+                rdw = kc.conv3x3_nchw_wgrad_plain(x, gy)
+                check("conv3x3_nchw_fullh", f"{label} y", y,
+                      kc.conv3x3_nchw_plain(x, w), tol)
+                check("conv3x3_nchw_fullh_dgrad", f"{label} dx", dx,
+                      kc.conv3x3_nchw_dgrad_plain(gy, w), tol)
+                check("conv3x3_nchw_wgrad_fullh", f"{label} dW", dw, rdw, tol,
+                      rdw.abs().max())
+            for i, (mod, cin, cout, hw) in enumerate(STATS_SHAPES):
+                x, w, _, _, gy, ds1, ds2, _ = self._chain_case(
+                    cin, cout, hw, dtype, SEED + 520 + i)
+                need_dx = mod != "in_conv.0"   # the image needs no gradient
+                xr = x.clone().requires_grad_(need_dx)
+                wr = w.clone().requires_grad_()
+                y, s1, s2 = kc.conv3x3_fast_nchw_stats(xr, wr)
+                torch.autograd.backward([y, s1, s2], [gy, ds1, ds2])
+                self.sync()
+                with torch.no_grad():
+                    ry, r1, r2 = kbc.chain_plain_ref(x, w)
+                    # the backward from the kernel's own y, as autograd has
+                    rdx, rdw, _, _ = kbc.chain_bwd_plain(
+                        kbc.fold_plain(gy, y, ds1, ds2), x, w, None, None,
+                        None, 0.0, need_dx)
+                label = f"stats {mod} {cin}->{cout} @{hw} {dname}"
+                check("conv3x3_nchw_stats", f"{label} y", y, ry, tol)
+                check("conv3x3_nchw_stats", f"{label} s1", s1, r1, tol,
+                      ry.float().abs().sum((0, 2, 3)))
+                check("conv3x3_nchw_stats", f"{label} s2", s2, r2, tol, r2)
+                if need_dx:
+                    check("conv3x3_nchw_stats_bwd", f"{label} dx", xr.grad,
+                          rdx, tol)
+                check("conv3x3_nchw_stats_bwd", f"{label} dW", wr.grad, rdw,
+                      tol, rdw.abs().max())
+            # the neu level-0 shape, then an odd Cout (scalar stores), a
+            # ragged tile edge and a dgrad writing Cin = 40 (two groups)
+            for i, shape in enumerate([NHWC_SHAPE, (2, 37, 70, 5, 13),
+                                       (2, 9, 131, 40, 8)]):
+                x, w, gy = self._nhwc_case(*shape, dtype, SEED + 540 + i)
+                label = f"nhwc {list(shape[:4])}->{shape[4]} {dname}"
+                xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+                y = kn.conv3x3_small(xr, wr)
+                y.backward(gy)
+                self.sync()
+                rdw = kn.conv3x3_wgrad_plain(x, gy)
+                check("conv3x3_nhwc", f"{label} y", y,
+                      kn.conv3x3_forward_plain(x, w), tol)
+                check("conv3x3_nhwc", f"{label} dx", xr.grad,
+                      kn.conv3x3_forward_plain(
+                          gy, w.flip((0, 1)).transpose(2, 3)), tol)
+                check("conv3x3_nhwc_wgrad", f"{label} dW (f32)",
+                      kn.conv3x3_wgrad(x, gy), rdw, tol, rdw.abs().max())
+                check("conv3x3_nhwc_wgrad", f"{label} dW", wr.grad, rdw, tol,
+                      rdw.abs().max())
+        # fullh's contract: bf16 in, out_dtype f32, the output rounded to
+        # bf16 first (the default variant keeps the f32 accumulator)
+        x, w, _ = self._grad_case(16, 16, HW, torch.bfloat16, SEED + 560)
+        y = kc.conv3x3_nchw(x, w, torch.float32, variant="fullh")
+        taps = kc.conv3x3_nchw(x, w, torch.float32)
+        ok = (y.dtype == torch.float32
+              and torch.equal(y, y.bfloat16().float())
+              and torch.equal(y, taps.bfloat16().float()))
+        log(f"fullh bf16 -> f32: the bf16 rounding of the default variant's "
+            f"f32 output {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            bad.append("fullh bf16 -> f32 contract")
+        if bad:
+            raise AssertionError(f"kernel mismatches: {bad}")
+        for name, e in errs.items():
+            self.report["kernels"][name] = dict(e)
+        self._other_conv_times()
+
+    def _other_conv_times(self):
+        """Per kernel and shape (bf16, warm L2 as the conv rows): ms, the
+        plain version's, the library call's (cuDNN F.conv2d, conv2d_input,
+        conv2d_weight; for the stats conv F.conv2d + the two f32 sums and
+        autograd of that; for the NHWC conv the same calls on channels_last
+        tensors) and the bound; summed by launches a step (fullh: phase
+        18's UAPS step; stats and NHWC: phase 18's run of each)."""
+        import torch.nn.functional as F
+        from uaps_tpu_torch.kernels import block_conv as kbc
+        from uaps_tpu_torch.kernels import conv3x3 as kn
+        from uaps_tpu_torch.kernels import conv3x3_nchw as kc
+        torch = self.torch
+        bf = torch.bfloat16
+        rows = {k: [] for k in OTHER_CONV_COUNTERS}
+        grad = torch.nn.grad
+
+        def add(name, label, per_step, kern, plain, lib, nbytes, ops):
+            row = {"shape": label, "per_step": per_step,
+                   "ms": self.time_ms(kern), "plain_ms": self.time_ms(plain),
+                   "library_ms": self.time_ms(lib)}
+            row["bound_ms"], row["bound_by"] = bound(nbytes, ops, "bf16")
+            rows[name].append(row)
+            log(f"time {name} {label} x{per_step}: kernel {row['ms']:.4f} ms,"
+                f" plain {row['plain_ms']:.4f} ms, library "
+                f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']})")
+
+        for i, (mod, cin, cout, hw, nf, nd, nw) in enumerate(FULLH_SHAPES):
+            x, w, gy = self._grad_case(cin, cout, hw, bf, SEED + 500 + i)
+            w_oihw = w.permute(3, 2, 0, 1).contiguous()
+            label = f"{mod} {cin}->{cout} @{hw}"
+            px = BATCH * hw * hw
+            add("conv3x3_nchw_fullh", label, nf,
+                lambda: kc.conv3x3_nchw_fullh(x, w),
+                lambda: kc.conv3x3_nchw_plain(x, w),
+                lambda: F.conv2d(x, w_oihw, padding=1),
+                *conv_cost(cin, cout, hw, 2, 2))
+            if nd:
+                add("conv3x3_nchw_fullh_dgrad", label, nd,
+                    lambda: kc.conv3x3_nchw_dgrad_fullh(gy, w),
+                    lambda: kc.conv3x3_nchw_dgrad_plain(gy, w),
+                    lambda: grad.conv2d_input(x.shape, w_oihw, gy, padding=1),
+                    *conv_cost(cout, cin, hw, 2, 2))
+            add("conv3x3_nchw_wgrad_fullh", label, nw,
+                lambda: kc.conv3x3_nchw_wgrad_fullh(x, gy),
+                lambda: kc.conv3x3_nchw_wgrad_plain(x, gy),
+                lambda: grad.conv2d_weight(x, w_oihw.shape, gy, padding=1),
+                px * (cin + cout) * 2 + 9 * cin * cout * 4,
+                2 * px * cin * cout * 9)
+        for i, (mod, cin, cout, hw) in enumerate(STATS_SHAPES):
+            x, w, _, _, gy, ds1, ds2, _ = self._chain_case(
+                cin, cout, hw, bf, SEED + 520 + i)
+            need_dx = mod != "in_conv.0"
+            y, _, _ = kc.conv3x3_nchw_stats(x, w)
+            px = BATCH * hw * hw
+            label = f"{mod} {cin}->{cout} @{hw}"
+            xl = x.detach().clone().requires_grad_(need_dx)
+            wl = w.permute(3, 2, 0, 1).contiguous().requires_grad_()
+
+            def composite(xl=xl, wl=wl):
+                yl = F.conv2d(xl, wl, padding=1)
+                yf = yl.float()
+                return yl, yf.sum((0, 2, 3)), (yf * yf).sum((0, 2, 3))
+            outs = composite()
+            ins = [xl, wl] if need_dx else [wl]
+            nb, ops = conv_cost(cin, cout, hw, 2, 2)
+            add("conv3x3_nchw_stats", label, 1,
+                lambda: kc.conv3x3_nchw_stats(x, w),
+                lambda: kbc.chain_plain_ref(x, w), composite,
+                nb + 2 * cout * 4, ops)
+            add("conv3x3_nchw_stats_bwd", label, 1,
+                lambda: kc._stats_backward(gy, ds1, ds2, y, x, w, need_dx),
+                lambda: kbc.chain_bwd_plain(kbc.fold_plain(gy, y, ds1, ds2),
+                                            x, w, None, None, None, 0.0,
+                                            need_dx),
+                lambda: torch.autograd.grad(outs, ins, [gy, ds1, ds2],
+                                            retain_graph=True),
+                2 * (2 * px * cout + px * cin * (1 + need_dx))
+                + 9 * cin * cout * (2 + 4),
+                2 * px * cin * cout * 9 * (1 + need_dx))
+        b, h, wd, cin, cout = NHWC_SHAPE
+        x, w, gy = self._nhwc_case(*NHWC_SHAPE, bf, SEED + 540)
+        xl, gl = x.permute(0, 3, 1, 2), gy.permute(0, 3, 1, 2)  # channels_last
+        wl = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        px = b * h * wd
+        label = f"[{b},{h},{wd},{cin}]->{cout}"
+        conv_bytes = 2 * (px * (cin + cout) + 9 * cin * cout)
+        add("conv3x3_nhwc", f"forward {label}", 1,
+            lambda: kn.conv3x3_forward(x, w),
+            lambda: kn.conv3x3_forward_plain(x, w),
+            lambda: F.conv2d(xl, wl, padding=1), conv_bytes,
+            2 * px * cin * cout * 9)
+        add("conv3x3_nhwc", f"dgrad {label}", 1,
+            lambda: kn.conv3x3_dgrad(gy, w),
+            lambda: kn.conv3x3_forward_plain(
+                gy, w.flip((0, 1)).transpose(2, 3)),
+            lambda: grad.conv2d_input(xl.shape, wl, gl, padding=1),
+            conv_bytes, 2 * px * cin * cout * 9)
+        add("conv3x3_nhwc_wgrad", label, 1,
+            lambda: kn.conv3x3_wgrad(x, gy),
+            lambda: kn.conv3x3_wgrad_plain(x, gy),
+            lambda: grad.conv2d_weight(xl, wl.shape, gl, padding=1),
+            px * (cin + cout) * 2 + 9 * cin * cout * 4,
+            2 * px * cin * cout * 9)
+        self.report["times"]["other_conv_kernels"] = rows
+        for name, rs in rows.items():
+            def per_step(key):
+                return sum(r[key] * r["per_step"] for r in rs)
+            by_bytes = sum(r["bound_ms"] * r["per_step"] for r in rs
+                           if r["bound_by"] == "bytes")
+            self.report["kernels"][name].update(
+                ms=per_step("ms"), plain_ms=per_step("plain_ms"),
+                library_ms=per_step("library_ms"),
+                bound_ms=per_step("bound_ms"),
+                bound_by=("bytes" if by_bytes * 2 >= per_step("bound_ms")
+                          else "operations"))
+            k = self.report["kernels"][name]
+            log(f"per run, {name}: kernel {k['ms']:.4f} ms, plain "
+                f"{k['plain_ms']:.4f} ms, library {k['library_ms']:.4f} ms, "
+                f"bound {k['bound_ms']:.4f} ms")
+
+    # ------------------------------------------------------------ phase 18
+    def fullh_flat_training(self):
+        """(a) the neu UAPS step with conv_variant="fullh", bn_backend="flat"
+        (see phase 18 in the module docstring), then (b) and (c)."""
+        from uaps_tpu_torch.data import SyntheticDefects
+        from uaps_tpu_torch.models.unet import StatsBatchNorm
+        from uaps_tpu_torch.train import to_device
+        knobs = dict(conv_variant="fullh", bn_backend="flat")
+        cfg = self._uaps_config(**knobs)
+        data = SyntheticDefects(cfg.data, seed=SEED)
+        it = data.train_iter()
+        batches = [to_device(next(it), self.dev)
+                   for _ in range(TRAIN_WARMUP + TRAIN_STEPS + 1)]
+        model, state, step, init_sd, self.fullh_launches = self._run_steps(
+            cfg, batches, TRAIN_WARMUP, TRAIN_STEPS, "fullh",
+            "fullh + flat-BN UAPS", FULLH_STEP_LAUNCHES)
+        n_bn = sum(isinstance(m, StatsBatchNorm) for m in model.modules())
+        assert n_bn == 20, f"{n_bn} StatsBatchNorms, want 20 (levels 0-1)"
+        try:
+            self.report["fullh"]["kernel_vs_plain"] = self._pair_past_ramp(
+                cfg, self._uaps_config(conv_backend="xla", **knobs), init_sd,
+                batches[-1], FULLH_STEP_LAUNCHES, "fullh kernel vs plain")
+        except AssertionError:
+            # tell a kernel fault from bf16 rounding: the same pair in f32,
+            # reported, and the phase still fails
+            self.report["fullh"]["kernel_vs_plain_f32"] = \
+                self._pair_past_ramp(
+                    self._uaps_config(compute_dtype="float32", **knobs),
+                    self._uaps_config(conv_backend="xla",
+                                      compute_dtype="float32", **knobs),
+                    init_sd, batches[-1], FULLH_STEP_LAUNCHES,
+                    "fullh f32 kernel vs plain")
+            raise
+        t = self.report["times"]
+        if hasattr(self, "uaps_step"):
+            self.step_rounds(t, "fullh_step_rounds", {
+                "auto": (self.uaps_step, self.uaps_state, self.uaps_batch),
+                "fullh": (step, state, batches[0])})
+        self.profile_steps("fullh", "fullh + flat-BN UAPS", step, state,
+                           batches[0], t["fullh_step_ms"]["median"])
+        del model, state, step, batches
+        self._stats_blocks()
+        self._nhwc_run()
+
+    def _stats_blocks(self):
+        """(b) ConvBlock(bn_stats=True) at the neu level-0 and level-1 shapes
+        (B=16, f32, train mode, each level's dropout with one seed on both
+        sides), forward and backward of sum(y^2) / 2 (a cotangent that adds
+        up over the pixels, so that a LeakyReLU input flipping at its kink
+        moves the sums by one pixel's share), against the default ConvBlock
+        with the same weights: y rtol = atol = 1e-4 and the running stats
+        rtol 1e-4 / atol 1e-5 (moments over ~1 M pixels summed in another
+        order in f32), each gradient within 1e-3 x its tensor's max (the
+        BN-fed conv biases, whose exact gradient is 0, within 1e-3 x the
+        block's largest). The launch counts are read around the two blocks'
+        run: 4 stats forwards and 4 backwards, no plain conv launch."""
+        from uaps_tpu_torch.models.factory import init_weights
+        from uaps_tpu_torch.models.unet import BatchNorm, ConvBlock
+        torch = self.torch
+        f32 = torch.float32
+        g = torch.Generator().manual_seed(SEED + 600)
+        cases = []
+        for i, (blk, cin, cout, hw, rate) in enumerate(STATS_BLOCKS):
+            sb = ConvBlock(cin, cout, rate, f32, True, bn_stats=True)
+            init_weights(sb, g)
+            with torch.no_grad():
+                for m in sb.modules():
+                    if isinstance(m, BatchNorm):
+                        m.running_mean.normal_(0.0, 0.1, generator=g)
+                        m.running_var.uniform_(0.5, 1.5, generator=g)
+                        m.weight.uniform_(0.8, 1.2, generator=g)
+                        m.bias.normal_(0.0, 0.05, generator=g)
+            db = ConvBlock(cin, cout, rate, f32, True)
+            db.load_state_dict(sb.state_dict(), strict=True)
+            gd = self.gen(SEED + 610 + i)
+            x = torch.randn((BATCH, cin, hw, hw), generator=gd,
+                            device=self.dev)
+            sd = torch.randint(0, 2 ** 31 - 1, (), generator=gd,
+                               device=self.dev)
+            cases.append((f"{blk} {cin}->{cout} @{hw} p={rate}",
+                          sb.to(self.dev).train(), db.to(self.dev).train(),
+                          x, sd, i > 0))
+        self.sync()
+        reset_counters()          # the bn_stats blocks' run starts here
+        outs = []
+        for _, sb, _, x, sd, need_dx in cases:
+            xr = x.clone().requires_grad_(need_dx)
+            y = sb(xr, sd)
+            y.backward(y.detach())
+            outs.append((y.detach(), xr.grad))
+        self.sync()
+        self.stats_launches = counters()    # ... and ends here
+        log(f"launches over the bn_stats blocks' run: "
+            f"{json.dumps(self.stats_launches)}")
+        assert (self.stats_launches["conv3x3_nchw_stats"],
+                self.stats_launches["conv3x3_nchw_stats_bwd"],
+                self.stats_launches["conv3x3_nchw"]) == (4, 4, 0), \
+            self.stats_launches
+        bad, res = [], {}
+        for (label, sb, db, x, sd, need_dx), (y, dx) in zip(cases, outs):
+            xr = x.clone().requires_grad_(need_dx)
+            ry = db(xr, sd)
+            ry.backward(y)
+            r = {"y": float((y - ry.detach()).abs().max())}
+            ok = torch.allclose(y, ry.detach(), rtol=1e-4, atol=1e-4)
+            for i in (1, 5):
+                for buf in ("running_mean", "running_var"):
+                    a = getattr(sb.conv_conv[i], buf)
+                    b = getattr(db.conv_conv[i], buf)
+                    r[f"{i}.{buf}"] = float((a - b).abs().max())
+                    ok = ok and torch.allclose(a, b, rtol=1e-4, atol=1e-5)
+            pd = dict(db.named_parameters())
+            big = max(float(p.grad.abs().max()) for p in pd.values())
+            grads = [(k, p.grad, pd[k].grad) for k, p in sb.named_parameters()]
+            if need_dx:
+                grads.append(("x", dx, xr.grad))
+            for k, gs, gd in grads:
+                err = float((gs - gd).abs().max())
+                r[f"d {k}"] = err
+                lim = 1e-3 * (big if k.endswith(("conv_conv.0.bias",
+                                                 "conv_conv.4.bias"))
+                              else float(gd.abs().max()))
+                ok = ok and err <= lim
+            res[label] = r
+            log(f"bn_stats block {label} vs the default block (f32): "
+                + ", ".join(f"{k} {v:.3e}" for k, v in r.items())
+                + f" {'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                bad.append(label)
+        self.report["bn_stats_blocks"] = res
+        assert not bad, f"bn_stats blocks off the default block: {bad}"
+
+    def _nhwc_run(self):
+        """(c) conv3x3_small forward and backward at the neu level-0 NHWC
+        shape in bf16, the launch counts read around it (2 forward-kernel
+        launches, the dgrad being one; 1 wgrad), the outputs against the
+        plain versions with phase 17's bf16 tolerances."""
+        from uaps_tpu_torch.kernels import conv3x3 as kn
+        torch = self.torch
+        x, w, gy = self._nhwc_case(*NHWC_SHAPE, torch.bfloat16, SEED + 630)
+        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        self.sync()
+        reset_counters()          # the NHWC conv's run starts here
+        y = kn.conv3x3_small(xr, wr)
+        y.backward(gy)
+        self.sync()
+        self.nhwc_launches = counters()     # ... and ends here
+        with torch.no_grad():
+            ry = kn.conv3x3_forward_plain(x, w)
+            rdx = kn.conv3x3_forward_plain(gy, w.flip((0, 1)).transpose(2, 3))
+            rdw = kn.conv3x3_wgrad_plain(x, gy)
+        errs = [float((a.detach().float() - b.float()).abs().max())
+                for a, b in ((y, ry), (xr.grad, rdx), (wr.grad, rdw))]
+        ok = (self.nhwc_launches["conv3x3_nhwc"] == 2
+              and self.nhwc_launches["conv3x3_nhwc_wgrad"] == 1
+              and torch.allclose(y.detach().float(), ry.float(), rtol=1e-2,
+                                 atol=1e-2)
+              and torch.allclose(xr.grad.float(), rdx.float(), rtol=1e-2,
+                                 atol=1e-2)
+              and errs[2] <= 1e-2 * float(rdw.abs().max()))
+        log(f"conv3x3_small {list(NHWC_SHAPE[:4])}->{NHWC_SHAPE[4]} bf16: "
+            f"launches {self.nhwc_launches['conv3x3_nhwc']} + "
+            f"{self.nhwc_launches['conv3x3_nhwc_wgrad']}; max abs err y "
+            f"{errs[0]:.3e}, dx {errs[1]:.3e}, dW {errs[2]:.3e} "
+            f"{'ok' if ok else 'MISMATCH'}")
+        assert ok
+
+
 # the kernels line: (launch counter, CUDA source, the TPU kernel replaced)
 KERNELS = [
     ("conv3x3_nchw", "conv3x3_nchw", "uaps_tpu/pallas/conv3x3_nchw.py:289"),
@@ -2451,6 +2945,23 @@ KERNELS += [
 # 16a) reports
 KERNELS += [("pseudo_label", "pseudo_label",
              "uaps_tpu/pallas/pseudo_label.py:60")]
+# ... and the fullh entries (launches from the fullh + flat-BN run, phase
+# 18a), the stats conv (the bn_stats blocks' run, 18b) and the NHWC conv
+# (its run, 18c)
+KERNELS += [
+    ("conv3x3_nchw_fullh", "conv3x3_nchw",
+     "uaps_tpu/pallas/conv3x3_nchw.py:752"),
+    ("conv3x3_nchw_fullh_dgrad", "conv3x3_nchw",
+     "uaps_tpu/pallas/conv3x3_nchw.py:932"),
+    ("conv3x3_nchw_wgrad_fullh", "conv3x3_wgrad_nchw",
+     "uaps_tpu/pallas/conv3x3_nchw.py:803"),
+    ("conv3x3_nchw_stats", "block_conv",
+     "uaps_tpu/pallas/conv3x3_nchw.py:1022"),
+    ("conv3x3_nchw_stats_bwd", "block_conv",
+     "uaps_tpu/pallas/conv3x3_nchw.py:1078"),
+    ("conv3x3_nhwc", "conv3x3_nhwc", "uaps_tpu/pallas/conv3x3.py:73"),
+    ("conv3x3_nhwc_wgrad", "conv3x3_nhwc", "uaps_tpu/pallas/conv3x3.py:138"),
+]
 
 
 def launches_of(s, name):
@@ -2460,6 +2971,12 @@ def launches_of(s, name):
         return s.fused_launches[path][name]
     if name == "pseudo_label":
         return s.unfused_launches[name]
+    if name in FULLH_COUNTERS:
+        return s.fullh_launches[name]
+    if name in STATS_COUNTERS:
+        return s.stats_launches[name]
+    if name in NHWC_COUNTERS:
+        return s.nhwc_launches[name]
     return (s.uaps_launches if name in UAPS_KERNELS
             else s.train_launches)[name]
 
@@ -2503,6 +3020,10 @@ def main() -> int:
             s.phase("16a the unfused UAPS route", s.unfused_training)
         s.phase("16b the dagm, mtiles and kosdd2 presets",
                 s.preset_training)
+        s.phase("17 fullh, stats and NHWC kernels vs plain",
+                s.other_conv_kernels)
+        s.phase("18 the fullh + flat-BN UAPS step, the bn_stats blocks, "
+                "the NHWC conv", s.fullh_flat_training)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(s.report, f, indent=1, default=str)

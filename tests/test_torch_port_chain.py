@@ -260,7 +260,8 @@ def test_convblock_matches_jax(gates_open, backend, rate):
                        rngs={"dropout": jax.random.key(0)})
     rev = jb.apply(v, jnp.asarray(x), train=False)
 
-    pb = tunet.ConvBlock(CIN, COUT, rate, torch.float32, True, block=backend)
+    pb = tunet.ConvBlock(CIN, COUT, rate, torch.float32, True,
+                         conv_backend=backend)
     assert isinstance(pb.conv_conv[1], tunet.BNFactorShift)
     pb.load_state_dict(_block_state_dict(v), strict=True)
     with torch.no_grad():

@@ -265,5 +265,6 @@ def test_build_raises_without_nvcc(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.find_nvcc()
     assert _build.sources() == ["block_conv", "ce_dice", "conv3x3_nchw",
-                                "conv3x3_wgrad_nchw", "perturb", "pool_nchw",
-                                "pseudo_label", "uncertainty"]
+                                "conv3x3_nhwc", "conv3x3_wgrad_nchw",
+                                "perturb", "pool_nchw", "pseudo_label",
+                                "uncertainty"]

@@ -73,10 +73,10 @@ def test_neu_dispatch_routes_9_convs_and_2_pools(monkeypatch):
     on the CPU); conv_backend='xla' sends none."""
     calls = {"conv": [], "pool": []}
 
-    def conv(x, w, out_dtype=None):
+    def conv(x, w, out_dtype=None, variant="taps"):
         calls["conv"].append((x.shape[1], w.shape[3], x.shape[2], x.dtype,
                               out_dtype))
-        return kconv.conv3x3_nchw(x, w, out_dtype)
+        return kconv.conv3x3_nchw(x, w, out_dtype, variant=variant)
 
     def pool(x):
         calls["pool"].append(tuple(x.shape[1:]))
@@ -121,8 +121,7 @@ def test_state_dict_names_match_export():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("bn_backend", "flat"), ("packed_heads", True),
-    ("stack_decoders", True)])
+    ("packed_heads", True), ("stack_decoders", True)])
 def test_unported_knobs_raise(knob, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(neu_config("uaps", **{knob: value}), "cpu")

@@ -56,7 +56,8 @@ import torch
 from uaps_tpu_torch.kernels import _build
 from uaps_tpu_torch.kernels.conv3x3_nchw import (_acc_dtype,
                                                  conv3x3_nchw_plain,
-                                                 conv3x3_nchw_wgrad_plain)
+                                                 conv3x3_nchw_wgrad_plain,
+                                                 kernel_path)
 from uaps_tpu_torch.kernels.perturb import _M32, _mul32
 
 plain_launches = 0       # chain_conv_plain forwards (reset by the caller)
@@ -300,15 +301,6 @@ def kernel_bwd(g: torch.Tensor, y, ds1, ds2, x: torch.Tensor,
     if pro:
         return dx, dw, dfds[0], dfds[1]
     return dx, dw, None, None
-
-
-def kernel_path(x: torch.Tensor, what: str) -> bool:
-    """True for the kernels (CUDA), False for the plain versions (CPU)."""
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
-        raise ValueError(f"{what}: no kernel for device {x.device}")
-    return True
 
 
 def _forward(x, f, s, w, seed, rate):

@@ -66,10 +66,10 @@ def build_model(cfg, device, generator: Optional[torch.Generator] = None
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.run.seed)
-    # every Pallas conv variant is the one CUDA conv, and remat only
-    # trades memory in the backward
+    # remat only trades memory in the backward: accepted and ignored
     m = cfg.model
     kwargs = {"nchw_levels": m.nchw_levels, "conv_backend": m.conv_backend,
+              "conv_variant": m.conv_variant,
               "head_variant": m.head_variant,
               "pool_backend": m.pool_backend, "bn_backend": m.bn_backend,
               "dropout_backend": m.dropout_backend}

@@ -41,20 +41,22 @@ def _register(name):
 def _multi(perturbations):
     def make(num_classes, in_chns, dtype, nchw_levels=0,
              conv_backend="auto", head_variant="taps", pool_backend="auto",
-             bn_backend="auto", packed_heads=False, dropout_backend="auto"):
+             bn_backend="auto", packed_heads=False, dropout_backend="auto",
+             conv_variant="taps"):
         return MultiDecoderUNet(
             num_classes, perturbations, in_chns, dtype, nchw_levels,
             conv_backend, head_variant, pool_backend, bn_backend,
-            packed_heads, dropout_backend=dropout_backend)
+            packed_heads, dropout_backend, conv_variant)
     return make
 
 
 @_register("unet")
 def _unet(num_classes, in_chns, dtype, nchw_levels=0, conv_backend="auto",
           head_variant="taps", pool_backend="auto", bn_backend="auto",
-          dropout_backend="auto"):
+          dropout_backend="auto", conv_variant="taps"):
     return UNet(num_classes, in_chns, dtype, nchw_levels, conv_backend,
-                head_variant, pool_backend, bn_backend, dropout_backend)
+                head_variant, pool_backend, bn_backend, dropout_backend,
+                conv_variant)
 
 
 @_register("unet_uaps")

@@ -20,10 +20,14 @@ Matching the JAX model:
     != "xla" and the shape gate holds (H, W >= 128, H % 8 == 0,
     W % 128 == 0, Cout <= 32, Cin <= 64); a 2x2 pool whose input level is
     < nchw_levels runs the CUDA pool where `pool_pallas_ok` holds and the
-    backends allow it. Every Pallas variant name maps to the one CUDA conv;
-    "xla" means plain torch. On CPU tensors the kernel wrappers run their
-    plain versions. The kernel conv and pool are autograd functions whose
-    backward is the JAX VJP on kernels too (dgrad, wgrad, pool backward).
+    backends allow it. The ConvBlock convs take ModelConfig.conv_variant and
+    the head head_variant, as in JAX: "fullh" runs the fullh entries (their
+    own launch counters; a bf16 fullh conv rounds its output to bf16 before
+    any cast), every other Pallas variant name the default entries of the
+    same CUDA kernels; "xla" means plain torch. On CPU tensors the kernel
+    wrappers run their plain versions. The kernel conv and pool are
+    autograd functions whose backward is the JAX VJP on kernels too (dgrad,
+    wgrad, pool backward).
 
 Train mode (`model.train()`), as flax computes it:
   * BN normalises with the batch mean and the biased batch variance
@@ -40,9 +44,9 @@ Train mode (`model.train()`), as flax computes it:
     "auto" with conv_backend="xla", run the plain ops. Both draw the same
     masks from the same seeds.
 
-The fused ConvBlock backends (ModelConfig.conv_backend, JAX
-models/unet.py:311-498) replace every ConvBlock at the levels below
-nchw_levels (JAX's NCHW levels); deeper levels keep the default block:
+ConvBlock recipes, in JAX's order (models/unet.py:312-349), at the levels
+below nchw_levels (JAX's NCHW levels); deeper levels keep the default
+block:
   * "chain": conv1 emits its output's moments (kernels/block_conv.py
     `chain_conv_plain`), `BNFactorShift` turns them into BN's per-channel
     factor and shift, conv2 applies normalise + LeakyReLU + the level's
@@ -53,10 +57,22 @@ nchw_levels (JAX's NCHW levels); deeper levels keep the default block:
   * "fused": only blocks with dropout rate 0 (the decoders' up3 and up4);
     conv1 is the plain conv without its bias, its moments come from torch
     reductions, conv2 is `conv3x3_bnl` (kernels/conv_bnl.py).
-Both run their kernel modules under the JAX gate (`conv_kernel_ok` of the
-block's input), their plain versions elsewhere. The conv biases fold into
-BN: in train mode they cancel and get no gradient (None; JAX's is an exact
-zero), and only the running mean sees them. Module names and state dicts
+  * `ConvBlock(bn_stats=True)` (no config field sets it, as in JAX): each
+    conv returns its output's moments with the bias folded in (`Conv3x3(...,
+    return_stats=True)`; the stats kernel, `conv3x3_fast_nchw_stats`, where
+    the variant is "taps" and the kernel is allowed, else the variant's conv
+    and f32 sums of its output), and `StatsBatchNorm` normalises with them;
+  * bn_backend="flat": the default convs, then `StatsBatchNorm` fed by f32
+    sums of each conv's output (JAX reduces the flat [B, C, H*W] view: the
+    same sums).
+  * otherwise the default block (`BatchNorm`).
+The fused blocks run their kernel modules under the JAX gate
+(`conv_kernel_ok` of the block's input), their plain versions elsewhere;
+their conv biases fold into BN: in train mode they cancel and get no
+gradient (None; JAX's is an exact zero), and only the running mean sees
+them. `StatsBatchNorm` rounds BN's factor and shift to the compute dtype
+before x * factor + shift, as the chain's last step does (JAX's recipe;
+`BatchNorm` normalises in f32 and casts once). Module names and state dicts
 are the default block's.
 
 The multi-decoder forward (`MultiDecoderUNet.forward`) runs the encoder
@@ -77,7 +93,8 @@ import torch.nn.functional as F
 from uaps_tpu_torch.kernels.block_conv import (chain_bnl_ref, chain_conv_bnl,
                                                chain_conv_plain,
                                                chain_plain_ref, moments)
-from uaps_tpu_torch.kernels.conv3x3_nchw import conv3x3_nchw, conv_kernel_ok
+from uaps_tpu_torch.kernels.conv3x3_nchw import (conv3x3_fast_nchw_stats,
+                                                 conv3x3_nchw, conv_kernel_ok)
 from uaps_tpu_torch.kernels.conv_bnl import conv3x3_bnl, conv3x3_bnl_ref
 from uaps_tpu_torch.kernels.perturb import fused_dropout
 from uaps_tpu_torch.kernels.pool_nchw import (max_pool_2x2_nchw,
@@ -108,42 +125,58 @@ class Conv3x3(nn.Module):
 
     Casts x and the weight to `dtype`; `out_dtype` (the f32 logits head)
     takes the f32 accumulator straight out of the kernel. `kernel=True`
-    allows the CUDA conv where the shape gate holds."""
+    allows the CUDA conv where the shape gate holds; `variant` is the JAX
+    kernel variant it then runs (kernels/conv3x3_nchw.py)."""
 
     def __init__(self, cin: int, cout: int, dtype: torch.dtype,
                  out_dtype: Optional[torch.dtype] = None,
-                 kernel: bool = False):
+                 kernel: bool = False, variant: str = "taps"):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(cout, cin, 3, 3))
         self.bias = nn.Parameter(torch.zeros(cout))
         self.dtype = dtype
         self.out_dtype = out_dtype or dtype
         self.kernel = kernel
+        self.variant = variant
 
     def forward(self, x: torch.Tensor, apply_bias: bool = True,
-                bnl: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                ) -> torch.Tensor:
+                bnl: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                return_stats: bool = False):
         """apply_bias=False returns the raw conv (the caller folds the bias
         into a following BN); bnl=(factor, shift) convolves
         leaky(x * factor + shift) instead of x (the fused ConvBlock's second
-        conv)."""
+        conv); return_stats=True returns (out, s1, s2, n): the f32 sum and
+        sum of squares of the biased output over its n = B * H * W pixels
+        per channel (JAX `Conv3x3(return_stats=True)`)."""
         x = x.to(self.dtype)
         w = self.weight.to(self.dtype)
         cout, cin = w.shape[:2]
         use_k = self.kernel and conv_kernel_ok(x.shape[2], x.shape[3], cin,
                                                cout)
+        stats = None
         if bnl is not None:
             fn = conv3x3_bnl if use_k else conv3x3_bnl_ref
             y = fn(x, bnl[0], bnl[1], w.permute(2, 3, 1, 0), self.out_dtype)
+        elif use_k and return_stats and self.variant == "taps":
+            y, *stats = conv3x3_fast_nchw_stats(x, w.permute(2, 3, 1, 0))
         elif use_k:
-            y = conv3x3_nchw(x, w.permute(2, 3, 1, 0), self.out_dtype)
+            y = conv3x3_nchw(x, w.permute(2, 3, 1, 0), self.out_dtype,
+                             variant=self.variant)
         else:
             # the JAX fallback: a plain conv in the wider of the two dtypes
             y = F.conv2d(x.to(self.out_dtype), w.to(self.out_dtype),
                          padding=1)
         if not apply_bias:
             return y
-        return y + self.bias.to(y.dtype)[:, None, None]
+        out = y + self.bias.to(y.dtype)[:, None, None]
+        if not return_stats:
+            return out
+        n = y.shape[0] * y.shape[2] * y.shape[3]
+        s1, s2 = stats or moments(y)
+        # the bias folded in: sum(y + b) = s1 + n b, sum((y + b)^2) = s2 +
+        # 2 b s1 + n b^2
+        b = self.bias.to(torch.float32)
+        return out, s1 + n * b, s2 + 2.0 * b * s1 + n * b * b, n
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -163,18 +196,20 @@ class BatchNorm(nn.BatchNorm2d):
             mean = xf.mean((0, 2, 3))
             var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean,
                               min=0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.copy_((1 - m) * self.running_mean
-                                        + m * mean)
-                self.running_var.copy_((1 - m) * self.running_var
-                                       + m * var)
+            self.update_running(mean, var)
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = ((xf - mean[:, None, None]) * mul[:, None, None]
              + self.bias[:, None, None])
         return y.to(self.dtype)
+
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """running = 0.9 running + 0.1 batch (flax momentum 0.9)."""
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+            self.running_var.copy_((1 - m) * self.running_var + m * var)
 
 
 class BNFactorShift(BatchNorm):
@@ -193,15 +228,35 @@ class BNFactorShift(BatchNorm):
         if self.training:
             mean = s1 / n
             var = torch.clamp(s2 / n - mean * mean, min=0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.copy_((1 - m) * self.running_mean
-                                        + m * (mean + b))
-                self.running_var.copy_((1 - m) * self.running_var + m * var)
+            self.update_running(mean + b, var)
             factor = torch.rsqrt(var + self.eps) * self.weight
             return factor, self.bias - mean * factor
         factor = torch.rsqrt(self.running_var + self.eps) * self.weight
         return factor, self.bias - (self.running_mean - b) * factor
+
+
+class StatsBatchNorm(BatchNorm):
+    """BN from precomputed batch moments (JAX `StatsBatchNorm`): s1, s2 the
+    f32 sum and sum of squares of x over its n pixels per channel. Train
+    mode: mean = s1 / n, var = max(s2 / n - mean^2, 0) (biased), the
+    running stats updated with them; eval mode: the running stats. Then
+    factor = rsqrt(var + eps) * scale and shift = bias - mean * rsqrt(var +
+    eps) * scale, both cast to the compute dtype, and x * factor + shift in
+    that dtype. The parameters and buffers are nn.BatchNorm2d's."""
+
+    def forward(self, x: torch.Tensor, s1: torch.Tensor, s2: torch.Tensor,
+                n: int) -> torch.Tensor:
+        if self.training:
+            mean = s1 / n
+            var = torch.clamp(s2 / n - mean * mean, min=0.0)
+            self.update_running(mean, var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = torch.rsqrt(var + self.eps)
+        factor = (inv * self.weight).to(self.dtype)
+        shift = (self.bias - mean * inv * self.weight).to(self.dtype)
+        return (x.to(self.dtype) * factor[:, None, None]
+                + shift[:, None, None])
 
 
 class Dropout(nn.Module):
@@ -224,34 +279,47 @@ class Dropout(nn.Module):
         return fused_dropout(x, seed, self.rate)
 
 
-def block_kind(conv_backend: str, level: int, nchw_levels: int) -> str:
-    """The ConvBlock recipe at `level`: "chain" or "fused" where that backend
-    is chosen and the level is below nchw_levels, else "default"."""
-    if conv_backend in ("chain", "fused") and level < nchw_levels:
-        return conv_backend
+def block_recipe(nchw: bool, conv_backend: str, dropout: float,
+                 bn_stats: bool, bn_backend: str) -> str:
+    """JAX ConvBlock's route (models/unet.py:312-349): "fused" (dropout
+    rate 0 only), "chain", "stats", "flat" or "default"; the first four
+    only at JAX's NCHW levels (`nchw`)."""
+    if nchw and not bn_stats:
+        if conv_backend == "fused" and dropout == 0.0:
+            return "fused"
+        if conv_backend == "chain":
+            return "chain"
+    if nchw and bn_stats:
+        return "stats"
+    if nchw and bn_backend == "flat":
+        return "flat"
     return "default"
 
 
 class ConvBlock(nn.Module):
     """Conv3x3-BN-LeakyReLU, Dropout, Conv3x3-BN-LeakyReLU
-    (UAPS_unet.py:31-47). `block` "chain" and "fused" take the fused
-    recipes of the module docstring ("fused" only at dropout rate 0, as
-    JAX's `use_fused`)."""
+    (UAPS_unet.py:31-47), by the recipe `block_recipe` picks (the module
+    docstring). `nchw`: the block sits at one of JAX's NCHW levels;
+    `kernel`: its convs may run the CUDA kernels."""
 
     def __init__(self, cin: int, cout: int, dropout: float,
                  dtype: torch.dtype, kernel: bool,
-                 dropout_backend: str = "auto", block: str = "default"):
+                 dropout_backend: str = "auto", conv_backend: str = "auto",
+                 conv_variant: str = "taps", bn_backend: str = "auto",
+                 bn_stats: bool = False, nchw: bool = True):
         super().__init__()
-        if block == "fused" and dropout != 0.0:
-            block = "default"
-        self.block = block
+        self.block = block_recipe(nchw, conv_backend, dropout, bn_stats,
+                                  bn_backend)
         self.dtype = dtype
-        bn = BatchNorm if block == "default" else BNFactorShift
+        bn = {"default": BatchNorm, "chain": BNFactorShift,
+              "fused": BNFactorShift, "stats": StatsBatchNorm,
+              "flat": StatsBatchNorm}[self.block]
         self.conv_conv = nn.Sequential(
-            Conv3x3(cin, cout, dtype, kernel=kernel), bn(cout, dtype),
-            nn.LeakyReLU(0.01), Dropout(dropout, dropout_backend),
-            Conv3x3(cout, cout, dtype, kernel=kernel), bn(cout, dtype),
-            nn.LeakyReLU(0.01))
+            Conv3x3(cin, cout, dtype, kernel=kernel, variant=conv_variant),
+            bn(cout, dtype), nn.LeakyReLU(0.01),
+            Dropout(dropout, dropout_backend),
+            Conv3x3(cout, cout, dtype, kernel=kernel, variant=conv_variant),
+            bn(cout, dtype), nn.LeakyReLU(0.01))
 
     def forward(self, x: torch.Tensor,
                 seed: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -260,8 +328,19 @@ class ConvBlock(nn.Module):
         if self.block == "fused":
             return self._fused(x)
         c = self.conv_conv
-        x = c[3](c[2](c[1](c[0](x))), seed)
-        return c[6](c[5](c[4](x)))
+        x = c[3](c[2](self._conv_bn(c[0], c[1], x)), seed)
+        return c[6](self._conv_bn(c[4], c[5], x))
+
+    def _conv_bn(self, conv: Conv3x3, bn: nn.Module,
+                 x: torch.Tensor) -> torch.Tensor:
+        """A conv and its BN: the moments from the conv ("stats"), from f32
+        sums of its output ("flat"), or BN's own (default)."""
+        if self.block == "stats":
+            return bn(*conv(x, return_stats=True))
+        y = conv(x)
+        if self.block == "flat":
+            return bn(y, *moments(y), y.shape[0] * y.shape[2] * y.shape[3])
+        return bn(y)
 
     def _bn_leaky(self, y, factor, shift) -> torch.Tensor:
         dt = self.dtype
@@ -320,12 +399,13 @@ class DownBlock(nn.Module):
 
     def __init__(self, cin: int, cout: int, dropout: float,
                  dtype: torch.dtype, pool_kernel: bool, conv_kernel: bool,
-                 dropout_backend: str = "auto", block: str = "default"):
+                 dropout_backend: str = "auto", **block):
+        """`block`: ConvBlock's recipe keywords (`_block_kw`)."""
         super().__init__()
         self.maxpool_conv = nn.Sequential(
             MaxPool2x2(pool_kernel),
             ConvBlock(cin, cout, dropout, dtype, conv_kernel,
-                      dropout_backend, block))
+                      dropout_backend, **block))
 
     def forward(self, x: torch.Tensor,
                 seed: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -387,11 +467,12 @@ class UpBlock(nn.Module):
     (UAPS_unet.py:65-86; the reference's default bilinear=True path)."""
 
     def __init__(self, cin: int, skip: int, cout: int, dtype: torch.dtype,
-                 conv_kernel: bool, block: str = "default"):
+                 conv_kernel: bool, **block):
+        """`block`: ConvBlock's recipe keywords (`_block_kw`)."""
         super().__init__()
         self.conv1x1 = PointwiseConv(cin, skip, dtype)
         self.conv = ConvBlock(2 * skip, cout, 0.0, dtype, conv_kernel,
-                              block=block)
+                              **block)
         # interpolation matrices by (h, w, dtype, device): built on the
         # device once instead of in every forward (a dozen small launches)
         self._mats = {}
@@ -406,6 +487,14 @@ class UpBlock(nn.Module):
         return self.conv(torch.cat([skip, x], dim=1))
 
 
+def _block_kw(level: int, nchw_levels: int, conv_backend: str,
+              conv_variant: str, bn_backend: str) -> dict:
+    """ConvBlock's recipe keywords at `level` (JAX `_level_layout`: the
+    levels below nchw_levels are NCHW)."""
+    return dict(nchw=level < nchw_levels, conv_backend=conv_backend,
+                conv_variant=conv_variant, bn_backend=bn_backend)
+
+
 class Encoder(nn.Module):
     """5-stage encoder returning every skip feature (UAPS_unet.py:89-116).
     Level i runs the CUDA conv when i < nchw_levels (and the backend
@@ -415,7 +504,8 @@ class Encoder(nn.Module):
     def __init__(self, in_chns: int, features: Sequence[int],
                  dropout: Sequence[float], dtype: torch.dtype,
                  nchw_levels: int, conv_kernel: bool, pool_kernel: bool,
-                 dropout_backend: str = "auto", conv_backend: str = "auto"):
+                 dropout_backend: str = "auto", conv_backend: str = "auto",
+                 conv_variant: str = "taps", bn_backend: str = "auto"):
         super().__init__()
         ft, dp = features, dropout
         self.has_dropout = any(r > 0 for r in dp)
@@ -423,15 +513,16 @@ class Encoder(nn.Module):
         # kernels are on (conv_backend != "xla"), at every level
         drop = ("xla" if dropout_backend == "auto" and not conv_kernel
                 else dropout_backend)
+        knobs = (nchw_levels, conv_backend, conv_variant, bn_backend)
         self.in_conv = ConvBlock(in_chns, ft[0], dp[0], dtype,
                                  conv_kernel and 0 < nchw_levels, drop,
-                                 block_kind(conv_backend, 0, nchw_levels))
+                                 **_block_kw(0, *knobs))
         for i in range(1, SKIPS):
             self.add_module(f"down{i}", DownBlock(
                 ft[i - 1], ft[i], dp[i], dtype,
                 pool_kernel and i - 1 < nchw_levels,
                 conv_kernel and i < nchw_levels, drop,
-                block_kind(conv_backend, i, nchw_levels)))
+                **_block_kw(i, *knobs)))
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None
@@ -454,19 +545,20 @@ class Decoder(nn.Module):
 
     def __init__(self, num_classes: int, features: Sequence[int],
                  dtype: torch.dtype, nchw_levels: int, conv_kernel: bool,
-                 head_variant: str, conv_backend: str = "auto"):
+                 head_variant: str, conv_backend: str = "auto",
+                 conv_variant: str = "taps", bn_backend: str = "auto"):
         super().__init__()
         ft = features
+        knobs = (nchw_levels, conv_backend, conv_variant, bn_backend)
         for j in range(4):
             lvl = 3 - j
             self.add_module(f"up{j + 1}", UpBlock(
                 ft[lvl + 1], ft[lvl], ft[lvl], dtype,
-                conv_kernel and lvl < nchw_levels,
-                block_kind(conv_backend, lvl, nchw_levels)))
+                conv_kernel and lvl < nchw_levels, **_block_kw(lvl, *knobs)))
         if nchw_levels > 0 and head_variant != "xla":
             self.out_conv = Conv3x3(ft[0], num_classes, dtype,
                                     out_dtype=torch.float32,
-                                    kernel=conv_kernel)
+                                    kernel=conv_kernel, variant=head_variant)
         else:
             self.out_conv = Conv3x3(ft[0], num_classes, torch.float32)
 
@@ -478,16 +570,9 @@ class Decoder(nn.Module):
         return self.out_conv(x)
 
 
-def _kernel_flags(conv_backend: str, pool_backend: str,
-                  bn_backend: str) -> Tuple[bool, bool]:
-    """(conv kernel allowed, pool kernel allowed) for the model knobs;
-    raises for the ablation backend the port does not have."""
-    if bn_backend == "flat":
-        raise NotImplementedError(
-            "bn_backend='flat' (StatsBatchNorm fed by plain sums of the flat "
-            "view, JAX models/unet.py:338-344; not the bn_stats=True route, "
-            "ROADMAP.md Queue B #5) is not ported yet: ROADMAP.md Queue A, "
-            "'Remainder'")
+def _kernel_flags(conv_backend: str,
+                  pool_backend: str) -> Tuple[bool, bool]:
+    """(conv kernel allowed, pool kernel allowed) for the model knobs."""
     conv_k = conv_backend != "xla"
     pool_k = conv_k and pool_backend in ("auto", "pallas")
     return conv_k, pool_k
@@ -511,17 +596,17 @@ class UNet(nn.Module):
                  dtype: torch.dtype = torch.float32, nchw_levels: int = 0,
                  conv_backend: str = "auto", head_variant: str = "taps",
                  pool_backend: str = "auto", bn_backend: str = "auto",
-                 dropout_backend: str = "auto",
+                 dropout_backend: str = "auto", conv_variant: str = "taps",
                  features: Sequence[int] = UNET_FEATURES,
                  dropout: Sequence[float] = UNET_DROPOUT):
         super().__init__()
-        conv_k, pool_k = _kernel_flags(conv_backend, pool_backend,
-                                       bn_backend)
+        conv_k, pool_k = _kernel_flags(conv_backend, pool_backend)
+        knobs = (conv_backend, conv_variant, bn_backend)
         self.encoder = Encoder(in_chns, features, dropout, dtype,
                                nchw_levels, conv_k, pool_k, dropout_backend,
-                               conv_backend)
+                               *knobs)
         self.decoder = Decoder(num_classes, features, dtype, nchw_levels,
-                               conv_k, head_variant, conv_backend)
+                               conv_k, head_variant, *knobs)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -542,7 +627,7 @@ class MultiDecoderUNet(nn.Module):
                  nchw_levels: int = 0, conv_backend: str = "auto",
                  head_variant: str = "taps", pool_backend: str = "auto",
                  bn_backend: str = "auto", packed_heads: bool = False,
-                 dropout_backend: str = "auto",
+                 dropout_backend: str = "auto", conv_variant: str = "taps",
                  features: Sequence[int] = UNET_FEATURES,
                  dropout: Sequence[float] = UNET_DROPOUT):
         super().__init__()
@@ -550,17 +635,17 @@ class MultiDecoderUNet(nn.Module):
             raise NotImplementedError(
                 "packed_heads is not ported yet: ROADMAP.md Queue A, "
                 "'Remainder'")
-        conv_k, pool_k = _kernel_flags(conv_backend, pool_backend,
-                                       bn_backend)
+        conv_k, pool_k = _kernel_flags(conv_backend, pool_backend)
         self.perturbations = tuple(perturbations)
         self.conv_backend = conv_backend
+        knobs = (conv_backend, conv_variant, bn_backend)
         self.encoder = Encoder(in_chns, features, dropout, dtype,
                                nchw_levels, conv_k, pool_k, dropout_backend,
-                               conv_backend)
+                               *knobs)
 
         def decoder():
             return Decoder(num_classes, features, dtype, nchw_levels,
-                           conv_k, head_variant, conv_backend)
+                           conv_k, head_variant, *knobs)
 
         self.main_decoder = decoder()
         for i in range(len(self.perturbations)):
