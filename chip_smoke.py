@@ -5,8 +5,9 @@
 
 Phases (any failure: exit 1 and no result line):
   1. build: compile every kernel in uaps_tpu_torch/csrc with nvcc for
-     sm_90a (one nvcc per source, in parallel); print the card's name and
-     power limit as nvidia-smi reports them;
+     sm_90a (one nvcc per source, in parallel); one line of registers and
+     spills per tensor-core kernel (csrc/conv3x3_mma.cuh); print the
+     card's name and power limit as nvidia-smi reports them;
   2. kernels: hold the conv and pool forward kernels against their plain
      PyTorch versions on the card at every shape of one neu predict batch
      (B=16), in f32 and bf16: conv rtol=atol=1e-4 where the output is f32
@@ -31,7 +32,9 @@ Phases (any failure: exit 1 and no result line):
      3 forwards of each engine (device busy time and idle share);
   6. training kernels: dgrad, wgrad, pool backward and the fused CE+Dice
      forward and backward against their plain versions at every shape of
-     one neu baseline step (B=16), f32 and bf16 (tolerances in
+     one neu baseline step (B=16), f32 and bf16, and the wgrad also at
+     ODD_WGRAD (Cin 3 and 40, Cout 4 and 13, a 37 x 70 image), where the
+     bf16 tensor-core pass pads and masks (tolerances in
      Smoke.train_kernels);
   7. training: the supervised baseline as `python -m uaps_tpu_torch.train
      --preset neu --method baseline --dtype bfloat16 --dropout_backend xla
@@ -45,7 +48,9 @@ Phases (any failure: exit 1 and no result line):
      the plain path's step time;
   8. training times: per kernel and shape of one bf16 step, the kernel's
      ms, its plain version's, the library call's and the bound; a profile
-     of 2 kernel-path steps;
+     of 2 kernel-path steps, whose kernel names must show every weight-
+     gradient pass on the tensor cores (bf16_route) and none on the CUDA
+     cores (the same route proof in phases 11, 14 and 18);
   9. UAPS kernels: every perturbation kernel (dropout at each level's rate
      and at 0.5, feature noise, feature dropout) forward and backward at
      the 5 skip shapes of a neu UAPS step (B=16), f32 and bf16, equal to
@@ -72,8 +77,12 @@ Phases (any failure: exit 1 and no result line):
  12. fused-block kernels: chain_conv_plain, chain_conv_bnl (at each level's
      dropout rate) and conv3x3_bnl, forward and backward, at every block
      shape of the chain and fused paths (CHAIN_BLOCKS, B=16), f32 and bf16,
-     against their plain versions (tolerances in Smoke.chain_kernels); the
-     dropout keep-mask bit for bit through a centre-tap identity weight;
+     against their plain versions (tolerances in Smoke.chain_kernels), and
+     chain_conv_plain also at ODD_CHAIN (3 -> 16, 40 -> 13, 64 -> 32 on a
+     37 x 70 image, both moment cotangents); the dropout keep-mask bit for
+     bit through a centre-tap identity weight; the route by dtype from the
+     profiler's kernel names: 3 chain plain backwards and 3 wgrads launch
+     the tensor-core kernels in bf16 and only the CUDA-core ones in f32;
  13. the chain and fused UAPS steps (the UAPS slice with
      ModelConfig.conv_backend="chain" / "fused"): 3 warm-up and 10 timed
      steps each with finite losses and CHAIN_STEP_LAUNCHES /
@@ -281,6 +290,30 @@ ENC_DROPOUT = (0.05, 0.1, 0.2, 0.3, 0.5)
 # feature dropout 2 forwards, 2 backwards
 PER_LEVEL = {"fused_dropout": 8, "feature_noise": 4, "feature_dropout": 2,
              "feature_dropout_bwd": 2}
+# shapes where the tensor-core wgrad and chain dgrad pad their channel tiles
+# and mask their pixel tiles (Cin 3 and 40, Cout 4 and 13, a ragged image),
+# checked in f32 and bf16 in phases 6 and 12: (Cin, Cout) at ODD_HW, batch
+# ODD_BATCH
+ODD_HW, ODD_BATCH = (37, 70), 2
+ODD_WGRAD = [(3, 16), (40, 4), (40, 13), (16, 13)]
+ODD_CHAIN = [(3, 16), (40, 13), (64, 32)]
+# the profiler's kernel names that the route proof counts: the tensor-core
+# (bf16) weight-gradient pass and chain plain dgrad, the CUDA-core ones (f32;
+# the fused-block dgrad also in bf16 with the prologue)
+ROUTE_KERNELS = ("wgrad_mma_kernel", "dgrad_mma_kernel",
+                 "wgrad_partial_kernel", "block_conv_dgrad_kernel")
+# the launch counters whose every call runs one weight-gradient pass
+WGRAD_PASSES = ("conv3x3_nchw_wgrad", "conv3x3_nchw_wgrad_fullh",
+                "chain_conv_plain_bwd", "chain_conv_bnl_bwd",
+                "conv3x3_bnl_bwd", "conv3x3_nchw_stats_bwd",
+                "conv3x3_nhwc_wgrad")
+# chain_conv_plain backwards a chain step without a dgrad: in_conv's first
+# conv, whose input is the image, in the labelled and unlabelled forwards
+CHAIN_PLAIN_NO_DX = 2
+# calls of phase 12's routed backward that one profile counts
+ROUTE_CALLS = 3
+# kernels phase 12 launches first in each route profile, left uncounted
+ROUTE_LEAD_IN = 64
 # the least time the card could take: published H100 SXM peaks
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
@@ -368,6 +401,56 @@ def conv_cost(cin, cout, hw, in_size, out_size):
     px = BATCH * hw * hw
     return (px * cin * in_size + 9 * cin * cout * in_size
             + px * cout * out_size), 2 * px * cin * cout * 9
+
+
+def route_of(entries):
+    """{ROUTE_KERNELS family: launches} from (profiler name, count) pairs."""
+    return {fam: sum(n for name, n in entries if fam in name)
+            for fam in ROUTE_KERNELS}
+
+
+def bf16_route(per_step, steps):
+    """The ROUTE_KERNELS counts that `steps` bf16 steps launching
+    `per_step` must show: every weight-gradient pass and every chain plain
+    dgrad on the tensor cores, no CUDA-core wgrad pass, the CUDA-core
+    fused-block dgrad only for the backwards with the prologue."""
+    plain = per_step["chain_conv_plain_bwd"]
+    return {"wgrad_mma_kernel": steps * sum(per_step[k]
+                                            for k in WGRAD_PASSES),
+            "dgrad_mma_kernel": steps * (plain - CHAIN_PLAIN_NO_DX
+                                         if plain else 0),
+            "wgrad_partial_kernel": 0,
+            "block_conv_dgrad_kernel": steps * (per_step["chain_conv_bnl_bwd"]
+                                                + per_step["conv3x3_bnl_bwd"])}
+
+
+def mma_registers(text):
+    """One line per tensor-core kernel in nvcc -Xptxas=-v output: its
+    template arguments and loaders (from the mangled name), registers and
+    spill bytes."""
+    import re
+    out, name = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1) if "mma_kernel" in m.group(1) else None
+            spill = None
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            fam = re.search(r"[wd]grad_mma_kernel", name).group(0)
+            args = ",".join(re.findall(r"Li(\d+)E", name))
+            loads = "/".join(re.findall(r"(PlainLoad|ProLoad|FoldLoad|"
+                                        r"NhwcLoad)", name))
+            out.append(f"{fam}<{args}> {loads}: {m.group(1)} registers, "
+                       f"{spill or 0} B spilled")
+            name = None
+    return out
 
 
 def ptxas_summary(text):
@@ -490,6 +573,8 @@ class Smoke:
                 f.write(f"-- nvcc {name}:\n{text}\n")
         for name, text in logs.items():
             log(f"-- nvcc {name}: {ptxas_summary(text)}")
+            for line in mma_registers(text):
+                log(f"   tensor cores: {line}")
         log(f"built {_build.sources()} in "
             f"{self.report['build_seconds']:.1f} s")
         smi = subprocess.run(
@@ -971,16 +1056,18 @@ class Smoke:
                     f"chip_smoke_profile_plain.txt):\n" + table)
 
     # ------------------------------------------------------------ phase 6
-    def _grad_case(self, cin, cout, hw, dtype, seed):
+    def _grad_case(self, cin, cout, hw, dtype, seed, batch=BATCH):
         """x [B, Cin, H, W], w [3, 3, Cin, Cout] (scaled as lecun_normal)
-        and a cotangent g [B, Cout, H, W], all in `dtype`."""
+        and a cotangent g [B, Cout, H, W], all in `dtype`; hw is H = W or
+        (H, W)."""
         torch = self.torch
         g = self.gen(seed)
-        x = torch.randn((BATCH, cin, hw, hw), generator=g,
+        h, wd = hw if isinstance(hw, tuple) else (hw, hw)
+        x = torch.randn((batch, cin, h, wd), generator=g,
                         device=self.dev).to(dtype)
         w = (torch.randn((3, 3, cin, cout), generator=g, device=self.dev)
              / (9 * cin) ** 0.5).to(dtype)
-        gy = torch.randn((BATCH, cout, hw, hw), generator=g,
+        gy = torch.randn((batch, cout, h, wd), generator=g,
                          device=self.dev).to(dtype)
         return x, w, gy
 
@@ -1075,6 +1162,22 @@ class Smoke:
                 record("conv3x3_nchw_wgrad", f"wgrad {mod:10s} {cin:2d}->"
                        f"{cout:2d} @{hw} {dname}", err, ok,
                        f" (max |dW| {scale:.3e})")
+            # where the tensor-core pass pads and masks (bf16), and f32
+            for i, (cin, cout) in enumerate(ODD_WGRAD):
+                x, _, gy = self._grad_case(cin, cout, ODD_HW, dtype,
+                                           SEED + 130 + i, ODD_BATCH)
+                dw = kc.conv3x3_nchw_wgrad(x, gy)
+                self.sync()
+                ref = kc.conv3x3_nchw_wgrad_plain(x, gy)
+                self.sync()
+                err = float((dw - ref).abs().max())
+                scale = float(ref.abs().max())
+                ok = (dw.shape == (3, 3, cin, cout)
+                      and bool(torch.isfinite(dw).all())
+                      and err <= 1e-4 * scale)
+                record("conv3x3_nchw_wgrad", f"wgrad odd {cin:2d}->{cout:2d}"
+                       f" @{ODD_HW[0]}x{ODD_HW[1]} B={ODD_BATCH} {dname}",
+                       err, ok, f" (max |dW| {scale:.3e})")
             for i, (mod, c, hw) in enumerate(POOL_SHAPES):
                 x, gy = self._pool_case(c, hw, dtype, SEED + 150 + i)
                 dx = kp.max_pool_2x2_nchw_bwd(x, gy)
@@ -1392,15 +1495,17 @@ class Smoke:
                     r["bound_ms"] for r in rs) else "operations"))
         self.profile_steps("train", "train", self.train_step,
                            self.train_state, self.train_batch,
-                           t["train_step_ms"]["median"])
+                           t["train_step_ms"]["median"], STEP_LAUNCHES)
 
-    def profile_steps(self, key, label, step, state, batch, step_ms):
+    def profile_steps(self, key, label, step, state, batch, step_ms,
+                      per_step=None):
         """Device time by kernel over 2 steps of `step`, beside the step's
         host-clock time `step_ms`: times[key + "_device_busy_ms"],
         "_device_idle_share" and "_device_top_ms" (the 20 largest device
         entries a step: name, ms, count), the operator table in
         chip_smoke_profile_<key>.txt. Best effort, as the serving
-        profile."""
+        profile, but with `per_step` (the step's launches, bf16) the
+        profiler must show the conv route of bf16_route, or this raises."""
         from torch.profiler import ProfilerActivity, profile
         cuda = self.torch.autograd.DeviceType.CUDA
         t = self.report["times"]
@@ -1414,9 +1519,19 @@ class Smoke:
             table = events.table(sort_by="cuda_time_total", row_limit=40)
         except RuntimeError as exc:
             log(f"profiler unavailable: {exc}")
+            if per_step is not None:
+                raise
             return
         device = sorted((e for e in events if e.device_type == cuda),
                         key=lambda e: -e.self_device_time_total)
+        if per_step is not None:
+            got = route_of([(e.key, e.count) for e in device])
+            want = bf16_route(per_step, 2)
+            self.report.setdefault("route", {})[key] = got
+            log(f"route over 2 {label} steps (profiler): {json.dumps(got)} "
+                f"{'ok' if got == want else 'MISMATCH'} (want "
+                f"{json.dumps(want)})")
+            assert got == want, (got, want)
         busy = sum(e.self_device_time_total for e in device) / 2 / 1e3
         t[f"{key}_device_busy_ms"] = busy
         t[f"{key}_device_idle_share"] = 1.0 - busy / step_ms
@@ -1844,22 +1959,25 @@ class Smoke:
             log(f"per UAPS step, {name}: kernel {k['ms']:.4f} ms, plain "
                 f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms")
         self.profile_steps("uaps", "UAPS", self.uaps_step, self.uaps_state,
-                           self.uaps_batch, t["uaps_step_ms"]["median"])
+                           self.uaps_batch, t["uaps_step_ms"]["median"],
+                           UAPS_STEP_LAUNCHES)
 
     # ------------------------------------------------------------ phase 12
-    def _chain_case(self, cin, cout, hw, dtype, seed):
+    def _chain_case(self, cin, cout, hw, dtype, seed, batch=BATCH):
         """x [B, Cin, H, W] (a raw conv output where the prologue reads it),
         w [3, 3, Cin, Cout] (scaled as lecun_normal), BN's f and s [Cin] f32,
-        the cotangents of (y, s1, s2) and a seed, on the card."""
+        the cotangents of (y, s1, s2) and a seed, on the card; hw is H = W
+        or (H, W)."""
         torch = self.torch
         g = self.gen(seed)
-        x = torch.randn((BATCH, cin, hw, hw), generator=g,
+        h, wd = hw if isinstance(hw, tuple) else (hw, hw)
+        x = torch.randn((batch, cin, h, wd), generator=g,
                         device=self.dev).to(dtype)
         w = (torch.randn((3, 3, cin, cout), generator=g, device=self.dev)
              / (9 * cin) ** 0.5).to(dtype)
         f = torch.rand(cin, generator=g, device=self.dev) + 0.5
         s = torch.randn(cin, generator=g, device=self.dev) * 0.1
-        gy = torch.randn((BATCH, cout, hw, hw), generator=g,
+        gy = torch.randn((batch, cout, h, wd), generator=g,
                          device=self.dev).to(dtype)
         ds1 = torch.randn(cout, generator=g, device=self.dev) * 0.3
         ds2 = torch.randn(cout, generator=g, device=self.dev) * 0.1
@@ -2008,10 +2126,78 @@ class Smoke:
                 else:
                     bnl_case(x, w, f, s, gy, f"conv3x3_bnl {blk}.4 "
                              f"{cout}->{cout} @{hw} {dname}", tol)
+            # where the tensor-core dgrad and wgrad pad and mask (bf16)
+            for i, (cin, cout) in enumerate(ODD_CHAIN):
+                x, w, _, _, gy, ds1, ds2, sd = self._chain_case(
+                    cin, cout, ODD_HW, dtype, SEED + 440 + i, ODD_BATCH)
+                chain_case(x, w, None, None, gy, ds1, ds2, sd, 0.0,
+                           f"chain plain odd {cin}->{cout} @{ODD_HW[0]}x"
+                           f"{ODD_HW[1]} B={ODD_BATCH} {dname}", tol)
+        self._route_by_dtype(bad)
         for name, e in errs.items():
             self.report["kernels"][name] = {"max_abs_err": e}
         if bad:
             raise AssertionError(f"fused-block kernel mismatches: {bad}")
+
+    def _route(self, fn, calls):
+        """route_of the device entries of `calls` fn() calls, after one
+        unprofiled call (builds, loads) and, inside the profiler, a lead-in
+        of ROUTE_LEAD_IN int16 adds: on the H100 the profiler missed the
+        first 1-3 kernels after it started, the counted ones when they came
+        first (PERF.md section 7). Also the lead-in kernels it recorded."""
+        from torch.profiler import ProfilerActivity, profile
+        torch = self.torch
+        cuda = torch.autograd.DeviceType.CUDA
+        fn()
+        self.sync()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            lead = torch.zeros(1, dtype=torch.int16, device=self.dev)
+            for _ in range(ROUTE_LEAD_IN):
+                lead.add_(1)
+            torch.cuda._sleep(1 << 22)   # ~2 ms busy: no idle gap before fn
+            for _ in range(calls):
+                fn()
+            self.sync()
+        entries = [(e.key, e.count) for e in prof.key_averages()
+                   if e.device_type == cuda]
+        seen = sum(n for name, n in entries
+                   if "add" in name and "short" in name)
+        return route_of(entries), seen
+
+    def _route_by_dtype(self, bad):
+        """From the profiler's kernel names: the backward of a plain chain
+        conv (dgrad + wgrad) and one conv3x3_nchw_wgrad, ROUTE_CALLS times,
+        launch the tensor-core kernels in bf16 and none of them in f32."""
+        from uaps_tpu_torch.kernels import block_conv as kbc
+        from uaps_tpu_torch.kernels import conv3x3_nchw as kc
+        torch = self.torch
+        want = {"bf16": {"wgrad_mma_kernel": 2, "dgrad_mma_kernel": 1,
+                         "wgrad_partial_kernel": 0,
+                         "block_conv_dgrad_kernel": 0},
+                "f32": {"wgrad_mma_kernel": 0, "dgrad_mma_kernel": 0,
+                        "wgrad_partial_kernel": 2,
+                        "block_conv_dgrad_kernel": 1}}
+        for dname, dtype in (("f32", torch.float32),
+                             ("bf16", torch.bfloat16)):
+            x, w, _, _, gy, ds1, ds2, _ = self._chain_case(
+                40, 13, ODD_HW, dtype, SEED + 460, ODD_BATCH)
+            y = kbc.chain_conv_plain(x, w)[0]
+
+            def run():   # the chain conv's backward, on this thread
+                kbc._backward(gy, ds1, ds2, y, x, None, None, w, None, 0.0,
+                              True)
+                kc.conv3x3_nchw_wgrad(x, gy)
+            got, seen = self._route(run, ROUTE_CALLS)
+            want[dname] = {k: n * ROUTE_CALLS for k, n in want[dname].items()}
+            ok = got == want[dname]
+            self.report.setdefault("route", {})[f"calls_{dname}"] = got
+            log(f"route of {ROUTE_CALLS} chain plain backwards + wgrads, "
+                f"{dname}: {json.dumps(got)} {'ok' if ok else 'MISMATCH'} "
+                f"(want {json.dumps(want[dname])}; the profiler recorded "
+                f"{seen} of the {ROUTE_LEAD_IN} lead-in kernels)")
+            if not ok:
+                bad.append(f"route {dname}")
 
     # ------------------------------------------------------------ phase 13
     def _no_level01_dropout(self, model):
@@ -2248,7 +2434,8 @@ class Smoke:
         self.step_rounds(t, "step_rounds", paths)
         _, state, step, batch = self.fused_paths["chain"]
         self.profile_steps("chain", "chain UAPS", step, state, batch,
-                           t["step_rounds"]["chain"]["median"])
+                           t["step_rounds"]["chain"]["median"],
+                           CHAIN_STEP_LAUNCHES)
 
     def step_rounds(self, t, key, paths, rounds=5, reps=3):
         """The UAPS steps of `paths` ({label: (step, state, batch)}) in
@@ -2780,7 +2967,8 @@ class Smoke:
                 "auto": (self.uaps_step, self.uaps_state, self.uaps_batch),
                 "fullh": (step, state, batches[0])})
         self.profile_steps("fullh", "fullh + flat-BN UAPS", step, state,
-                           batches[0], t["fullh_step_ms"]["median"])
+                           batches[0], t["fullh_step_ms"]["median"],
+                           FULLH_STEP_LAUNCHES)
         del model, state, step, batches
         self._stats_blocks()
         self._nhwc_run()

@@ -62,18 +62,18 @@ def _t(a, grad=False):
     return torch.from_numpy(np.asarray(a)).requires_grad_(grad)
 
 
-def _data():
-    """TestChainConvKernels' recipe at H = 16, W = 32: x, w, f, s and the
-    cotangents of (y, s1, s2)."""
+def _data(cin=CIN, cout=COUT, h=H, w=W):
+    """TestChainConvKernels' recipe (default H = 16, W = 32): x, w, f, s and
+    the cotangents of (y, s1, s2)."""
     rng = np.random.RandomState(0)
-    x = rng.randn(B, CIN, H, W).astype(np.float32)
-    w = (0.1 * rng.randn(3, 3, CIN, COUT)).astype(np.float32)
-    f = (0.5 + rng.rand(CIN)).astype(np.float32)
-    s = (0.1 * rng.randn(CIN)).astype(np.float32)
-    cts = [rng.randn(B, COUT, H, W).astype(np.float32),
-           rng.randn(COUT).astype(np.float32),
-           rng.randn(COUT).astype(np.float32)]
-    return x, w, f, s, cts
+    x = rng.randn(B, cin, h, w).astype(np.float32)
+    wt = (0.1 * rng.randn(3, 3, cin, cout)).astype(np.float32)
+    f = (0.5 + rng.rand(cin)).astype(np.float32)
+    s = (0.1 * rng.randn(cin)).astype(np.float32)
+    cts = [rng.randn(B, cout, h, w).astype(np.float32),
+           rng.randn(cout).astype(np.float32),
+           rng.randn(cout).astype(np.float32)]
+    return x, wt, f, s, cts
 
 
 def _close_grads(got, ref, what):
@@ -118,11 +118,15 @@ def test_hash_keep_matches_jax(rate):
 
 
 # -------------------------------------------------------------- functions
-def test_chain_conv_plain_matches_jax():
+@pytest.mark.parametrize("shape", [(CIN, COUT, H, W), (40, 13, 11, 35)])
+def test_chain_conv_plain_matches_jax(shape):
     """chain_conv_plain (the autograd function; its plain versions on the
     CPU) and chain_plain_ref (torch autodiff) against chain_ref_plain and
-    its jax.vjp, moment cotangents included."""
-    x, w, _, _, cts = _data()
+    its jax.vjp, moment cotangents included; also at Cin 40 -> Cout 13 on a
+    ragged 11 x 35 image, where the bf16 tensor-core dgrad and wgrad pad
+    their channel tiles and mask their pixel tiles (chip_smoke.py holds
+    the kernels to these plain versions there)."""
+    x, w, _, _, cts = _data(*shape)
     (ry, r1, r2), rgrads = _jax_vjp(jbc.chain_ref_plain, (x, w),
                                     tuple(cts))
     for fn in (kbc.chain_conv_plain, kbc.chain_plain_ref):

@@ -6,6 +6,9 @@ entry points), to the Pallas kernel on the same numpy inputs, at the small
 shapes of tests/test_pallas.py (2 x Cin x 16 x 128). The CUDA kernels
 themselves are held to the plain versions on the card by chip_smoke.py.
 """
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -98,13 +101,16 @@ def test_pool_gate_matches_jax():
 
 
 @pytest.mark.parametrize("cin,cout,dtype", [
-    (16, 32, "float32"), (64, 32, "float32"), (16, 16, "bfloat16")])
+    (16, 32, "float32"), (64, 32, "float32"), (16, 16, "bfloat16"),
+    (3, 16, "bfloat16"), (40, 4, "bfloat16"), (32, 13, "bfloat16")])
 def test_conv_flat_vjp_matches_pallas(cin, cout, dtype):
     """dgrad and wgrad of the flat entry (JAX `_vjp_bwd_flat`): Cout 32,
     the 64-channel dgrad of up3.0 (64 -> 32), and bf16, where the cotangent,
-    dx and dW are bf16. f32: rtol 1e-4 / atol 1e-4 x max |grad| (sums of
-    2 x 16 x 128 products in another order); bf16: rtol 1e-2 (one bf16 ulp,
-    2^-7, after the f32 sums are rounded)."""
+    dx and dW are bf16; in bf16 also Cin 3 and 40 and Cout 4 and 13, where
+    the tensor-core wgrad pads its channel tiles. f32: rtol 1e-4 / atol
+    1e-4 x max |grad| (sums of 2 x 16 x 128 products in another order);
+    bf16: rtol 1e-2 (one bf16 ulp, 2^-7, after the f32 sums are
+    rounded)."""
     from uaps_tpu.pallas.conv3x3_nchw import conv3x3_fast_flat
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
     rng = np.random.default_rng(cin + cout)
@@ -268,3 +274,41 @@ def test_build_raises_without_nvcc(monkeypatch):
                                 "conv3x3_nhwc", "conv3x3_wgrad_nchw",
                                 "perturb", "pool_nchw", "pseudo_label",
                                 "uncertainty"]
+
+
+def _c_source(name):
+    return (Path(kconv.__file__).resolve().parent.parent / "csrc"
+            / name).read_text()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wgrad_strips_match_c_grid(dtype):
+    """`wgrad_strips`, the one helper that sizes the weight gradient's
+    scratch buffer, against the C side: the strip height each route takes
+    (csrc/conv3x3_tile.cuh wgrad::kStripRows for f32; a positive multiple of
+    csrc/conv3x3_mma.cuh wg::kTH for bf16, as `mma_strip_ok` asks), and
+    the launches' grid, B * ceil(H / rows) strips of one [3, 3, Cin, Cout]
+    f32 partial each, at the main-path shapes (B = 16) and at the padded
+    and ragged ones."""
+    tile = _c_source("conv3x3_tile.cuh")
+    mma = _c_source("conv3x3_mma.cuh")
+    f32_rows = int(re.search(r"constexpr int kStripRows = (\d+);",
+                             tile).group(1))
+    mma_rows = int(re.search(r"namespace wg \{\s*constexpr int kTH = (\d+);",
+                             mma).group(1))
+    for src in (tile, mma):   # both launchers' grid formula
+        assert re.search(r"= \(h \+ (\w+) - 1\) / \1;", src)
+    assert "* 9 * cin * cout" in mma and "* 9 * cin * cout" in tile
+    shapes = [(16, 3, 16, 256, 256), (16, 16, 16, 256, 256),
+              (16, 16, 32, 128, 128), (16, 32, 32, 128, 128),
+              (16, 64, 32, 128, 128), (16, 32, 16, 256, 256),
+              (16, 16, 4, 256, 256), (2, 3, 16, 37, 70), (2, 40, 4, 37, 70),
+              (2, 40, 13, 37, 70), (2, 64, 32, 37, 70), (1, 8, 8, 1, 1)]
+    tdt = getattr(torch, dtype)
+    for b, cin, cout, h, wd in shapes:
+        rows, n_part = kconv.wgrad_strips(tdt, b, cin, cout, h, wd)
+        if dtype == "float32":
+            assert rows == f32_rows
+        else:
+            assert rows >= mma_rows and rows % mma_rows == 0
+        assert n_part == b * ((h + rows - 1) // rows) * 9 * cin * cout

@@ -40,9 +40,16 @@
 // prologue; none for the first conv of a network, whose input needs no
 // gradient) + 1 wgrad pass + 1 wgrad reduce.
 //
-// What bounds it: the conv is conv3x3_nchw.cu's tiling (conv3x3_tile.cuh:
-// kTH x kTW output tile, Cin chunks of kCK channels in shared memory, f32
-// register accumulators on CUDA cores), bound by FMA throughput; the
+// Routing (by dtype, in the entry points): in bf16 the backward's wgrad
+// pass (with or without the prologue) and the dgrad without the prologue
+// (chain_conv_plain's) run on the tensor cores (conv3x3_mma.cuh:
+// wgrad_mma_kernel, dgrad_mma_kernel; their note says what bounds them and
+// how they answer it); the forwards, the dgrad with the prologue and every
+// f32 kernel run on the CUDA cores, as below.
+//
+// What bounds the CUDA-core kernels: the conv is conv3x3_nchw.cu's tiling
+// (conv3x3_tile.cuh: kTH x kTW output tile, Cin chunks of kCK channels in
+// shared memory, f32 register accumulators), bound by FMA throughput; the
 // prologue is a few operations per input element at load time, and the
 // epilogue one warp butterfly per output channel, both small beside the
 // 9 * Cout FMAs each input element feeds. What the design removes is memory
@@ -52,6 +59,9 @@
 
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "conv3x3_mma.cuh"
 #include "conv3x3_tile.cuh"
 
 namespace {
@@ -347,7 +357,8 @@ cudaError_t bwd(const void* g, const void* y, const float* ds1,
                 const float* ds2, const void* x, const void* w9,
                 const Prologue& pro, int prologue, void* dx, void* part_d,
                 void* dfds, void* part_w, void* dw, int batch, int cin,
-                int cout, int h, int wd, cudaStream_t stream) {
+                int cout, int h, int wd, int strip_rows,
+                cudaStream_t stream) {
   const FoldLoad<T> ge{static_cast<const T*>(g), static_cast<const T*>(y),
                        ds1, ds2, cout, h, wd};
   cudaError_t err = cudaSuccess;
@@ -356,8 +367,15 @@ cudaError_t bwd(const void* g, const void* y, const float* ds1,
                          static_cast<const T*>(x), pro, static_cast<T*>(dx),
                          static_cast<float*>(part_d), cin, cout, h, wd,
                          uaps::conv::tile_groups(cin)};
-    err = prologue ? launch_dgrad<T, true>(a, batch, stream)
-                   : launch_dgrad<T, false>(a, batch, stream);
+    if (prologue) {
+      err = launch_dgrad<T, true>(a, batch, stream);
+    } else {
+      if constexpr (std::is_same<T, __nv_bfloat16>::value)
+        err = uaps::conv::tc::launch_dgrad_mma(
+            ge, a.w9, a.dx, batch, cin, cout, h, wd, stream);
+      else
+        err = launch_dgrad<T, false>(a, batch, stream);
+    }
     if (err != cudaSuccess) return err;
     if (prologue) {
       err = uaps::conv::reduce_partials(
@@ -370,12 +388,12 @@ cudaError_t bwd(const void* g, const void* y, const float* ds1,
   float* d = static_cast<float*>(dw);
   if (prologue) {
     const ProLoad<T> in{static_cast<const T*>(x), pro};
-    return uaps::conv::launch_wgrad(in, ge, pw, d, batch, cin, cout, h, wd,
-                                    stream);
+    return uaps::conv::launch_wgrad_dtype<T>(in, ge, pw, d, batch, cin, cout,
+                                             h, wd, strip_rows, stream);
   }
   const uaps::conv::PlainLoad<T> in{static_cast<const T*>(x), cin, h, wd};
-  return uaps::conv::launch_wgrad(in, ge, pw, d, batch, cin, cout, h, wd,
-                                  stream);
+  return uaps::conv::launch_wgrad_dtype<T>(in, ge, pw, d, batch, cin, cout,
+                                           h, wd, strip_rows, stream);
 }
 
 bool bad_shape(int batch, int cin, int cout, int h, int wd) {
@@ -427,8 +445,9 @@ extern "C" int uaps_block_conv_fwd(const void* x, const void* w9,
 // [B, Cin, H, W] in dtype (skipped when dx is null; not allowed with the
 // prologue), with the prologue dfds [2, Cin] f32 (df, ds) through part_d (f32
 // scratch of B * ceil(H / 8) * ceil(W / 64) * 2 * Cin), and dw [9, Cin,
-// Cout] f32 through part_w (f32 scratch of B * ceil(H / 16) * 9 * Cin *
-// Cout). Returns a cudaError_t code.
+// Cout] f32 through part_w (f32 scratch of B * ceil(H / strip_rows) * 9 *
+// Cin * Cout; strip_rows as uaps_conv3x3_wgrad_nchw takes it). Returns a
+// cudaError_t code.
 extern "C" int uaps_block_conv_bwd(const void* g, const void* y,
                                    const void* ds1, const void* ds2,
                                    const void* x, const void* w9,
@@ -437,9 +456,11 @@ extern "C" int uaps_block_conv_bwd(const void* g, const void* y,
                                    void* dfds, void* part_w, void* dw,
                                    int batch, int cin, int cout, int h,
                                    int wd, int prologue, unsigned int thr,
-                                   float scale, int drop, int dtype,
-                                   void* stream) {
+                                   float scale, int drop, int strip_rows,
+                                   int dtype, void* stream) {
   if (bad_shape(batch, cin, cout, h, wd) ||
+      !uaps::conv::wgrad_shape_ok(batch, cin, cout, h, wd, strip_rows,
+                                  dtype) ||
       (prologue && (!f || !s || !dx || !part_d || !dfds)) ||
       (drop && (!prologue || !seed)) || (ds2 && !y) || !part_w || !dw)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -453,11 +474,11 @@ extern "C" int uaps_block_conv_bwd(const void* g, const void* y,
   if (dtype == uaps::kF32)
     return static_cast<int>(bwd<float>(g, y, d1, d2, x, w9, pro, prologue,
                                        dx, part_d, dfds, part_w, dw, batch,
-                                       cin, cout, h, wd, st));
+                                       cin, cout, h, wd, strip_rows, st));
   if (dtype == uaps::kBF16)
     return static_cast<int>(bwd<__nv_bfloat16>(g, y, d1, d2, x, w9, pro,
                                                prologue, dx, part_d, dfds,
                                                part_w, dw, batch, cin, cout,
-                                               h, wd, st));
+                                               h, wd, strip_rows, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }

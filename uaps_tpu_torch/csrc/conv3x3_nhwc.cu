@@ -23,7 +23,10 @@
 // A Cout above 32 runs in groups of 32 along grid.z, as the NCHW forward.
 //
 // What bounds it: as the NCHW conv, CUDA-core FMA throughput (~72 flop per
-// byte at Cin = Cout = 16 in bf16; no tensor cores yet). The tiles load in
+// byte at Cin = Cout = 16 in bf16; the forward and dgrad have no tensor
+// cores yet). The bf16 weight gradient runs conv3x3_mma.cuh's tensor-core
+// pass through NhwcLoad (bound by bytes, as its note says); the f32 one the
+// CUDA-core pass. The tiles load in
 // pixel-major order, so a warp's load reads one channel of 32 neighbouring
 // pixels, Cin elements apart: each 32-byte sector it touches also holds
 // the pixel's other channels, which the tile's next channel iterations find
@@ -32,6 +35,7 @@
 
 #include <stdint.h>
 
+#include "conv3x3_mma.cuh"
 #include "conv3x3_tile.cuh"
 
 namespace {
@@ -149,11 +153,11 @@ cudaError_t launch_fwd(const void* x, const void* w, WStrides wst, void* y,
 template <typename T>
 cudaError_t launch_wgrad(const void* x, const void* g, float* part,
                          float* dw, int batch, int cin, int cout, int h,
-                         int wd, cudaStream_t stream) {
+                         int wd, int strip_rows, cudaStream_t stream) {
   const NhwcLoad<T> in{static_cast<const T*>(x), cin, h, wd};
   const NhwcLoad<T> gl{static_cast<const T*>(g), cout, h, wd};
-  return uaps::conv::launch_wgrad(in, gl, part, dw, batch, cin, cout, h, wd,
-                                  stream);
+  return uaps::conv::launch_wgrad_dtype<T>(in, gl, part, dw, batch, cin,
+                                           cout, h, wd, strip_rows, stream);
 }
 
 bool bad_shape(int batch, int cin, int cout, int h, int wd) {
@@ -186,25 +190,26 @@ extern "C" int uaps_conv3x3_nhwc_fwd(const void* x, const void* w, void* y,
 }
 
 // x [B, H, W, Cin], g [B, H, W, Cout] (dtype, contiguous); part: f32
-// scratch of B * ceil(H / 16) * 9 * Cin * Cout elements; dw [3, 3, Cin,
-// Cout] f32. Two launches (conv3x3_tile.cuh launch_wgrad). Returns a
+// scratch of B * ceil(H / strip_rows) * 9 * Cin * Cout elements (strip_rows
+// as uaps_conv3x3_wgrad_nchw takes it); dw [3, 3, Cin, Cout] f32. Two
+// launches (a partial pass and the fixed-order reduce). Returns a
 // cudaError_t code.
 extern "C" int uaps_conv3x3_nhwc_wgrad(const void* x, const void* g,
                                        void* part, void* dw, int batch,
                                        int cin, int cout, int h, int wd,
-                                       int dtype, void* stream) {
-  constexpr int kCK = uaps::conv::wgrad::kCK;
-  if (bad_shape(batch, cin, cout, h, wd) || (cin + kCK - 1) / kCK > 65535 ||
-      (cout + 31) / 32 > 65535)
+                                       int strip_rows, int dtype,
+                                       void* stream) {
+  if (!uaps::conv::wgrad_shape_ok(batch, cin, cout, h, wd, strip_rows, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(part);
   float* d = static_cast<float*>(dw);
   if (dtype == uaps::kF32)
     return static_cast<int>(
-        launch_wgrad<float>(x, g, p, d, batch, cin, cout, h, wd, s));
+        launch_wgrad<float>(x, g, p, d, batch, cin, cout, h, wd,
+                            strip_rows, s));
   if (dtype == uaps::kBF16)
-    return static_cast<int>(launch_wgrad<__nv_bfloat16>(x, g, p, d, batch,
-                                                        cin, cout, h, wd, s));
+    return static_cast<int>(launch_wgrad<__nv_bfloat16>(
+        x, g, p, d, batch, cin, cout, h, wd, strip_rows, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -13,7 +13,9 @@
 //                            output tile of one image for up to 32 output
 //                            channels (notes in conv3x3_nchw.cu);
 //   wgrad_partial_kernel     the weight gradient's first pass, per-strip
-//                            partial sums (notes in conv3x3_wgrad_nchw.cu);
+//                            partial sums, for f32 (notes in
+//                            conv3x3_wgrad_nchw.cu; bf16 takes the
+//                            tensor-core pass of conv3x3_mma.cuh);
 //   reduce_kernel            a fixed-order sum of per-block partials, so that
 //                            every cross-block reduction is deterministic and
 //                            needs no atomics.
@@ -220,8 +222,8 @@ constexpr int kPix = kTH * kTW;      // 128 pixels per tile
 constexpr int kCK = 16;              // input channels per block
 constexpr int kSH = kTH + 2;         // tile rows with halo
 constexpr int kSW = kTW + 3;         // 34 columns with halo + 1 of padding
-constexpr int kStripRows = 16;       // image rows per block (keep in step
-                                     // with STRIP_ROWS in the wrappers)
+constexpr int kStripRows = 16;       // image rows per block (STRIP_ROWS
+                                     // in kernels/conv3x3_nchw.py)
 }  // namespace wgrad
 
 // part[strip, kh, kw, ci, co] = the sum over the strip's pixels of

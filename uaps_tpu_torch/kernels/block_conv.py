@@ -57,7 +57,7 @@ from uaps_tpu_torch.kernels import _build
 from uaps_tpu_torch.kernels.conv3x3_nchw import (_acc_dtype,
                                                  conv3x3_nchw_plain,
                                                  conv3x3_nchw_wgrad_plain,
-                                                 kernel_path)
+                                                 kernel_path, wgrad_strips)
 from uaps_tpu_torch.kernels.perturb import _M32, _mul32
 
 plain_launches = 0       # chain_conv_plain forwards (reset by the caller)
@@ -67,9 +67,9 @@ bnl_bwd_launches = 0     # chain_conv_bnl backwards
 
 NEG_SLOPE = 0.01
 _H1, _H2, _H3 = 0x9E3779B9, 0x85EBCA77, 0xC2B2AE3D
-# the forward and dgrad tile, and the wgrad strip (kTH, kTW and
-# wgrad::kStripRows in csrc/conv3x3_tile.cuh)
-TILE_H, TILE_W, STRIP_ROWS = 8, 64, 16
+# the forward and dgrad tile (kTH, kTW in csrc/conv3x3_tile.cuh): the
+# per-channel partials' rows
+TILE_H, TILE_W = 8, 64
 
 
 # -------------------------------------------------------------- the mask
@@ -193,7 +193,7 @@ def _fns():
                     + [ctypes.c_uint, ctypes.c_float, i32, i32, vp])
     bwd = lib.uaps_block_conv_bwd
     bwd.argtypes = ([vp] * 14 + [i32] * 6
-                    + [ctypes.c_uint, ctypes.c_float, i32, i32, vp])
+                    + [ctypes.c_uint, ctypes.c_float, i32, i32, i32, vp])
     for fn in (fwd, bwd):
         fn.restype = ctypes.c_int
     return lib, fwd, bwd
@@ -286,9 +286,8 @@ def kernel_bwd(g: torch.Tensor, y, ds1, ds2, x: torch.Tensor,
         part_d = torch.empty(tiles * 2 * cin, dtype=torch.float32,
                              device=x.device)
         dfds = torch.empty((2, cin), dtype=torch.float32, device=x.device)
-    strips = b * -(-h // STRIP_ROWS)
-    part_w = torch.empty(strips * 9 * cin * cout, dtype=torch.float32,
-                         device=x.device)
+    rows, n_part = wgrad_strips(x.dtype, b, cin, cout, h, wd)
+    part_w = torch.empty(n_part, dtype=torch.float32, device=x.device)
     dw = torch.empty((3, 3, cin, cout), dtype=torch.float32, device=x.device)
     lib, _, bwd = _fns()
     _build.call(lib, bwd, x.device, f"{what} backward kernel launch",
@@ -297,7 +296,7 @@ def kernel_bwd(g: torch.Tensor, y, ds1, ds2, x: torch.Tensor,
                 _ptr(s), _ptr(seed), _ptr(dx), _ptr(part_d), _ptr(dfds),
                 part_w.data_ptr(), dw.data_ptr(), b, cin, cout, h, wd,
                 int(pro), keep_threshold(rate), 1.0 / (1.0 - rate),
-                int(rate > 0), _build.DTYPE_CODES[x.dtype])
+                int(rate > 0), rows, _build.DTYPE_CODES[x.dtype])
     if pro:
         return dx, dw, dfds[0], dfds[1]
     return dx, dw, None, None

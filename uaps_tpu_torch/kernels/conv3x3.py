@@ -27,10 +27,9 @@ import torch
 import torch.nn.functional as F
 
 from uaps_tpu_torch.kernels import _build
-from uaps_tpu_torch.kernels.conv3x3_nchw import (STRIP_ROWS,
-                                                 conv3x3_nchw_plain,
+from uaps_tpu_torch.kernels.conv3x3_nchw import (conv3x3_nchw_plain,
                                                  conv3x3_nchw_wgrad_plain,
-                                                 kernel_path)
+                                                 kernel_path, wgrad_strips)
 
 nhwc_launches = 0        # forward kernel launches, dgrad included
 nhwc_wgrad_launches = 0  # weight-gradient kernel launches
@@ -67,7 +66,7 @@ def _fns():
     fwd = lib.uaps_conv3x3_nhwc_fwd
     fwd.argtypes = [vp] * 3 + [i32] * 10 + [vp]
     wgrad = lib.uaps_conv3x3_nhwc_wgrad
-    wgrad.argtypes = [vp] * 4 + [i32] * 6 + [vp]
+    wgrad.argtypes = [vp] * 4 + [i32] * 7 + [vp]
     for fn in (fwd, wgrad):
         fn.restype = ctypes.c_int
     return lib, fwd, wgrad
@@ -152,13 +151,13 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
                          "one device")
     b, h, wd, cin = x.shape
     cout = g.shape[3]
-    part = torch.empty(b * -(-h // STRIP_ROWS) * 9 * cin * cout,
-                       dtype=torch.float32, device=x.device)
+    rows, n_part = wgrad_strips(x.dtype, b, cin, cout, h, wd)
+    part = torch.empty(n_part, dtype=torch.float32, device=x.device)
     dw = torch.empty((3, 3, cin, cout), dtype=torch.float32, device=x.device)
     lib, _, wgrad = _fns()
     _build.call(lib, wgrad, x.device, "conv3x3_wgrad kernel launch",
                 x.data_ptr(), g.data_ptr(), part.data_ptr(), dw.data_ptr(),
-                b, cin, cout, h, wd, _build.DTYPE_CODES[x.dtype])
+                b, cin, cout, h, wd, rows, _build.DTYPE_CODES[x.dtype])
     nhwc_wgrad_launches += 1
     return dw
 

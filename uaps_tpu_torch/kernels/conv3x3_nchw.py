@@ -71,7 +71,33 @@ VARIANTS = frozenset(
 _OUT_PAIRS = {(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
               (torch.bfloat16, torch.float32)}
 MAX_COUT = 32        # the JAX shape gate's Cout limit (see conv_kernel_ok)
-STRIP_ROWS = 16      # image rows per wgrad block (kStripRows in the source)
+STRIP_ROWS = 16      # image rows per f32 wgrad strip (wgrad::kStripRows)
+MMA_TILE_ROWS = 4    # rows of the bf16 wgrad's tile (tc::wg::kTH): its strip
+                     # heights are multiples of it
+MMA_MIN_BLOCKS = 256  # bf16 wgrad blocks that fill the card, two an SM
+
+
+def wgrad_strips(dtype, b: int, cin: int, cout: int, h: int,
+                 wd: int):
+    """(strip rows, f32 elements) of the scratch buffer that the weight
+    gradient's partial pass writes: one [3, 3, Cin, Cout] partial per strip
+    of `strip rows` image rows, b * ceil(h / rows) strips (the entry points'
+    grid, csrc/conv3x3_mma.cuh launch_wgrad_mma and conv3x3_tile.cuh
+    launch_wgrad). f32 takes the CUDA-core pass's fixed STRIP_ROWS. bf16
+    takes the tallest of 16, 8 and 4 rows whose grid, strips x input-channel
+    chunks (16 channels up to Cin 16, 32 up to 32, else 64) x output-channel
+    chunks (32 channels above Cout 16, else one), still has MMA_MIN_BLOCKS
+    blocks, two for each of the H100's 132 SMs, or 4 rows: taller strips
+    write fewer partials and pay each block's fixed cost less often; on
+    an H100 16 rows were fastest where they gave 256 blocks and 8 where
+    16 gave 128."""
+    if dtype != torch.bfloat16:
+        return STRIP_ROWS, b * -(-h // STRIP_ROWS) * 9 * cin * cout
+    chunks = -(-cin // (16 if cin <= 16 else 32 if cin <= 32 else 64)) * (
+        -(-cout // 32) if cout > 16 else 1)
+    rows = next((r for r in (16, 8) if b * -(-h // r) * chunks
+                 >= MMA_MIN_BLOCKS), MMA_TILE_ROWS)
+    return rows, b * -(-h // rows) * 9 * cin * cout
 
 
 def _acc_dtype(t: torch.Tensor) -> torch.dtype:
@@ -124,7 +150,7 @@ def _fwd_fn():
 def _wgrad_fn():
     lib = _build.load("conv3x3_wgrad_nchw")
     fn = lib.uaps_conv3x3_wgrad_nchw
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
@@ -268,14 +294,13 @@ def _wgrad_launch(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
                          "and on one device")
     b, cin, h, wd = x.shape
     cout = g.shape[1]
-    strips = b * -(-h // STRIP_ROWS)
-    part = torch.empty(strips * 9 * cin * cout, dtype=torch.float32,
-                       device=x.device)
+    rows, n_part = wgrad_strips(x.dtype, b, cin, cout, h, wd)
+    part = torch.empty(n_part, dtype=torch.float32, device=x.device)
     dw = torch.empty((3, 3, cin, cout), dtype=torch.float32, device=x.device)
     lib, fn = _wgrad_fn()
     _build.call(lib, fn, x.device, "conv3x3_nchw_wgrad kernel launch",
                 x.data_ptr(), g.data_ptr(), part.data_ptr(), dw.data_ptr(),
-                b, cin, cout, h, wd, _build.DTYPE_CODES[x.dtype])
+                b, cin, cout, h, wd, rows, _build.DTYPE_CODES[x.dtype])
     return dw
 
 
