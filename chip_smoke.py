@@ -12,7 +12,11 @@ Phases (any failure: exit 1 and no result line):
      PyTorch versions on the card at every shape of one neu predict batch
      (B=16), in f32 and bf16: conv rtol=atol=1e-4 where the output is f32
      (only the summation order over <= 576 terms differs), 1e-2 for bf16
-     output (<= 1 bf16 ulp); pool exactly, with ties, -inf, +inf and NaN;
+     output (<= 1 bf16 ulp); the conv also at ODD_CONV (Cin 3 and 40, Cout
+     4, 13 and 72, a 37 x 70 image) in f32, bf16 and bf16 -> f32, where the
+     bf16 tensor-core forward pads and masks, and a strided (the model's
+     OIHW view) against a contiguous bf16 weight, bit for bit; pool
+     exactly, with ties, -inf, +inf and NaN;
   3. serving: unet_uaps at the neu preset in bf16 (full width, 256 x 256,
      batch 16) from seeded weights with random BN running stats, saved as
      a .pth and loaded through InferenceEngine.from_torch; 40 images
@@ -32,10 +36,10 @@ Phases (any failure: exit 1 and no result line):
      3 forwards of each engine (device busy time and idle share);
   6. training kernels: dgrad, wgrad, pool backward and the fused CE+Dice
      forward and backward against their plain versions at every shape of
-     one neu baseline step (B=16), f32 and bf16, and the wgrad also at
-     ODD_WGRAD (Cin 3 and 40, Cout 4 and 13, a 37 x 70 image), where the
-     bf16 tensor-core pass pads and masks (tolerances in
-     Smoke.train_kernels);
+     one neu baseline step (B=16), f32 and bf16, the wgrad also at
+     ODD_WGRAD (Cin 3 and 40, Cout 4 and 13, a 37 x 70 image) and the
+     dgrad at ODD_CONV, where the bf16 tensor-core kernels pad and mask
+     (tolerances in Smoke.train_kernels);
   7. training: the supervised baseline as `python -m uaps_tpu_torch.train
      --preset neu --method baseline --dtype bfloat16 --dropout_backend xla
      --dataset synthetic` builds it (unet, full width, 256 x 256, batch
@@ -49,8 +53,9 @@ Phases (any failure: exit 1 and no result line):
   8. training times: per kernel and shape of one bf16 step, the kernel's
      ms, its plain version's, the library call's and the bound; a profile
      of 2 kernel-path steps, whose kernel names must show every weight-
-     gradient pass on the tensor cores (bf16_route) and none on the CUDA
-     cores (the same route proof in phases 11, 14 and 18);
+     gradient pass, every conv3x3_nchw forward and dgrad and every
+     fused-block forward on the tensor cores and none of them on the CUDA
+     cores (bf16_route; the same route proof in phases 11, 14 and 18);
   9. UAPS kernels: every perturbation kernel (dropout at each level's rate
      and at 0.5, feature noise, feature dropout) forward and backward at
      the 5 skip shapes of a neu UAPS step (B=16), f32 and bf16, equal to
@@ -78,11 +83,13 @@ Phases (any failure: exit 1 and no result line):
      dropout rate) and conv3x3_bnl, forward and backward, at every block
      shape of the chain and fused paths (CHAIN_BLOCKS, B=16), f32 and bf16,
      against their plain versions (tolerances in Smoke.chain_kernels), and
-     chain_conv_plain also at ODD_CHAIN (3 -> 16, 40 -> 13, 64 -> 32 on a
-     37 x 70 image, both moment cotangents); the dropout keep-mask bit for
-     bit through a centre-tap identity weight; the route by dtype from the
-     profiler's kernel names: 3 chain plain backwards and 3 wgrads launch
-     the tensor-core kernels in bf16 and only the CUDA-core ones in f32;
+     chain_conv_plain and chain_conv_bnl (p = 0.1) also at ODD_CHAIN (3 ->
+     16, 40 -> 13, 64 -> 32 on a 37 x 70 image: y, s1, s2 and the backward
+     with both moment cotangents); the dropout keep-mask bit for bit
+     through a centre-tap identity weight; the route by dtype from the
+     profiler's kernel names: 3 chain plain forwards and backwards, 3 conv
+     forwards and 3 wgrads launch the tensor-core kernels in bf16 and only
+     the CUDA-core ones in f32;
  13. the chain and fused UAPS steps (the UAPS slice with
      ModelConfig.conv_backend="chain" / "fused"): 3 warm-up and 10 timed
      steps each with finite losses and CHAIN_STEP_LAUNCHES /
@@ -297,22 +304,36 @@ PER_LEVEL = {"fused_dropout": 8, "feature_noise": 4, "feature_dropout": 2,
 ODD_HW, ODD_BATCH = (37, 70), 2
 ODD_WGRAD = [(3, 16), (40, 4), (40, 13), (16, 13)]
 ODD_CHAIN = [(3, 16), (40, 13), (64, 32)]
+# ... and where the tensor-core forwards pad their K (Cin 3, 40; the dgrad's
+# Cout) and N (Cout 4, 13; 72: two groups of 64), checked in phases 2 and 6
+ODD_CONV = [(3, 4), (3, 13), (40, 4), (40, 13), (13, 72)]
 # the profiler's kernel names that the route proof counts: the tensor-core
-# (bf16) weight-gradient pass and chain plain dgrad, the CUDA-core ones (f32;
-# the fused-block dgrad also in bf16 with the prologue)
+# (bf16) weight-gradient pass, chain plain dgrad, conv3x3_nchw forward
+# (and its dgrad) and fused-block forward, then the CUDA-core ones (f32;
+# the fused-block dgrad also in bf16 with the prologue). No name contains
+# another.
 ROUTE_KERNELS = ("wgrad_mma_kernel", "dgrad_mma_kernel",
-                 "wgrad_partial_kernel", "block_conv_dgrad_kernel")
+                 "conv_fwd_mma_kernel", "block_fwd_mma_kernel",
+                 "wgrad_partial_kernel", "block_conv_dgrad_kernel",
+                 "conv3x3_fwd_kernel", "block_conv_fwd_kernel")
 # the launch counters whose every call runs one weight-gradient pass
 WGRAD_PASSES = ("conv3x3_nchw_wgrad", "conv3x3_nchw_wgrad_fullh",
                 "chain_conv_plain_bwd", "chain_conv_bnl_bwd",
                 "conv3x3_bnl_bwd", "conv3x3_nchw_stats_bwd",
                 "conv3x3_nhwc_wgrad")
+# ... one conv3x3_nchw.cu forward kernel (the forward, or the dgrad through
+# the rotated weight), and one block_conv.cu forward
+NCHW_FWD_PASSES = ("conv3x3_nchw", "conv3x3_nchw_dgrad", "conv3x3_nchw_fullh",
+                   "conv3x3_nchw_fullh_dgrad")
+BLOCK_FWD_PASSES = ("chain_conv_plain", "chain_conv_bnl", "conv3x3_bnl",
+                    "conv3x3_nchw_stats")
 # chain_conv_plain backwards a chain step without a dgrad: in_conv's first
 # conv, whose input is the image, in the labelled and unlabelled forwards
 CHAIN_PLAIN_NO_DX = 2
 # calls of phase 12's routed backward that one profile counts
 ROUTE_CALLS = 3
-# kernels phase 12 launches first in each route profile, left uncounted
+# kernels launched first in each profile that proves a route (phase 12's
+# and the steps' of phases 8, 11, 14 and 18), left uncounted
 ROUTE_LEAD_IN = 64
 # the least time the card could take: published H100 SXM peaks
 HBM_BYTES_PER_S = 3.35e12
@@ -403,6 +424,12 @@ def conv_cost(cin, cout, hw, in_size, out_size):
             + px * cout * out_size), 2 * px * cin * cout * 9
 
 
+def lead_in_kernel(name):
+    """Whether a profiler entry is a kernel of Smoke._lead_in: its int16
+    adds and its spin (ATen's spin_kernel)."""
+    return ("add" in name and "short" in name) or "spin_kernel" in name
+
+
 def route_of(entries):
     """{ROUTE_KERNELS family: launches} from (profiler name, count) pairs."""
     return {fam: sum(n for name, n in entries if fam in name)
@@ -411,17 +438,23 @@ def route_of(entries):
 
 def bf16_route(per_step, steps):
     """The ROUTE_KERNELS counts that `steps` bf16 steps launching
-    `per_step` must show: every weight-gradient pass and every chain plain
-    dgrad on the tensor cores, no CUDA-core wgrad pass, the CUDA-core
-    fused-block dgrad only for the backwards with the prologue."""
+    `per_step` must show: every weight-gradient pass, every chain plain
+    dgrad, every conv3x3_nchw forward and dgrad and every fused-block
+    forward on the tensor cores; no CUDA-core wgrad pass or forward; the
+    CUDA-core fused-block dgrad only for the backwards with the prologue."""
     plain = per_step["chain_conv_plain_bwd"]
     return {"wgrad_mma_kernel": steps * sum(per_step[k]
                                             for k in WGRAD_PASSES),
             "dgrad_mma_kernel": steps * (plain - CHAIN_PLAIN_NO_DX
                                          if plain else 0),
+            "conv_fwd_mma_kernel": steps * sum(per_step[k]
+                                               for k in NCHW_FWD_PASSES),
+            "block_fwd_mma_kernel": steps * sum(per_step[k]
+                                                for k in BLOCK_FWD_PASSES),
             "wgrad_partial_kernel": 0,
             "block_conv_dgrad_kernel": steps * (per_step["chain_conv_bnl_bwd"]
-                                                + per_step["conv3x3_bnl_bwd"])}
+                                                + per_step["conv3x3_bnl_bwd"]),
+            "conv3x3_fwd_kernel": 0, "block_conv_fwd_kernel": 0}
 
 
 def mma_registers(text):
@@ -433,7 +466,7 @@ def mma_registers(text):
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = m.group(1) if "mma_kernel" in m.group(1) else None
+            name = m.group(1) if "_mma_kernel" in m.group(1) else None
             spill = None
             continue
         if name is None:
@@ -443,8 +476,11 @@ def mma_registers(text):
             spill = m.group(1)
         m = re.search(r"Used (\d+) registers", line)
         if m:
-            fam = re.search(r"[wd]grad_mma_kernel", name).group(0)
-            args = ",".join(re.findall(r"Li(\d+)E", name))
+            fam = re.search(r"(?:wgrad|dgrad|conv_fwd|block_fwd)_mma_kernel",
+                            name).group(0)
+            args = ",".join(re.findall(r"L[ib](\d+)E", name))
+            if re.search(r"Li\d+EfE", name):   # the f32-output forward
+                args += ",f32 out"
             loads = "/".join(re.findall(r"(PlainLoad|ProLoad|FoldLoad|"
                                         r"NhwcLoad)", name))
             out.append(f"{fam}<{args}> {loads}: {m.group(1)} registers, "
@@ -641,6 +677,21 @@ class Smoke:
                     f"max_abs_err {err:.3e} {'ok' if ok else 'MISMATCH'}")
                 if not ok:
                     bad.append(f"conv extra {cin}->{cout} {h}x{w} {dtype}")
+        # where the bf16 tensor-core forward pads its K and N and masks a
+        # ragged tile, with bf16 and f32 output, and f32 beside them
+        for i, (cin, cout) in enumerate(ODD_CONV):
+            for dtype, out in ((torch.float32, torch.float32),
+                               (torch.bfloat16, torch.bfloat16),
+                               (torch.bfloat16, torch.float32)):
+                ok, err, tol, _ = self._conv_case(
+                    cin, cout, ODD_HW[0], dtype, out, ODD_BATCH, SEED + 60 + i,
+                    hw2=ODD_HW[1])
+                label = (f"conv odd {cin}->{cout} @{ODD_HW[0]}x{ODD_HW[1]} "
+                         f"B={ODD_BATCH} {str(dtype)[6:]}->{str(out)[6:]}")
+                log(f"{label}: max_abs_err {err:.3e} (tol {tol}) "
+                    f"{'ok' if ok else 'MISMATCH'}")
+                if not ok:
+                    bad.append(label)
         # the flat entry is the same memory and the same kernel
         g = self.gen(SEED)
         x = torch.randn((2, 16, 128 * 256), generator=g, device=self.dev)
@@ -655,6 +706,13 @@ class Smoke:
         if (w_view.is_contiguous() or not torch.equal(
                 kc.conv3x3_nchw(x.view(2, 16, 128, 256), w_view), four)):
             bad.append("conv strided weight view")
+        # in bf16 the tensor-core forward stages a strided weight one value
+        # a load and a contiguous one 16 bytes a load: the same products
+        xb, wb = x.view(2, 16, 128, 256).bfloat16(), w.bfloat16()
+        wb_view = wb.permute(3, 2, 0, 1).contiguous().permute(2, 3, 1, 0)
+        if not torch.equal(kc.conv3x3_nchw(xb, wb_view),
+                           kc.conv3x3_nchw(xb, wb)):
+            bad.append("conv strided weight view bf16")
         self.report["kernels"]["conv3x3_nchw"] = {"max_abs_err": conv_err}
 
         pool_err = 0.0
@@ -1178,6 +1236,23 @@ class Smoke:
                 record("conv3x3_nchw_wgrad", f"wgrad odd {cin:2d}->{cout:2d}"
                        f" @{ODD_HW[0]}x{ODD_HW[1]} B={ODD_BATCH} {dname}",
                        err, ok, f" (max |dW| {scale:.3e})")
+            # where the bf16 tensor-core dgrad pads its K (Cout) and N
+            # (Cin) and masks a ragged tile
+            for i, (cin, cout) in enumerate(ODD_CONV):
+                _, w, gy = self._grad_case(cin, cout, ODD_HW, dtype,
+                                           SEED + 140 + i, ODD_BATCH)
+                dx = kc.conv3x3_nchw_dgrad(gy, w)
+                self.sync()
+                ref = kc.conv3x3_nchw_dgrad_plain(gy, w)
+                self.sync()
+                err = float((dx.float() - ref.float()).abs().max())
+                ok = (dx.shape == ref.shape and dx.dtype == dtype
+                      and bool(torch.isfinite(dx).all())
+                      and torch.allclose(dx.float(), ref.float(), rtol=tol,
+                                         atol=tol))
+                record("conv3x3_nchw_dgrad", f"dgrad odd {cout:2d}->{cin:2d}"
+                       f" @{ODD_HW[0]}x{ODD_HW[1]} B={ODD_BATCH} {dname}",
+                       err, ok)
             for i, (mod, c, hw) in enumerate(POOL_SHAPES):
                 x, gy = self._pool_case(c, hw, dtype, SEED + 150 + i)
                 dx = kp.max_pool_2x2_nchw_bwd(x, gy)
@@ -1505,13 +1580,16 @@ class Smoke:
         entries a step: name, ms, count), the operator table in
         chip_smoke_profile_<key>.txt. Best effort, as the serving
         profile, but with `per_step` (the step's launches, bf16) the
-        profiler must show the conv route of bf16_route, or this raises."""
+        profiler must show the conv route of bf16_route, or this raises.
+        The steps come after the lead-in (whose kernels no number here
+        counts): a step's first kernel is a conv forward."""
         from torch.profiler import ProfilerActivity, profile
         cuda = self.torch.autograd.DeviceType.CUDA
         t = self.report["times"]
         try:
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
+                self._lead_in()
                 for _ in range(2):
                     step(state, batch)
                 self.sync()
@@ -1522,7 +1600,8 @@ class Smoke:
             if per_step is not None:
                 raise
             return
-        device = sorted((e for e in events if e.device_type == cuda),
+        device = sorted((e for e in events if e.device_type == cuda
+                         and not lead_in_kernel(e.key)),
                         key=lambda e: -e.self_device_time_total)
         if per_step is not None:
             got = route_of([(e.key, e.count) for e in device])
@@ -2128,23 +2207,36 @@ class Smoke:
                              f"{cout}->{cout} @{hw} {dname}", tol)
             # where the tensor-core dgrad and wgrad pad and mask (bf16)
             for i, (cin, cout) in enumerate(ODD_CHAIN):
-                x, w, _, _, gy, ds1, ds2, sd = self._chain_case(
+                x, w, f, s, gy, ds1, ds2, sd = self._chain_case(
                     cin, cout, ODD_HW, dtype, SEED + 440 + i, ODD_BATCH)
                 chain_case(x, w, None, None, gy, ds1, ds2, sd, 0.0,
                            f"chain plain odd {cin}->{cout} @{ODD_HW[0]}x"
                            f"{ODD_HW[1]} B={ODD_BATCH} {dname}", tol)
+                chain_case(x, w, f, s, gy, ds1, ds2, sd, 0.1,
+                           f"chain bnl odd {cin}->{cout} @{ODD_HW[0]}x"
+                           f"{ODD_HW[1]} B={ODD_BATCH} p=0.1 {dname}", tol)
         self._route_by_dtype(bad)
         for name, e in errs.items():
             self.report["kernels"][name] = {"max_abs_err": e}
         if bad:
             raise AssertionError(f"fused-block kernel mismatches: {bad}")
 
+    def _lead_in(self):
+        """Inside a profiler window, before the kernels it counts:
+        ROUTE_LEAD_IN int16 adds and a ~2 ms spin (no idle gap after them).
+        On the H100 the profiler missed the first 1-3 kernels after it
+        started, the counted ones when they came first (PERF.md section 7);
+        lead_in_kernel tells these apart."""
+        torch = self.torch
+        lead = torch.zeros(1, dtype=torch.int16, device=self.dev)
+        for _ in range(ROUTE_LEAD_IN):
+            lead.add_(1)
+        torch.cuda._sleep(1 << 22)
+
     def _route(self, fn, calls):
         """route_of the device entries of `calls` fn() calls, after one
-        unprofiled call (builds, loads) and, inside the profiler, a lead-in
-        of ROUTE_LEAD_IN int16 adds: on the H100 the profiler missed the
-        first 1-3 kernels after it started, the counted ones when they came
-        first (PERF.md section 7). Also the lead-in kernels it recorded."""
+        unprofiled call (builds, loads) and, inside the profiler, the
+        lead-in. Also how many of the lead-in's adds it recorded."""
         from torch.profiler import ProfilerActivity, profile
         torch = self.torch
         cuda = torch.autograd.DeviceType.CUDA
@@ -2152,10 +2244,7 @@ class Smoke:
         self.sync()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            lead = torch.zeros(1, dtype=torch.int16, device=self.dev)
-            for _ in range(ROUTE_LEAD_IN):
-                lead.add_(1)
-            torch.cuda._sleep(1 << 22)   # ~2 ms busy: no idle gap before fn
+            self._lead_in()
             for _ in range(calls):
                 fn()
             self.sync()
@@ -2166,33 +2255,41 @@ class Smoke:
         return route_of(entries), seen
 
     def _route_by_dtype(self, bad):
-        """From the profiler's kernel names: the backward of a plain chain
-        conv (dgrad + wgrad) and one conv3x3_nchw_wgrad, ROUTE_CALLS times,
-        launch the tensor-core kernels in bf16 and none of them in f32."""
+        """From the profiler's kernel names: a plain chain conv forward and
+        its backward (dgrad + wgrad), one conv3x3_nchw forward and one
+        conv3x3_nchw_wgrad, ROUTE_CALLS times, launch the tensor-core
+        kernels in bf16 and none of them in f32."""
         from uaps_tpu_torch.kernels import block_conv as kbc
         from uaps_tpu_torch.kernels import conv3x3_nchw as kc
         torch = self.torch
         want = {"bf16": {"wgrad_mma_kernel": 2, "dgrad_mma_kernel": 1,
+                         "conv_fwd_mma_kernel": 1, "block_fwd_mma_kernel": 1,
                          "wgrad_partial_kernel": 0,
-                         "block_conv_dgrad_kernel": 0},
+                         "block_conv_dgrad_kernel": 0,
+                         "conv3x3_fwd_kernel": 0, "block_conv_fwd_kernel": 0},
                 "f32": {"wgrad_mma_kernel": 0, "dgrad_mma_kernel": 0,
+                        "conv_fwd_mma_kernel": 0, "block_fwd_mma_kernel": 0,
                         "wgrad_partial_kernel": 2,
-                        "block_conv_dgrad_kernel": 1}}
+                        "block_conv_dgrad_kernel": 1,
+                        "conv3x3_fwd_kernel": 1, "block_conv_fwd_kernel": 1}}
         for dname, dtype in (("f32", torch.float32),
                              ("bf16", torch.bfloat16)):
             x, w, _, _, gy, ds1, ds2, _ = self._chain_case(
                 40, 13, ODD_HW, dtype, SEED + 460, ODD_BATCH)
             y = kbc.chain_conv_plain(x, w)[0]
 
-            def run():   # the chain conv's backward, on this thread
+            def run():   # the chain conv both ways, on this thread
+                kbc.chain_conv_plain(x, w)
                 kbc._backward(gy, ds1, ds2, y, x, None, None, w, None, 0.0,
                               True)
+                kc.conv3x3_nchw(x, w)
                 kc.conv3x3_nchw_wgrad(x, gy)
             got, seen = self._route(run, ROUTE_CALLS)
             want[dname] = {k: n * ROUTE_CALLS for k, n in want[dname].items()}
             ok = got == want[dname]
             self.report.setdefault("route", {})[f"calls_{dname}"] = got
-            log(f"route of {ROUTE_CALLS} chain plain backwards + wgrads, "
+            log(f"route of {ROUTE_CALLS} chain plain forwards and backwards "
+                f"+ conv forwards and wgrads, "
                 f"{dname}: {json.dumps(got)} {'ok' if ok else 'MISMATCH'} "
                 f"(want {json.dumps(want[dname])}; the profiler recorded "
                 f"{seen} of the {ROUTE_LEAD_IN} lead-in kernels)")

@@ -29,21 +29,29 @@ def _bf16(a):
     return np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
 
 
-@pytest.mark.parametrize("cin,cout", [(3, 16), (16, 32), (64, 32)])
-def test_conv_flat_matches_pallas(cin, cout):
+@pytest.mark.parametrize("cin,cout,hw", [
+    pytest.param(3, 16, (H, W), id="3-16"),
+    pytest.param(16, 32, (H, W), id="16-32"),
+    pytest.param(64, 32, (H, W), id="64-32"),
+    pytest.param(40, 13, (11, 70), id="40-13-11x70")])
+def test_conv_flat_matches_pallas(cin, cout, hw):
     """conv3x3_fast_flat, f32: the ConvBlock convs (in_conv's Cin=3 is the
-    unaligned case)."""
+    unaligned case), and Cin 40 -> Cout 13 on an 11 x 70 image, whose W is
+    no multiple of the bf16 tensor-core tile's 32 columns and whose Cout
+    pads its n8 tiles (chip_smoke.py holds the kernel to this plain
+    version there)."""
     from uaps_tpu.pallas.conv3x3_nchw import conv3x3_fast_flat
     rng = np.random.default_rng(cin * 100 + cout)
-    x = rng.standard_normal((2, cin, H * W)).astype(np.float32)
+    h, wd = hw
+    x = rng.standard_normal((2, cin, h * wd)).astype(np.float32)
     w = (rng.standard_normal((3, 3, cin, cout))
          / np.sqrt(9 * cin)).astype(np.float32)
     ref = np.asarray(conv3x3_fast_flat(jnp.asarray(x), jnp.asarray(w),
-                                       (H, W), True))
+                                       hw, True))
     before = kconv.launches
     got = kconv.conv3x3_fast_flat(torch.from_numpy(x), torch.from_numpy(w),
-                                  (H, W))
-    assert got.shape == (2, cout, H * W) and got.dtype == torch.float32
+                                  hw)
+    assert got.shape == (2, cout, h * wd) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
     assert kconv.launches == before   # CPU tensors never reach the kernel
 
@@ -100,33 +108,37 @@ def test_pool_gate_matches_jax():
             jnp.zeros(shape)), shape
 
 
-@pytest.mark.parametrize("cin,cout,dtype", [
-    (16, 32, "float32"), (64, 32, "float32"), (16, 16, "bfloat16"),
-    (3, 16, "bfloat16"), (40, 4, "bfloat16"), (32, 13, "bfloat16")])
-def test_conv_flat_vjp_matches_pallas(cin, cout, dtype):
+@pytest.mark.parametrize("cin,cout,dtype,hw", [
+    pytest.param(*case, (H, W), id="-".join(map(str, case))) for case in [
+        (16, 32, "float32"), (64, 32, "float32"), (16, 16, "bfloat16"),
+        (3, 16, "bfloat16"), (40, 4, "bfloat16"), (32, 13, "bfloat16")]] + [
+    pytest.param(13, 40, "bfloat16", (11, 70), id="13-40-bfloat16-11x70")])
+def test_conv_flat_vjp_matches_pallas(cin, cout, dtype, hw):
     """dgrad and wgrad of the flat entry (JAX `_vjp_bwd_flat`): Cout 32,
     the 64-channel dgrad of up3.0 (64 -> 32), and bf16, where the cotangent,
     dx and dW are bf16; in bf16 also Cin 3 and 40 and Cout 4 and 13, where
-    the tensor-core wgrad pads its channel tiles. f32: rtol 1e-4 / atol
-    1e-4 x max |grad| (sums of 2 x 16 x 128 products in another order);
-    bf16: rtol 1e-2 (one bf16 ulp, 2^-7, after the f32 sums are
-    rounded)."""
+    the tensor-core wgrad pads its channel tiles, and 13 -> 40 on an 11 x 70
+    image, where the tensor-core dgrad pads its K (13) and N (40) and masks
+    a W that is no multiple of its 32 columns. f32: rtol 1e-4 / atol 1e-4
+    x max |grad| (sums of 2 x 16 x 128 products in another order); bf16:
+    rtol 1e-2 (one bf16 ulp, 2^-7, after the f32 sums are rounded)."""
     from uaps_tpu.pallas.conv3x3_nchw import conv3x3_fast_flat
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
     rng = np.random.default_rng(cin + cout)
-    x = _bf16(rng.standard_normal((2, cin, H * W)))
+    npx = hw[0] * hw[1]
+    x = _bf16(rng.standard_normal((2, cin, npx)))
     w = _bf16(rng.standard_normal((3, 3, cin, cout)) / np.sqrt(9 * cin))
-    g = _bf16(rng.standard_normal((2, cout, H * W)))
-    _, vjp = jax.vjp(lambda a, b: conv3x3_fast_flat(a, b, (H, W), True),
+    g = _bf16(rng.standard_normal((2, cout, npx)))
+    _, vjp = jax.vjp(lambda a, b: conv3x3_fast_flat(a, b, hw, True),
                      jnp.asarray(x, jdt), jnp.asarray(w, jdt))
     jdx, jdw = (np.asarray(t.astype(jnp.float32))
                 for t in vjp(jnp.asarray(g, jdt)))
     xt = torch.from_numpy(x).to(tdt).requires_grad_()
     wt = torch.from_numpy(w).to(tdt).requires_grad_()
-    kconv.conv3x3_fast_flat(xt, wt, (H, W)).backward(
+    kconv.conv3x3_fast_flat(xt, wt, hw).backward(
         torch.from_numpy(g).to(tdt))
     assert xt.grad.dtype == wt.grad.dtype == tdt
-    assert xt.grad.shape == (2, cin, H * W)
+    assert xt.grad.shape == (2, cin, npx)
     for got, ref in ((xt.grad, jdx), (wt.grad, jdw)):
         if dtype == "float32":
             np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4,
@@ -312,3 +324,36 @@ def test_wgrad_strips_match_c_grid(dtype):
         else:
             assert rows >= mma_rows and rows % mma_rows == 0
         assert n_part == b * ((h + rows - 1) // rows) * 9 * cin * cout
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fwd_tiles_match_c_grid(dtype):
+    """`block_conv.fwd_tiles`, the one helper that sizes the forward's
+    moment scratch, against the C side: the tile that each route's forward
+    launches (csrc/conv3x3_mma.cuh dg::kTH x dg::kTW for bf16 through
+    `mma_tiles_per_image`, csrc/conv3x3_tile.cuh kTH x kTW for f32 through
+    `tiles_per_image`), one [2, Cout] partial a tile and image (the count
+    does not depend on Cin or Cout), at the main-path shapes (B = 16) and
+    at ragged ones (37 x 70, 11 x 35, 9 x 131)."""
+    from uaps_tpu_torch.kernels import block_conv as kbc
+    tile, mma = _c_source("conv3x3_tile.cuh"), _c_source("conv3x3_mma.cuh")
+    block = _c_source("block_conv.cu")
+    th, tw = (int(re.search(rf"^constexpr int {k} = (\d+);", tile, re.M)
+                  .group(1)) for k in ("kTH", "kTW"))
+    dg = re.search(r"namespace dg \{(.*?)\}", mma, re.S).group(1)
+    mth, mtw = (int(re.search(rf"constexpr int {k} = (\d+);", dg).group(1))
+                for k in ("kTH", "kTW"))
+    assert "((h + dg::kTH - 1) / dg::kTH) * ((wd + dg::kTW - 1) / dg::kTW)" \
+        in mma
+    # the moments' reduce in `fwd`: bf16 over the tensor-core tiles, f32
+    # over the CUDA-core ones
+    assert re.search(r"batch \* uaps::conv::tc::mma_tiles_per_image\(h, wd\),"
+                     r"\s*2 \* cout", block)
+    assert re.search(r"batch \* tiles_per_image\(h, wd\),\s*2 \* cout",
+                     block)
+    want_h, want_w = (mth, mtw) if dtype == "bfloat16" else (th, tw)
+    shapes = [(16, 256, 256), (16, 128, 128), (2, 37, 70), (2, 11, 35),
+              (1, 1, 1), (3, 9, 131)]
+    for b, h, wd in shapes:
+        assert kbc.fwd_tiles(getattr(torch, dtype), b, h, wd) == (
+            b * -(-h // want_h) * -(-wd // want_w)), (b, h, wd)

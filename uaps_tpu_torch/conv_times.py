@@ -4,19 +4,30 @@ comparing two checkouts on one card.
     python3 uaps_tpu_torch/conv_times.py [ROOT]
 
 imports `uaps_tpu_torch` from the checkout at ROOT (default: the one that
-holds this file), builds its conv libraries and prints one JSON line: the
-bf16 forward, dgrad and wgrad of `conv3x3_nchw` at each of the 9 kernel
-convs of a neu batch (B = 16; no dgrad for the first, whose input is the
-image) and their sums in ms; the wgrad summed over a fullh UAPS step's
-launches (`wgrad_fullh_per_step`); and the backward of `chain_conv_plain`
-(the moment fold, the dgrad and the wgrad, both moment cotangents on) at
-the four chain block shapes of a neu UAPS step (no dgrad for in_conv,
-whose input is the image), with its sum over a chain step's launches
-(`chain_bwd_per_step`). Each time is the median over 5 rounds of CUDA
-events around 20 back-to-back calls queued behind a ~2.5 ms spin, so that
-the host's enqueue is not counted (chip_smoke.py `Smoke.time_ms`). Two
-separate runs may land on two different cards: compare checkouts within one
-run, in turns (A, B, B, A). Needs a CUDA card.
+holds this file), builds its conv libraries and prints one JSON line of
+bf16 times in ms:
+  * the forward, dgrad and wgrad of `conv3x3_nchw` at each of the 9 kernel
+    convs of a neu batch (B = 16; no dgrad for the first, whose input is
+    the image) and their sums (`fwd`, `dgrad`, `wgrad`: a baseline step);
+    the same kernels summed over a fullh UAPS step's launches
+    (`fwd_fullh_per_step`, `dgrad_fullh_per_step`,
+    `wgrad_fullh_per_step`);
+  * at the four chain block shapes of a neu UAPS step: the forward of
+    `chain_conv_plain` (the block's first conv) and of `chain_conv_bnl`
+    (its second, at the level's dropout rate), and the backward of
+    `chain_conv_plain` (the moment fold, the dgrad and the wgrad, both
+    moment cotangents on; no dgrad for in_conv, whose input is the image),
+    each with its sum over a chain step's launches (`chain_fwd_per_step`,
+    `chain_bnl_fwd_per_step`, `chain_bwd_per_step`);
+  * `conv3x3_bnl` at the fused step's two shapes, summed over its 16
+    launches (`bnl_fwd_per_step`), and the stats conv
+    (`conv3x3_nchw_stats`) at the bn_stats blocks' four convs, summed
+    (`stats_fwd_per_run`).
+Each time is the median over 5 rounds of CUDA events around 20
+back-to-back calls queued behind a ~2.5 ms spin, so that the host's enqueue
+is not counted (chip_smoke.py `Smoke.time_ms`). Two separate runs may land
+on two different cards: compare checkouts within one run, in turns (A, B,
+B, A). Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -32,14 +43,22 @@ CONV_SHAPES = [("in_conv.0", 3, 16, 256), ("in_conv.4", 16, 16, 256),
                ("up3.0", 64, 32, 128), ("up3.4", 32, 32, 128),
                ("up4.0", 32, 16, 256), ("up4.4", 16, 16, 256),
                ("out_conv", 16, 4, 256)]
-# wgrad launches of a fullh UAPS step at those shapes (chip_smoke.py
-# FULLH_SHAPES; the heads take the default entry)
-FULLH_WGRADS = {"in_conv.0": 2, "in_conv.4": 10, "down1.0": 2, "down1.4": 10,
-                "up3.0": 8, "up4.0": 8}
-# (block, conv1's Cin, Cout, H = W, backwards a chain step) of the chain
-# blocks (chip_smoke.py CHAIN_BLOCKS)
-CHAIN_BLOCKS = [("in_conv", 3, 16, 256, 2), ("down1", 16, 32, 128, 2),
-                ("up3", 64, 32, 128, 8), ("up4", 32, 16, 256, 8)]
+# (forward, dgrad, wgrad) launches of a fullh UAPS step at those shapes
+# (chip_smoke.py FULLH_SHAPES, where in_conv.4 stands for in_conv.4 + up4.4
+# and down1.4 for down1.4 + up3.4; the heads take the default entry)
+FULLH_LAUNCHES = {"in_conv.0": (2, 0, 2), "in_conv.4": (10, 10, 10),
+                  "down1.0": (2, 2, 2), "down1.4": (10, 10, 10),
+                  "up3.0": (8, 8, 8), "up4.0": (8, 8, 8)}
+# (block, conv1's Cin, Cout, H = W, dropout rate, calls a chain step) of
+# the chain blocks (chip_smoke.py CHAIN_BLOCKS); the fused step runs
+# conv3x3_bnl at the dropout-free blocks' second conv as often
+CHAIN_BLOCKS = [("in_conv", 3, 16, 256, 0.05, 2),
+                ("down1", 16, 32, 128, 0.1, 2),
+                ("up3", 64, 32, 128, 0.0, 8),
+                ("up4", 32, 16, 256, 0.0, 8)]
+# the bn_stats blocks' convs (chip_smoke.py STATS_SHAPES), once a run
+STATS_SHAPES = [("in_conv.0", 3, 16, 256), ("down1.0", 16, 32, 128),
+                ("in_conv.4", 16, 16, 256), ("down1.4", 32, 32, 128)]
 
 
 def time_ms(torch, fn, iters=20, rounds=5, warmup=3):
@@ -60,6 +79,24 @@ def time_ms(torch, fn, iters=20, rounds=5, warmup=3):
     return statistics.median(times)
 
 
+def _case(torch, dev, seed, cin, cout, hw):
+    """bf16 x [B, Cin, H, W], w [3, 3, Cin, Cout] (lecun_normal scale), a
+    cotangent g [B, Cout, H, W], BN's f, s [Cin] f32, moment cotangents
+    [Cout] f32 and a dropout seed."""
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((BATCH, cin, hw, hw), generator=g, device=dev).to(bf)
+    w = (torch.randn((3, 3, cin, cout), generator=g, device=dev)
+         / (9 * cin) ** 0.5).to(bf)
+    gy = torch.randn((BATCH, cout, hw, hw), generator=g, device=dev).to(bf)
+    f = torch.rand(cin, generator=g, device=dev) + 0.5
+    s = torch.randn(cin, generator=g, device=dev) * 0.1
+    ds1 = torch.randn(cout, generator=g, device=dev) * 0.3
+    ds2 = torch.randn(cout, generator=g, device=dev) * 0.1
+    sd = torch.randint(0, 2 ** 31 - 1, (), generator=g, device=dev)
+    return x, w, gy, f, s, ds1, ds2, sd
+
+
 def main(root: str) -> dict:
     sys.path.insert(0, root)
     import torch
@@ -68,21 +105,19 @@ def main(root: str) -> dict:
     from uaps_tpu_torch.kernels import _build
     from uaps_tpu_torch.kernels import block_conv as kbc
     from uaps_tpu_torch.kernels import conv3x3_nchw as kc
+    from uaps_tpu_torch.kernels import conv_bnl as kbnl
     if not kc.__file__.startswith(root):
         raise SystemExit(f"conv_times: imported {kc.__file__}, not {root}")
     _build.build(["conv3x3_nchw", "conv3x3_wgrad_nchw", "block_conv"])
     dev, bf = torch.device("cuda:0"), torch.bfloat16
+    sums = ("fwd", "dgrad", "wgrad", "fwd_fullh_per_step",
+            "dgrad_fullh_per_step", "wgrad_fullh_per_step",
+            "chain_fwd_per_step", "chain_bnl_fwd_per_step",
+            "chain_bwd_per_step", "bnl_fwd_per_step", "stats_fwd_per_run")
     out = {"root": root, "card": torch.cuda.get_device_name(0),
-           "shapes": {}, "fwd": 0.0, "dgrad": 0.0, "wgrad": 0.0,
-           "wgrad_fullh_per_step": 0.0, "chain_bwd": {},
-           "chain_bwd_per_step": 0.0}
+           "shapes": {}, "chain": {}, "stats": {}, **dict.fromkeys(sums, 0.0)}
     for i, (mod, cin, cout, hw) in enumerate(CONV_SHAPES):
-        g = torch.Generator(device=dev).manual_seed(1234 + i)
-        x = torch.randn((BATCH, cin, hw, hw), generator=g, device=dev).to(bf)
-        w = (torch.randn((3, 3, cin, cout), generator=g, device=dev)
-             / (9 * cin) ** 0.5).to(bf)
-        gy = torch.randn((BATCH, cout, hw, hw), generator=g,
-                         device=dev).to(bf)
+        x, w, gy, *_ = _case(torch, dev, 1234 + i, cin, cout, hw)
         o = torch.float32 if mod == "out_conv" else bf
         row = {"fwd": time_ms(torch, lambda: kc.conv3x3_nchw(x, w, o)),
                "wgrad": time_ms(torch, lambda: kc.conv3x3_nchw_wgrad(x, gy))}
@@ -92,22 +127,34 @@ def main(root: str) -> dict:
         out["shapes"][f"{mod} {cin}->{cout} @{hw}"] = row
         for k, v in row.items():
             out[k] += v
-        out["wgrad_fullh_per_step"] += FULLH_WGRADS.get(mod, 0) * row["wgrad"]
-    for i, (blk, cin, cout, hw, n) in enumerate(CHAIN_BLOCKS):
-        g = torch.Generator(device=dev).manual_seed(1400 + i)
-        x = torch.randn((BATCH, cin, hw, hw), generator=g, device=dev).to(bf)
-        w = (torch.randn((3, 3, cin, cout), generator=g, device=dev)
-             / (9 * cin) ** 0.5).to(bf)
-        gy = torch.randn((BATCH, cout, hw, hw), generator=g,
-                         device=dev).to(bf)
-        ds1 = torch.randn(cout, generator=g, device=dev) * 0.3
-        ds2 = torch.randn(cout, generator=g, device=dev) * 0.1
+        for k, n in zip(("fwd", "dgrad", "wgrad"),
+                        FULLH_LAUNCHES.get(mod, (0, 0, 0))):
+            out[f"{k}_fullh_per_step"] += n * row.get(k, 0.0)
+    for i, (blk, cin, cout, hw, rate, n) in enumerate(CHAIN_BLOCKS):
+        x, w, gy, _, _, ds1, ds2, _ = _case(torch, dev, 1400 + i, cin, cout,
+                                            hw)
         y = kbc.chain_conv_plain(x, w)[0]
         need_dx = blk != "in_conv"
-        ms = time_ms(torch, lambda: kbc._backward(
-            gy, ds1, ds2, y, x, None, None, w, None, 0.0, need_dx))
-        out["chain_bwd"][f"{blk}.0 {cin}->{cout} @{hw}"] = ms
-        out["chain_bwd_per_step"] += n * ms
+        row = {"plain_fwd": time_ms(torch, lambda: kbc.chain_conv_plain(x, w)),
+               "plain_bwd": time_ms(torch, lambda: kbc._backward(
+                   gy, ds1, ds2, y, x, None, None, w, None, 0.0, need_dx))}
+        # the second conv: Cout -> Cout on the first's raw output
+        z, w2, _, f, s, _, _, sd = _case(torch, dev, 1420 + i, cout, cout, hw)
+        row["bnl_fwd"] = time_ms(
+            torch, lambda: kbc.chain_conv_bnl(z, f, s, w2, sd, rate))
+        if rate == 0:
+            row["conv3x3_bnl"] = time_ms(
+                torch, lambda: kbnl.conv3x3_bnl(z, f, s, w2))
+            out["bnl_fwd_per_step"] += n * row["conv3x3_bnl"]
+        out["chain"][f"{blk} {cin}->{cout}->{cout} @{hw}"] = row
+        out["chain_fwd_per_step"] += n * row["plain_fwd"]
+        out["chain_bnl_fwd_per_step"] += n * row["bnl_fwd"]
+        out["chain_bwd_per_step"] += n * row["plain_bwd"]
+    for i, (mod, cin, cout, hw) in enumerate(STATS_SHAPES):
+        x, w, *_ = _case(torch, dev, 1440 + i, cin, cout, hw)
+        ms = time_ms(torch, lambda: kc.conv3x3_nchw_stats(x, w))
+        out["stats"][f"{mod} {cin}->{cout} @{hw}"] = ms
+        out["stats_fwd_per_run"] += ms
     return out
 
 

@@ -40,12 +40,13 @@
 // prologue; none for the first conv of a network, whose input needs no
 // gradient) + 1 wgrad pass + 1 wgrad reduce.
 //
-// Routing (by dtype, in the entry points): in bf16 the backward's wgrad
-// pass (with or without the prologue) and the dgrad without the prologue
-// (chain_conv_plain's) run on the tensor cores (conv3x3_mma.cuh:
-// wgrad_mma_kernel, dgrad_mma_kernel; their note says what bounds them and
-// how they answer it); the forwards, the dgrad with the prologue and every
-// f32 kernel run on the CUDA cores, as below.
+// Routing (by dtype, in the entry points): in bf16 every forward (plain +
+// moments, prologue + moments, prologue only: block_fwd_mma_kernel), the
+// backward's wgrad pass (with or without the prologue) and the dgrad
+// without the prologue (chain_conv_plain's) run on the tensor cores
+// (conv3x3_mma.cuh: conv_mma_tile, wgrad_mma_kernel, dgrad_mma_kernel;
+// their note says what bounds them and how they answer it); the dgrad with
+// the prologue and every f32 kernel run on the CUDA cores, as below.
 //
 // What bounds the CUDA-core kernels: the conv is conv3x3_nchw.cu's tiling
 // (conv3x3_tile.cuh: kTH x kTW output tile, Cin chunks of kCK channels in
@@ -187,25 +188,26 @@ struct FwdArgs {
   int cin, cout, h, wd, groups;
 };
 
-// PRO: the prologue on the input; MOM: the moments epilogue.
-template <typename T, bool PRO, bool MOM, int COP>
+// The f32 forward (bf16 takes block_fwd_mma_kernel below). PRO: the
+// prologue on the input; MOM: the moments epilogue.
+template <bool PRO, bool MOM, int COP>
 __global__ void __launch_bounds__(kThreads, uaps::conv::min_blocks(COP))
-    block_conv_fwd_kernel(FwdArgs<T> a) {
+    block_conv_fwd_kernel(FwdArgs<float> a) {
   __shared__ uaps::conv::TileSmem<COP> sm;
   __shared__ float red[kWarps];
   const uaps::conv::Tile t = uaps::conv::tile_of_block(a.groups, COP);
   auto wt = [&](int c, int tap, int co) {
-    return to_f32(a.w9[(static_cast<size_t>(tap) * a.cin + c) * a.cout + co]);
+    return a.w9[(static_cast<size_t>(tap) * a.cin + c) * a.cout + co];
   };
   float acc[kPX][COP];
   if constexpr (PRO) {
-    const ProLoad<T> in{a.x, a.pro};
+    const ProLoad<float> in{a.x, a.pro};
     uaps::conv::conv_tile(acc, sm, t, in, wt, a.cin, a.cout, a.h, a.wd);
   } else {
-    const uaps::conv::PlainLoad<T> in{a.x, a.cin, a.h, a.wd};
+    const uaps::conv::PlainLoad<float> in{a.x, a.cin, a.h, a.wd};
     uaps::conv::conv_tile(acc, sm, t, in, wt, a.cin, a.cout, a.h, a.wd);
   }
-  uaps::conv::store_tile<T, COP>(a.y, acc, t, a.cout, a.h, a.wd);
+  uaps::conv::store_tile<float, COP>(a.y, acc, t, a.cout, a.h, a.wd);
   if constexpr (MOM) {
     const int oy = t.y0 + t.ty;
     const int ox = t.x0 + t.tx;
@@ -227,6 +229,59 @@ __global__ void __launch_bounds__(kThreads, uaps::conv::min_blocks(COP))
       }
     }
   }
+}
+
+// The bf16 forward on the tensor cores (conv3x3_mma.cuh's conv_mma_tile):
+// y = conv3x3(z, w9) with z read through the loader In (PlainLoad, or
+// ProLoad with the prologue: z rounded to bf16 as it is staged, so the
+// value multiplied equals the CUDA-core kernel's and the plain version's),
+// w9 staged k-major ([tap][ci] rows of cout, 16-byte loads where cout % 8
+// == 0); with MOM the moments of the f32 accumulator, one [2, cout]
+// partial a block (mma_tile_moments).
+template <int NB, bool MOM, typename In>
+__global__ void __launch_bounds__(uaps::conv::tc::dg::kThreads, 2)
+    block_fwd_mma_kernel(In in, FwdArgs<__nv_bfloat16> a) {
+  namespace tc = uaps::conv::tc;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const tc::MmaTile t = tc::mma_tile_of_block<NB>(a.groups);
+  const uaps::conv::WStrides ws{3 * a.cin * a.cout, a.cin * a.cout, a.cout,
+                                1};   // [9, cin, cout]
+  float acc[2][NB][4];
+  tc::conv_mma_tile<NB>(acc, smem, t, in,
+                        tc::KMajorWeights<NB>{a.w9, ws, a.cout, t.n0}, a.cin,
+                        a.h, a.wd);
+  if constexpr (MOM)
+    tc::mma_tile_moments<NB>(acc, reinterpret_cast<float*>(smem), t, a.h,
+                             a.wd, a.part + partial_slot(t.b) * 2 * a.cout,
+                             a.cout);
+  tc::store_mma_tile<NB>(a.y, acc, smem, t, a.cout, a.h, a.wd);
+}
+
+template <int NB, bool MOM, typename In>
+cudaError_t fwd_mma_launch(const In& in, FwdArgs<__nv_bfloat16> a,
+                           int batch, cudaStream_t stream) {
+  namespace tc = uaps::conv::tc;
+  constexpr int kSmem = tc::mma_tile_smem(NB);
+  // above 48 KB only after opting in, once per kernel
+  static const cudaError_t opt = cudaFuncSetAttribute(
+      block_fwd_mma_kernel<NB, MOM, In>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (opt != cudaSuccess) return opt;
+  const dim3 grid = tc::mma_grid<NB>(batch, a.cout, a.h, a.wd);
+  a.groups = static_cast<int>(grid.z) / batch;
+  block_fwd_mma_kernel<NB, MOM, In>
+      <<<grid, tc::dg::kThreads, kSmem, stream>>>(in, a);
+  return cudaGetLastError();
+}
+
+// NB n8 tiles of output channels a block, as conv3x3_mma.cuh's
+// launch_conv_fwd_mma: 16, 32 or 64, in groups of 64 above
+template <bool MOM, typename In>
+cudaError_t launch_fwd_mma(const In& in, const FwdArgs<__nv_bfloat16>& a,
+                           int batch, cudaStream_t stream) {
+  if (a.cout <= 16) return fwd_mma_launch<2, MOM>(in, a, batch, stream);
+  if (a.cout <= 32) return fwd_mma_launch<4, MOM>(in, a, batch, stream);
+  return fwd_mma_launch<8, MOM>(in, a, batch, stream);
 }
 
 template <typename T>
@@ -293,17 +348,18 @@ __global__ void __launch_bounds__(kThreads, uaps::conv::min_blocks(COP))
   uaps::conv::store_tile<T, COP>(a.dx, acc, t, a.cin, a.h, a.wd);
 }
 
-template <typename T, bool PRO, bool MOM>
-cudaError_t launch_fwd(const FwdArgs<T>& a, int batch, cudaStream_t stream) {
+template <bool PRO, bool MOM>
+cudaError_t launch_fwd(const FwdArgs<float>& a, int batch,
+                       cudaStream_t stream) {
   const dim3 grid = uaps::conv::tile_grid(batch, a.cout, a.h, a.wd);
   if (a.cout <= 4)
-    block_conv_fwd_kernel<T, PRO, MOM, 4><<<grid, kThreads, 0, stream>>>(a);
+    block_conv_fwd_kernel<PRO, MOM, 4><<<grid, kThreads, 0, stream>>>(a);
   else if (a.cout <= 8)
-    block_conv_fwd_kernel<T, PRO, MOM, 8><<<grid, kThreads, 0, stream>>>(a);
+    block_conv_fwd_kernel<PRO, MOM, 8><<<grid, kThreads, 0, stream>>>(a);
   else if (a.cout <= 16)
-    block_conv_fwd_kernel<T, PRO, MOM, 16><<<grid, kThreads, 0, stream>>>(a);
+    block_conv_fwd_kernel<PRO, MOM, 16><<<grid, kThreads, 0, stream>>>(a);
   else
-    block_conv_fwd_kernel<T, PRO, MOM, 32><<<grid, kThreads, 0, stream>>>(a);
+    block_conv_fwd_kernel<PRO, MOM, 32><<<grid, kThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -322,8 +378,9 @@ cudaError_t launch_dgrad(const DgradArgs<T>& a, int batch,
   return cudaGetLastError();
 }
 
-// The number of forward tiles of one image plane: the per-channel partials'
-// row count is batch times this.
+// The number of CUDA-core tiles of one image plane: the per-channel
+// partials' row count of their forward (f32) and of the dgrad with the
+// prologue is batch times this.
 int tiles_per_image(int h, int wd) {
   const dim3 g = uaps::conv::tile_grid(1, 1, h, wd);
   return static_cast<int>(g.x * g.y);
@@ -337,19 +394,37 @@ cudaError_t fwd(const void* x, const void* w9, const Prologue& pro,
   const FwdArgs<T> a{static_cast<const T*>(x), static_cast<const T*>(w9),
                      pro, static_cast<T*>(y), static_cast<float*>(part), cin,
                      cout, h, wd, uaps::conv::tile_groups(cout)};
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   cudaError_t err;
-  if (prologue && moments)
-    err = launch_fwd<T, true, true>(a, batch, stream);
-  else if (prologue)
-    err = launch_fwd<T, true, false>(a, batch, stream);
-  else if (moments)
-    err = launch_fwd<T, false, true>(a, batch, stream);
-  else
-    return cudaErrorInvalidValue;
+  if (!prologue && !moments) return cudaErrorInvalidValue;
+  if constexpr (kBf16) {
+    // bf16: the tensor cores
+    const ProLoad<T> pin{a.x, pro};
+    const uaps::conv::PlainLoad<T> in{a.x, cin, h, wd};
+    if (prologue && moments)
+      err = launch_fwd_mma<true>(pin, a, batch, stream);
+    else if (prologue)
+      err = launch_fwd_mma<false>(pin, a, batch, stream);
+    else
+      err = launch_fwd_mma<true>(in, a, batch, stream);
+  } else {
+    if (prologue && moments)
+      err = launch_fwd<true, true>(a, batch, stream);
+    else if (prologue)
+      err = launch_fwd<true, false>(a, batch, stream);
+    else
+      err = launch_fwd<false, true>(a, batch, stream);
+  }
   if (err != cudaSuccess || !moments) return err;
-  return uaps::conv::reduce_partials(
-      static_cast<const float*>(part), static_cast<float*>(mom),
-      batch * tiles_per_image(h, wd), 2 * cout, stream);
+  const float* pp = static_cast<const float*>(part);
+  float* m = static_cast<float*>(mom);
+  if constexpr (kBf16)
+    return uaps::conv::reduce_partials_tall(
+        pp, m, batch * uaps::conv::tc::mma_tiles_per_image(h, wd), 2 * cout,
+        stream);
+  else
+    return uaps::conv::reduce_partials(pp, m, batch * tiles_per_image(h, wd),
+                                       2 * cout, stream);
 }
 
 template <typename T>
@@ -411,8 +486,10 @@ bool bad_shape(int batch, int cin, int cout, int h, int wd) {
 // The forward. x [B, Cin, H, W] and w9 [9, Cin, Cout] in dtype (contiguous);
 // with `prologue`, f and s [Cin] f32 and, with `drop`, seed (a device int64
 // whose low 32 bits are the seed), thr and scale; y [B, Cout, H, W] in dtype;
-// with `moments`, part: f32 scratch of B * ceil(H / 8) * ceil(W / 64) * 2 *
-// Cout elements and mom [2, Cout] f32 (s1, s2). Returns a cudaError_t code.
+// with `moments`, part: f32 scratch of B * ceil(H / 8) * ceil(W / 64) (f32)
+// or B * ceil(H / 8) * ceil(W / 32) (bf16: the tensor-core tile) * 2 * Cout
+// elements (kernels/block_conv.py fwd_tiles) and mom [2, Cout] f32 (s1,
+// s2). Returns a cudaError_t code.
 extern "C" int uaps_block_conv_fwd(const void* x, const void* w9,
                                    const void* f, const void* s,
                                    const void* seed, void* y, void* part,

@@ -1,22 +1,27 @@
 // Tensor-core (mma.sync bf16 -> f32) building blocks of the port's bf16 3x3
 // SAME stride-1 convolutions, for Hopper (sm_90a):
 //
-//   wgrad_mma_kernel   the weight gradient's first pass, per-strip partial
-//                      sums of dW (launch_wgrad_mma, then conv3x3_tile.cuh's
-//                      fixed-order reduce_kernel);
-//   conv_mma_tile      an 8 x 32 output tile of a 3x3 conv for up to 64
-//                      output channels; dgrad_mma_kernel runs it as the
-//                      input gradient (the conv of the cotangent with the
-//                      rotated weight).
+//   wgrad_mma_kernel     the weight gradient's first pass, per-strip partial
+//                        sums of dW (launch_wgrad_mma, then
+//                        conv3x3_tile.cuh's fixed-order reduce_kernel);
+//   conv_mma_tile        an 8 x 32 output tile of a 3x3 conv for up to 64
+//                        output channels, which runs as
+//     dgrad_mma_kernel     the chain plain conv's input gradient (the conv
+//                          of the folded cotangent with the rotated weight),
+//     conv_fwd_mma_kernel  conv3x3_nchw.cu's forward (bf16 -> bf16 or f32)
+//                          and, through a rotated weight view, its dgrad,
+//     block_conv.cu's block_fwd_mma_kernel, the fused-block forward (BN
+//                          prologue and output moments on or off).
 //
 // Replaces, for bf16 inputs, uaps_tpu/pallas/conv3x3_nchw.py:601
-// conv3x3_nchw_wgrad (its pallas_call at :692) and the dgrad of
+// conv3x3_nchw_wgrad (its pallas_call at :692), the dgrad of
 // uaps_tpu/pallas/block_conv.py:345 _chain_bwd_call (its pallas_call at
-// :368) without the prologue. The TPU kernels compute every tap as a
-// dot_general on the MXU; these compute every tap as m16n8k16 products on
-// the tensor cores. f32 inputs keep the CUDA-core kernels of
-// conv3x3_tile.cuh (conv_tile, wgrad_partial_kernel): tensor cores would
-// only give TF32 there. The entry points route by dtype alone.
+// :368) without the prologue, and conv3x3_nchw.py:289 conv3x3_nchw (:425;
+// :752 -> :763 for fullh, and the VJPs' dgrads :932, :987). The TPU kernels
+// compute every tap as a dot_general on the MXU; these compute every tap as
+// m16n8k16 products on the tensor cores. f32 inputs keep the CUDA-core
+// kernels of conv3x3_tile.cuh (conv_tile, wgrad_partial_kernel): tensor
+// cores would only give TF32 there. The entry points route by dtype alone.
 //
 // Operands are read through the same loaders as the CUDA-core kernels
 // (L.at(b, c0)(ch, gy, gx) -> float; conv3x3_tile.cuh). For bf16 every
@@ -42,25 +47,35 @@
 // At up3.0 (64 -> 32 channels, 128 x 128, B = 16) the weight gradient's
 // 9.66 GFLOP take ~0.01 ms at the bf16 peak, against 0.015 ms to read z and
 // ge once (50 MB); the chain dgrad's likewise (0.01 ms of products, 0.015 ms
-// for ge and dz). What the design does about it: each block reads its
-// operand tiles once into shared memory (the 1-pixel halo is the only
-// re-read: (4+2)/4 x (64+2)/64 = 1.55x for the wgrad's z, (8+2)/8 x
-// (32+2)/32 = 1.33x for the dgrad's ge), every staged value feeds 3 taps x
-// up to 32 output channels (wgrad) or 9 taps x up to 64 (dgrad) from
-// shared memory, and the staging loads of many warps and blocks are in
-// flight at once (two blocks an SM). The wgrad's strip height (chosen by
+// for ge and dz), and the forward's (0.01 ms, 0.0125 ms for x and y). What
+// the design does about it: each block reads its operand tiles once into
+// shared memory (the 1-pixel halo is the only re-read: (4+2)/4 x (64+2)/64
+// = 1.55x for the wgrad's z, (8+2)/8 x (32+2)/32 = 1.33x for the conv
+// tile's input), every staged value feeds 3 taps x up to 32 output
+// channels (wgrad) or 9 taps x up to 64 (the conv tile) from shared
+// memory, and the staging loads of many warps and blocks are in flight at
+// once (two blocks an SM). A bf16 PlainLoad input whose W is a multiple of
+// 4 is staged 8 bytes (4 pixels of one channel) a load and transposed in
+// registers (stage_tile_vec); the other loaders transform each value and
+// are read one value a load. The wgrad's strip height (chosen by
 // the Python wrappers' wgrad_strips: the tallest of 16, 8, 4 rows that
 // still gives 256 blocks, two an SM) trades blocks in flight against the
 // partials' traffic (9 * Cin * Cout f32 a strip) and each block's fixed
-// cost (its K-group sum and its partial's store).
+// cost (its K-group sum and its partial's store). The conv tile stages its
+// weights per block and 32-channel K chunk: 16 bytes a load where the
+// output channels have unit stride (block_conv.cu's [9, cin, cout]), else
+// one value a load (the model's permuted OIHW view and its rotation, which
+// conv3x3_nchw.cu reads in place).
 //
 // Wasted products by padding, at the main-path shapes: the wgrad pads Cin
 // to 16 a warp chunk (in_conv.0's Cin = 3: 13/16 = 81% of its products;
 // none at Cin 16, 32, 64) and Cout to an n8 tile (out_conv's Cout = 4: 50%;
 // none at 16 and 32); a W that is no multiple of 16 pads the last K step
-// (none on the main path). The dgrad pads its K (Cout) to 16 (none at 16
-// and 32) and its N (Cin) to the block's 16, 32 or 64 channels (none at
-// 16, 32, 64); in_conv.0 takes no dgrad.
+// (none on the main path). The conv tile pads its K to 16 (the forward's
+// in_conv.0, Cin 3: 81%; none at 16, 32, 64) and its N to the block's 16,
+// 32 or 64 channels (the head's Cout 4: 75%; none at 16, 32, 64), and a W
+// or H that is no multiple of 32 or 8 masks the last tile's pixels (none
+// on the main path).
 #pragma once
 
 #include <stdint.h>
@@ -411,12 +426,27 @@ constexpr int kThreads = 32 * kTH;
 constexpr int kOutStride = kTH * kTW + 8;  // epilogue plane, elements
 }  // namespace dg
 
-// Shared memory of conv_mma_tile for NB n8 tiles (and of its epilogue).
-__host__ __device__ constexpr int mma_tile_smem(int nb) {
+// Shared memory of conv_mma_tile for NB n8 tiles and of its epilogue,
+// whose output plane holds out_bytes-byte elements (2: bf16, 4: f32).
+__host__ __device__ constexpr int mma_tile_smem(int nb, int out_bytes = 2) {
   return (dg::kSPix + 9 * 8 * nb) * dg::kCH * 16 >
-                 8 * nb * dg::kOutStride * 2
+                 8 * nb * dg::kOutStride * out_bytes
              ? (dg::kSPix + 9 * 8 * nb) * dg::kCH * 16
-             : 8 * nb * dg::kOutStride * 2;
+             : 8 * nb * dg::kOutStride * out_bytes;
+}
+
+// The tiles of one image plane: the per-channel partials' row count of a
+// conv_mma_tile kernel is batch times this.
+inline int mma_tiles_per_image(int h, int wd) {
+  return ((h + dg::kTH - 1) / dg::kTH) * ((wd + dg::kTW - 1) / dg::kTW);
+}
+
+// The grid of a conv_mma_tile kernel writing nout channels in groups of
+// 8 NB: (column tiles, row tiles, image * groups).
+template <int NB>
+inline dim3 mma_grid(int batch, int nout, int h, int wd) {
+  return dim3((wd + dg::kTW - 1) / dg::kTW, (h + dg::kTH - 1) / dg::kTH,
+              batch * ((nout + 8 * NB - 1) / (8 * NB)));
 }
 
 // Where a block of conv_mma_tile sits: image b, output channels [n0, n0 +
@@ -434,6 +464,75 @@ __device__ __forceinline__ MmaTile mma_tile_of_block(int groups) {
                  static_cast<int>(blockIdx.x) * dg::kTW};
 }
 
+// Pixels of one channel that stage_tile_vec reads with one load (8
+// bytes). On an H100 4 pixels staged the plain forwards faster than 8 (16
+// bytes, whose 32 registers of loaded values cost the NB = 2 tiles a
+// block an SM) and than one value a load (PERF.md, section 6).
+constexpr int kVecPx = 4;
+
+// The input tile of conv_mma_tile (kTH + 2 rows of kSW pixels, nchunk
+// 8-channel chunks of the nk channels at rd) from a bf16 NCHW tensor whose
+// W is a multiple of kVecPx (so every kVecPx-pixel group of a row is
+// 8-byte aligned and lies wholly inside or outside the image): each
+// interior group of a row is read as one 8-byte load per channel, and 8
+// channels are transposed in registers into the group's 4 16-byte units;
+// the two halo columns are read one value a load. Consecutive threads take
+// consecutive rows of a group, which spreads the units of a quarter warp's
+// store over the swizzle's bank groups.
+__device__ __forceinline__ void stage_tile_vec(
+    uint4* xs, const PlainLoad<__nv_bfloat16>::At& rd, int nchunk, int nk,
+    const MmaTile& t, int h, int wd) {
+  constexpr int kRows = dg::kTH + 2;
+  constexpr int kGroups = dg::kTW / kVecPx;
+  const int nvec = nchunk * kRows * kGroups;
+  const int nall = nvec + nchunk * kRows * 2;
+#pragma unroll 1
+  for (int i = threadIdx.x; i < nall; i += dg::kThreads) {
+    if (i < nvec) {
+      const int r = i % kRows;
+      const int q = (i / kRows) % kGroups;
+      const int c = i / (kRows * kGroups);
+      const int gy = t.y0 - 1 + r;
+      const int gx = t.x0 + kVecPx * q;
+      const bool in = gy >= 0 && gy < h && gx < wd;
+      uint2 v[8];   // [channel]: pixels 0-1, 2-3
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        v[j] = make_uint2(0u, 0u);
+        if (in && 8 * c + j < nk)
+          v[j] = __ldg(reinterpret_cast<const uint2*>(
+              rd.p + (8 * c + j) * rd.plane + (gy * wd + gx)));
+      }
+#pragma unroll
+      for (int px = 0; px < kVecPx; ++px) {
+        // channels 2w (low half) and 2w + 1 of pixel px
+        const uint32_t sel = (px & 1) ? 0x7632u : 0x5410u;
+        const auto word = [&](int j) { return px < 2 ? v[j].x : v[j].y; };
+        xs[unit<dg::kCH>(r * dg::kSW + 1 + kVecPx * q + px, c)] =
+            make_uint4(__byte_perm(word(0), word(1), sel),
+                       __byte_perm(word(2), word(3), sel),
+                       __byte_perm(word(4), word(5), sel),
+                       __byte_perm(word(6), word(7), sel));
+      }
+    } else {
+      const int k = i - nvec;
+      const int side = k & 1;
+      const int r = (k / 2) % kRows;
+      const int c = k / (2 * kRows);
+      const int gy = t.y0 - 1 + r;
+      const int gx = side ? t.x0 + dg::kTW : t.x0 - 1;
+      const bool in = gy >= 0 && gy < h && gx >= 0 && gx < wd;
+      float f[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        f[j] = in && 8 * c + j < nk ? rd(8 * c + j, gy, gx) : 0.f;
+      xs[unit<dg::kCH>(r * dg::kSW + (side ? dg::kSW - 1 : 0), c)] =
+          make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]),
+                     pack_bf16(f[4], f[5]), pack_bf16(f[6], f[7]));
+    }
+  }
+}
+
 // acc[hh][n][e] = the sum over input channels k < kin and the 9 taps (kh,
 // kw) of in[b, k, y + kh - 1, x + kw - 1] * W(tap, k, n0 + n'), for the
 // warp's output row y = y0 + warp and its two m16 tiles (columns x0 + 16 hh
@@ -441,8 +540,11 @@ __device__ __forceinline__ MmaTile mma_tile_of_block(int groups) {
 // (tap, input channel). The input tile (kKC channels and the 1-pixel halo)
 // and the weights sit in shared memory, staged per kKC input channels;
 // `stage_w(ws, k0, nk)` writes the weights of input channels [k0, k0 + nk)
-// as units [9 * 8 NB][kCH] (row tap * 8 NB + n, chunk c: the 8 weights of
-// input channels k0 + 8c .. 8c + 7, swizzled with unit<kCH>). Per (tap,
+// in one of two layouts, as StageW::kKMajor says: n-major, units [9 * 8
+// NB][kCH] (row tap * 8 NB + n, chunk c: the 8 weights of input channels
+// k0 + 8c .. 8c + 7), read with ldmatrix; or k-major, units [9 * kKC][NB]
+// (row tap * kKC + k, chunk c: the 8 weights of output channels n0 + 8c ..
+// 8c + 7), read with ldmatrix.trans; both swizzled with unit<>. Per (tap,
 // k16) step a warp loads 2 A fragments (ldmatrix of the pixel-major input
 // tile) and NB / 2 x4 B fragments, for 2 NB products.
 template <int NB, typename In, typename StageW>
@@ -457,6 +559,11 @@ __device__ __forceinline__ void conv_mma_tile(float (&acc)[2][NB][4],
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int mi = lane >> 3;
+  constexpr bool kVec = std::is_same<In, PlainLoad<__nv_bfloat16>>::value;
+  bool vec = false;
+  if constexpr (kVec)
+    vec = (wd % kVecPx) == 0 &&
+          (reinterpret_cast<uintptr_t>(in.x) & (2 * kVecPx - 1)) == 0;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh)
 #pragma unroll
@@ -468,12 +575,16 @@ __device__ __forceinline__ void conv_mma_tile(float (&acc)[2][NB][4],
     const int kc = (nk + 15) / 16;   // k16 steps a tap
     const auto rd = in.at(t.b, k0);
     __syncthreads();  // the previous chunk is consumed by every warp
-    stage<dg::kCH, dg::kSPix, dg::kThreads>(
-        xs, rd, 2 * kc, nk, [&](int p, int& gy, int& gx) {
-          gy = t.y0 - 1 + p / dg::kSW;
-          gx = t.x0 - 1 + p % dg::kSW;
-          return gy >= 0 && gy < h && gx >= 0 && gx < wd;
-        });
+    if (vec) {
+      if constexpr (kVec) stage_tile_vec(xs, rd, 2 * kc, nk, t, h, wd);
+    } else {
+      stage<dg::kCH, dg::kSPix, dg::kThreads>(
+          xs, rd, 2 * kc, nk, [&](int p, int& gy, int& gx) {
+            gy = t.y0 - 1 + p / dg::kSW;
+            gx = t.x0 - 1 + p % dg::kSW;
+            return gy >= 0 && gy < h && gx >= 0 && gx < wd;
+          });
+    }
     stage_w(ws, k0, nk);
     __syncthreads();
 #pragma unroll 1
@@ -484,8 +595,16 @@ __device__ __forceinline__ void conv_mma_tile(float (&acc)[2][NB][4],
 #pragma unroll
         for (int q = 0; q < NB / 2; ++q) {
           uint32_t t4[4];
-          const int row = tap * 8 * NB + 8 * (2 * q + (mi >> 1)) + (lane & 7);
-          ldsm_x4(t4, smem_addr(ws + unit<dg::kCH>(row, 2 * kk + (mi & 1))));
+          if constexpr (StageW::kKMajor) {
+            const int row = tap * dg::kKC + 16 * kk + (mi & 1) * 8 +
+                            (lane & 7);
+            ldsm_x4_t(t4, smem_addr(ws + unit<NB>(row, 2 * q + (mi >> 1))));
+          } else {
+            const int row =
+                tap * 8 * NB + 8 * (2 * q + (mi >> 1)) + (lane & 7);
+            ldsm_x4(t4,
+                    smem_addr(ws + unit<dg::kCH>(row, 2 * kk + (mi & 1))));
+          }
           bf[2 * q][0] = t4[0];
           bf[2 * q][1] = t4[1];
           bf[2 * q + 1][0] = t4[2];
@@ -506,17 +625,28 @@ __device__ __forceinline__ void conv_mma_tile(float (&acc)[2][NB][4],
   }
 }
 
-// y[b, n0 + n, y, x] = acc rounded to bf16 (round to nearest even, as
-// store_tile) for the tile's in-image pixels and the channels below nout (y
-// contiguous [B, nout, H, W]): through a [8 NB][kTH][kTW] bf16 tile in
-// shared memory, then 16-byte stores of 8 pixels where W % 8 == 0.
-template <int NB>
-__device__ __forceinline__ void store_mma_tile(__nv_bfloat16* __restrict__ y,
+// Accumulator e of n8 tile n of the warp's m16 tile hh: tile pixel
+// (row warp, column 16 hh + lane / 4 (+8 for e >= 2)), channel 8 n + 2 (lane
+// % 4) (+1 for odd e).
+__device__ __forceinline__ int mma_px(int hh, int e, int lane) {
+  return 16 * hh + (lane >> 2) + (e >= 2 ? 8 : 0);
+}
+__device__ __forceinline__ int mma_ch(int n, int e, int lane) {
+  return 8 * n + 2 * (lane & 3) + (e & 1);
+}
+
+// y[b, n0 + n, y, x] = acc rounded to Tout (bf16: round to nearest even,
+// as store_tile) for the tile's in-image pixels and the channels below nout
+// (y contiguous [B, nout, H, W]): through a [8 NB][kTH][kTW] Tout tile in
+// shared memory, then 16-byte stores (8 bf16 or 4 f32 pixels) where W % 8
+// == 0.
+template <int NB, typename Tout>
+__device__ __forceinline__ void store_mma_tile(Tout* __restrict__ y,
                                                const float (&acc)[2][NB][4],
                                                unsigned char* smem,
                                                const MmaTile& t, int nout,
                                                int h, int wd) {
-  __nv_bfloat16* os = reinterpret_cast<__nv_bfloat16*>(smem);
+  Tout* os = reinterpret_cast<Tout*>(smem);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   __syncthreads();  // the operand tiles are consumed
@@ -525,12 +655,9 @@ __device__ __forceinline__ void store_mma_tile(__nv_bfloat16* __restrict__ y,
 #pragma unroll
     for (int n = 0; n < NB; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int px = 16 * hh + (lane >> 2) + (e >= 2 ? 8 : 0);
-        const int ch = 8 * n + 2 * (lane & 3) + (e & 1);
-        os[ch * dg::kOutStride + warp * dg::kTW + px] =
-            __float2bfloat16(acc[hh][n][e]);
-      }
+      for (int e = 0; e < 4; ++e)
+        os[mma_ch(n, e, lane) * dg::kOutStride + warp * dg::kTW +
+           mma_px(hh, e, lane)] = from_f32<Tout>(acc[hh][n][e]);
   __syncthreads();
   const size_t plane = static_cast<size_t>(h) * wd;
   const bool vec = (wd % 8) == 0;
@@ -542,17 +669,119 @@ __device__ __forceinline__ void store_mma_tile(__nv_bfloat16* __restrict__ y,
     const int gy = t.y0 + r;
     const int gx = t.x0 + c8;
     if (t.n0 + ch >= nout || gy >= h || gx >= wd) continue;
-    __nv_bfloat16* dst = y + (static_cast<size_t>(t.b) * nout + t.n0 + ch) *
-                                 plane +
-                         static_cast<size_t>(gy) * wd + gx;
-    const __nv_bfloat16* src = os + ch * dg::kOutStride + r * dg::kTW + c8;
+    Tout* dst = y + (static_cast<size_t>(t.b) * nout + t.n0 + ch) * plane +
+                static_cast<size_t>(gy) * wd + gx;
+    const Tout* src = os + ch * dg::kOutStride + r * dg::kTW + c8;
     if (vec) {
-      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+#pragma unroll
+      for (int v = 0; v < static_cast<int>(8 * sizeof(Tout)) / 16; ++v)
+        reinterpret_cast<uint4*>(dst)[v] =
+            reinterpret_cast<const uint4*>(src)[v];
     } else {
       for (int j = 0; j < 8 && gx + j < wd; ++j) dst[j] = src[j];
     }
   }
 }
+
+// The block's per-channel moments of the f32 accumulator over its in-image
+// pixels: part[n0 + n] = sum(acc), part[cout + n0 + n] = sum(acc^2) for the
+// channels below cout (part: the block's [2, cout] slot). Each lane sums its
+// fragment's pixels, a butterfly over the 8 lanes of one channel pair sums
+// the warp's, and the 8 warps are added in order through shared memory
+// (red: 2 * 8 NB * kTH floats; the operand tiles, consumed): a fixed order,
+// no atomics.
+template <int NB>
+__device__ __forceinline__ void mma_tile_moments(
+    const float (&acc)[2][NB][4], float* red, const MmaTile& t, int h,
+    int wd, float* __restrict__ part, int cout) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const bool row_in = t.y0 + warp < h;
+  __syncthreads();  // the operand tiles are consumed
+#pragma unroll
+  for (int n = 0; n < NB; ++n) {
+    float s[2][2] = {{0.f, 0.f}, {0.f, 0.f}};   // [channel parity][s1, s2]
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (row_in && t.x0 + mma_px(hh, e, lane) < wd) {
+          const float v = acc[hh][n][e];
+          s[e & 1][0] += v;
+          s[e & 1][1] = fmaf(v, v, s[e & 1][1]);
+        }
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        s[j >> 1][j & 1] +=
+            __shfl_xor_sync(0xffffffffu, s[j >> 1][j & 1], off);
+    if (lane < 4)
+#pragma unroll
+      for (int par = 0; par < 2; ++par) {
+        const int ch = mma_ch(n, par, lane);
+        red[(warp * 8 * NB + ch) * 2] = s[par][0];
+        red[(warp * 8 * NB + ch) * 2 + 1] = s[par][1];
+      }
+  }
+  __syncthreads();
+  for (int ch = threadIdx.x; ch < 8 * NB; ch += dg::kThreads) {
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int w = 0; w < dg::kTH; ++w) {
+      s1 += red[(w * 8 * NB + ch) * 2];
+      s2 += red[(w * 8 * NB + ch) * 2 + 1];
+    }
+    if (t.n0 + ch < cout) {
+      part[t.n0 + ch] = s1;
+      part[cout + t.n0 + ch] = s2;
+    }
+  }
+}
+
+// The weights of conv_mma_tile staged k-major (its kKMajor layout) from an
+// HWIO view w with strides s (W(tap, k, n) = w at tap, input channel k,
+// output channel n): unit (tap * kKC + k, chunk c) holds W(tap, k0 + k,
+// n0 + 8c .. n0 + 8c + 7), zeros past kin's chunk and nout. One 16-byte
+// load a unit where n has unit stride (a contiguous HWIO or [9, cin, cout]
+// weight), else 8 loads of one value; consecutive threads take consecutive
+// chunks, then consecutive k.
+template <int NB>
+struct KMajorWeights {
+  static constexpr bool kKMajor = true;
+  const __nv_bfloat16* w;
+  WStrides s;
+  int nout, n0;
+  __device__ __forceinline__ void operator()(uint4* ws, int k0,
+                                             int nk) const {
+    const int rows = 16 * ((nk + 15) / 16);   // k rows a tap
+    const bool vec = s.co == 1 && (nout % 8) == 0 && (s.ci % 8) == 0 &&
+                     (s.kh % 8) == 0 && (s.kw % 8) == 0 &&
+                     (reinterpret_cast<uintptr_t>(w) & 15) == 0;
+    for (int i = threadIdx.x; i < 9 * rows * NB; i += dg::kThreads) {
+      const int c = i % NB;
+      const int tap = i / (NB * rows);
+      const int k = (i / NB) % rows;
+      const int n = n0 + 8 * c;
+      uint4 u = make_uint4(0u, 0u, 0u, 0u);
+      if (k < nk && n < nout) {
+        const __nv_bfloat16* src = w + (tap / 3) * s.kh + (tap % 3) * s.kw +
+                                   (k0 + k) * s.ci + n * s.co;
+        if (vec) {
+          u = __ldg(reinterpret_cast<const uint4*>(src));
+        } else {
+          uint32_t e[4] = {0u, 0u, 0u, 0u};
+          for (int j = 0; j < 8 && n + j < nout; ++j)
+            e[j / 2] |= static_cast<uint32_t>(
+                            __bfloat16_as_ushort(__ldg(src + j * s.co)))
+                        << (16 * (j & 1));
+          u = make_uint4(e[0], e[1], e[2], e[3]);
+        }
+      }
+      ws[unit<NB>(tap * dg::kKC + k, c)] = u;
+    }
+  }
+};
 
 // The rotated weight of the input gradient as conv_mma_tile stages it: W(tap,
 // k = co, n = ci) = w9[8 - tap, ci, co] (w9 the forward's [9, cin, cout]),
@@ -560,6 +789,7 @@ __device__ __forceinline__ void store_mma_tile(__nv_bfloat16* __restrict__ y,
 // where cout % 8 == 0.
 template <int NB>
 struct RotWeights {
+  static constexpr bool kKMajor = false;
   const __nv_bfloat16* w9;
   int cin, cout, n0;
   __device__ __forceinline__ void operator()(uint4* ws, int k0,
@@ -616,11 +846,9 @@ cudaError_t dgrad_mma_launch(const G& ge, const __nv_bfloat16* w9,
       dgrad_mma_kernel<NB, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmem);
   if (opt != cudaSuccess) return opt;
-  const int groups = (cin + 8 * NB - 1) / (8 * NB);
-  const dim3 grid((wd + dg::kTW - 1) / dg::kTW, (h + dg::kTH - 1) / dg::kTH,
-                  batch * groups);
+  const dim3 grid = mma_grid<NB>(batch, cin, h, wd);
   dgrad_mma_kernel<NB, G><<<grid, dg::kThreads, kSmem, stream>>>(
-      ge, w9, dx, cin, cout, h, wd, groups);
+      ge, w9, dx, cin, cout, h, wd, static_cast<int>(grid.z) / batch);
   return cudaGetLastError();
 }
 
@@ -636,6 +864,59 @@ cudaError_t launch_dgrad_mma(const G& ge, const __nv_bfloat16* w9,
   if (cin <= 32)
     return dgrad_mma_launch<4>(ge, w9, dx, batch, cin, cout, h, wd, stream);
   return dgrad_mma_launch<8>(ge, w9, dx, batch, cin, cout, h, wd, stream);
+}
+
+// y = conv3x3(x, W) in bf16 with bf16 or f32 output (conv3x3_nchw.cu's
+// forward and, through a rotated weight view, its dgrad): x's cin channels
+// are the tile's K, W's cout its N.
+template <int NB, typename Tout>
+__global__ void __launch_bounds__(dg::kThreads, 2)
+    conv_fwd_mma_kernel(PlainLoad<__nv_bfloat16> in,
+                        const __nv_bfloat16* __restrict__ w, WStrides ws,
+                        Tout* __restrict__ y, int cin, int cout, int h,
+                        int wd, int groups) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const MmaTile t = mma_tile_of_block<NB>(groups);
+  float acc[2][NB][4];
+  conv_mma_tile<NB>(acc, smem, t, in, KMajorWeights<NB>{w, ws, cout, t.n0},
+                    cin, h, wd);
+  store_mma_tile<NB>(y, acc, smem, t, cout, h, wd);
+}
+
+template <int NB, typename Tout>
+cudaError_t conv_fwd_mma_launch(const __nv_bfloat16* x,
+                                const __nv_bfloat16* w, WStrides ws,
+                                Tout* y, int batch, int cin, int cout, int h,
+                                int wd, cudaStream_t stream) {
+  constexpr int kSmem = mma_tile_smem(NB, sizeof(Tout));
+  // above 48 KB only after opting in, once per kernel
+  static const cudaError_t opt = cudaFuncSetAttribute(
+      conv_fwd_mma_kernel<NB, Tout>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (opt != cudaSuccess) return opt;
+  const dim3 grid = mma_grid<NB>(batch, cout, h, wd);
+  conv_fwd_mma_kernel<NB, Tout><<<grid, dg::kThreads, kSmem, stream>>>(
+      PlainLoad<__nv_bfloat16>{x, cin, h, wd}, w, ws, y, cin, cout, h, wd,
+      static_cast<int>(grid.z) / batch);
+  return cudaGetLastError();
+}
+
+// NB n8 tiles of output channels a block: 16, 32 or 64, in groups of 64
+// above (a Cout of 4, the logits head, pads to 16: 75% of its products are
+// zeros, as the tile is bound by its loads, not its products)
+template <typename Tout>
+cudaError_t launch_conv_fwd_mma(const __nv_bfloat16* x,
+                                const __nv_bfloat16* w, WStrides ws,
+                                Tout* y, int batch, int cin, int cout, int h,
+                                int wd, cudaStream_t stream) {
+  if (cout <= 16)
+    return conv_fwd_mma_launch<2>(x, w, ws, y, batch, cin, cout, h, wd,
+                                  stream);
+  if (cout <= 32)
+    return conv_fwd_mma_launch<4>(x, w, ws, y, batch, cin, cout, h, wd,
+                                  stream);
+  return conv_fwd_mma_launch<8>(x, w, ws, y, batch, cin, cout, h, wd,
+                                stream);
 }
 
 }  // namespace tc

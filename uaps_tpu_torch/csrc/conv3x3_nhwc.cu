@@ -44,11 +44,7 @@ using uaps::from_f32;
 using uaps::to_f32;
 using uaps::conv::kPX;
 using uaps::conv::kThreads;
-
-// element strides of the HWIO weight view
-struct WStrides {
-  int kh, kw, ci, co;
-};
+using uaps::conv::WStrides;
 
 // A contiguous NHWC tensor read as f32: channel c0 + ch of pixel (gy, gx)
 // of image b. The per-pixel index is 32-bit (the entry points refuse

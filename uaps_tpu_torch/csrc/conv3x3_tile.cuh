@@ -9,9 +9,11 @@
 // the BN-moment cotangents into a gradient), so the transformed tensor is
 // never written to device memory.
 //
-//   conv_tile / store_tile   the forward tile: one block computes a kTH x kTW
-//                            output tile of one image for up to 32 output
-//                            channels (notes in conv3x3_nchw.cu);
+//   conv_tile / store_tile   the forward tile, for f32: one block computes a
+//                            kTH x kTW output tile of one image for up to 32
+//                            output channels (notes in conv3x3_nchw.cu;
+//                            bf16 takes the tensor-core tile of
+//                            conv3x3_mma.cuh);
 //   wgrad_partial_kernel     the weight gradient's first pass, per-strip
 //                            partial sums, for f32 (notes in
 //                            conv3x3_wgrad_nchw.cu; bf16 takes the
@@ -29,6 +31,14 @@
 
 namespace uaps {
 namespace conv {
+
+// Element strides of an HWIO weight view [3, 3, Cin, Cout], read from the
+// address of its tap (0, 0), channel (0, 0): w[kh * s.kh + kw * s.kw + ci *
+// s.ci + co * s.co]. Signed, so a view rotated in (kh, kw) with its
+// channels swapped (the dgrad's) needs no copy.
+struct WStrides {
+  int kh, kw, ci, co;
+};
 
 // ------------------------------------------------------------- forward tile
 constexpr int kTH = 8;                      // output rows per block
@@ -347,30 +357,43 @@ __global__ void __launch_bounds__(wgrad::kThreads, 2)
 constexpr int kRedRows = 8;  // thread rows of the reduce pass
 
 // out[i] = the sum over k < n_part of part[k * total + i], in a fixed order:
-// each thread row takes every kRedRows-th k, then the rows are added in
-// order.
-__global__ void __launch_bounds__(32 * kRedRows)
+// each of the ROWS thread rows takes every ROWS-th k, then the rows are
+// added in order.
+template <int ROWS>
+__global__ void __launch_bounds__(32 * ROWS)
     reduce_kernel(const float* __restrict__ part, float* __restrict__ out,
                   int n_part, int total) {
-  __shared__ float sm[kRedRows][33];
+  __shared__ float sm[ROWS][33];
   const int i = blockIdx.x * 32 + threadIdx.x;
   float v = 0.f;
   if (i < total)
-    for (int k = threadIdx.y; k < n_part; k += kRedRows)
+    for (int k = threadIdx.y; k < n_part; k += ROWS)
       v += part[static_cast<size_t>(k) * total + i];
   sm[threadIdx.y][threadIdx.x] = v;
   __syncthreads();
   if (threadIdx.y == 0 && i < total) {
     float sum = 0.f;
 #pragma unroll
-    for (int r = 0; r < kRedRows; ++r) sum += sm[r][threadIdx.x];
+    for (int r = 0; r < ROWS; ++r) sum += sm[r][threadIdx.x];
     out[i] = sum;
   }
 }
 
 inline cudaError_t reduce_partials(const float* part, float* out, int n_part,
                                    int total, cudaStream_t stream) {
-  reduce_kernel<<<(total + 31) / 32, dim3(32, kRedRows), 0, stream>>>(
+  reduce_kernel<kRedRows><<<(total + 31) / 32, dim3(32, kRedRows), 0,
+                            stream>>>(part, out, n_part, total);
+  return cudaGetLastError();
+}
+
+// The same sum with 32 thread rows a block, for few columns over many
+// partials (the bf16 forward's moments: 2 * Cout columns, one row per 8 x
+// 32 tile, 4096 rows at 256 x 256, B = 16), where one block of 8 rows a
+// column chain would hold a 512-long serial chain of loads.
+inline cudaError_t reduce_partials_tall(const float* part, float* out,
+                                        int n_part, int total,
+                                        cudaStream_t stream) {
+  reduce_kernel<32><<<(total + 31) / 32, dim3(32, 32), 0, stream>>>(
       part, out, n_part, total);
   return cudaGetLastError();
 }

@@ -67,9 +67,21 @@ bnl_bwd_launches = 0     # chain_conv_bnl backwards
 
 NEG_SLOPE = 0.01
 _H1, _H2, _H3 = 0x9E3779B9, 0x85EBCA77, 0xC2B2AE3D
-# the forward and dgrad tile (kTH, kTW in csrc/conv3x3_tile.cuh): the
-# per-channel partials' rows
+# the CUDA-core forward and dgrad tile (kTH, kTW in csrc/conv3x3_tile.cuh)
+# and the tensor-core forward's (dg::kTH, dg::kTW in csrc/conv3x3_mma.cuh):
+# one row of per-channel partials each
 TILE_H, TILE_W = 8, 64
+MMA_TILE_H, MMA_TILE_W = 8, 32
+
+
+def fwd_tiles(dtype, b: int, h: int, wd: int) -> int:
+    """Blocks of the forward kernel, one [2, Cout] moment partial each (the
+    scratch rows the moments' fixed-order reduce adds): the tensor-core
+    tile's grid for bf16, the CUDA-core tile's for f32 (csrc/block_conv.cu
+    `fwd`)."""
+    th, tw = ((MMA_TILE_H, MMA_TILE_W) if dtype == torch.bfloat16
+              else (TILE_H, TILE_W))
+    return b * -(-h // th) * -(-wd // tw)
 
 
 # -------------------------------------------------------------- the mask
@@ -248,8 +260,8 @@ def kernel_fwd(x: torch.Tensor, wk: torch.Tensor, f, s, seed, rate: float,
     y = torch.empty((b, cout, h, wd), dtype=x.dtype, device=x.device)
     part = mom = None
     if moments_on:
-        tiles = b * -(-h // TILE_H) * -(-wd // TILE_W)
-        part = torch.empty(tiles * 2 * cout, dtype=torch.float32,
+        part = torch.empty(fwd_tiles(x.dtype, b, h, wd) * 2 * cout,
+                           dtype=torch.float32,
                            device=x.device)
         mom = torch.empty((2, cout), dtype=torch.float32, device=x.device)
     lib, fwd, _ = _fns()

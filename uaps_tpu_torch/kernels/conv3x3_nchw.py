@@ -8,8 +8,10 @@ conv with its output's moments (`conv3x3_nchw_stats`,
 `conv3x3_fast_nchw_stats`). Two CUDA sources: `csrc/conv3x3_nchw.cu`
 (forward, and dgrad with flipped weights) and `csrc/conv3x3_wgrad_nchw.cu`
 (weight gradient); their notes say what bounds each kernel and how the
-design answers that. The stats entries run the moments kernels of
-`csrc/block_conv.cu` (through `kernels/block_conv.py`).
+design answers that. Both route by dtype inside the C entry points: bf16
+runs on the tensor cores (`csrc/conv3x3_mma.cuh`), f32 on the CUDA cores.
+The stats entries run the moments kernels of `csrc/block_conv.cu`
+(through `kernels/block_conv.py`).
 
 Variants: `variant` takes JAX's names (`VARIANTS`) and raises on another.
 On the TPU they are Mosaic layouts of one function; here every name but
