@@ -60,8 +60,12 @@ Phases (any failure: exit 1 and no result line):
      and at 0.5, feature noise, feature dropout) forward and backward at
      the 5 skip shapes of a neu UAPS step (B=16), f32 and bf16, equal to
      its plain version bit for bit, the backward regenerating the
-     forward's mask; on the card, dropout's zero share within 0.01 of p
-     over 16.8 M elements, noise in [-r, r) and shared across the batch,
+     forward's mask; dropout also at a level-0 count plus 1 and plus 7
+     elements (the kernel's scalar tail) and on x and g one element past
+     their allocations' start (a misaligned pointer: the scalar path),
+     forward, backward and the kernel on g, bit for bit; on the card,
+     dropout's zero share within 0.01 of p over 16.8 M elements, noise in
+     [-r, r) and shared across the batch,
      feature dropout's threshold in [0.7, 0.9] x max; the fused
      uncertainty forward and backward on 4 x [16, 256, 256, 4] f32 NHWC
      views: var and dlogits within rtol = atol = 1e-5, pseudo-labels equal
@@ -136,8 +140,9 @@ Phases (any failure: exit 1 and no result line):
      0-1 of a neu UAPS step (FULLH_SHAPES), the stats conv
      (`conv3x3_fast_nchw_stats`: y, s1, s2 and the backward with all three
      cotangents) at the bn_stats blocks' shapes (STATS_SHAPES) and the NHWC
-     conv (`conv3x3_small`: y, dx, dW) at [16, 256, 256, 16] -> 16 and two
-     odd shapes, f32 and bf16, against their plain versions (phase 12's
+     conv (`conv3x3_small`: y, dx, dW) at [16, 256, 256, 16] -> 16 and
+     three odd shapes (5 -> 13 on 37 x 70, 40 -> 8 on 9 x 131, 3 -> 72 on
+     37 x 70), f32 and bf16, against their plain versions (phase 12's
      tolerances; max abs and rel errors); fullh's bf16-in, f32-out output
      equal to the bf16 rounding of the default variant's; then per shape
      (bf16, warm L2) ms, the plain version's, the library call's (cuDNN
@@ -154,7 +159,10 @@ Phases (any failure: exit 1 and no result line):
      (b) ConvBlock(bn_stats=True) at the neu level-0 and level-1 shapes in
      train mode, forward and backward, against the default ConvBlock with
      the same weights, f32 (tolerances in Smoke._stats_blocks); (c)
-     conv3x3_small forward and backward at [16, 256, 256, 16] -> 16, bf16.
+     conv3x3_small forward and backward at [16, 256, 256, 16] -> 16, bf16,
+     and the route by dtype from the profiler's kernel names: 3 NHWC
+     forwards and dgrads launch nhwc_fwd_mma_kernel (the tensor cores) in
+     bf16 and conv3x3_nhwc_fwd_kernel (the CUDA cores) in f32.
 It then prints {"kernels": [...]} (launches from phase 7 for the baseline
 kernels, from phase 10 for the UAPS kernels, from phase 13 for the
 fused-block kernels, from phase 16a for the pseudo-label kernel and from
@@ -309,13 +317,14 @@ ODD_CHAIN = [(3, 16), (40, 13), (64, 32)]
 ODD_CONV = [(3, 4), (3, 13), (40, 4), (40, 13), (13, 72)]
 # the profiler's kernel names that the route proof counts: the tensor-core
 # (bf16) weight-gradient pass, chain plain dgrad, conv3x3_nchw forward
-# (and its dgrad) and fused-block forward, then the CUDA-core ones (f32;
-# the fused-block dgrad also in bf16 with the prologue). No name contains
-# another.
+# (and its dgrad), fused-block forward and NHWC forward (and its dgrad),
+# then the CUDA-core ones (f32; the fused-block dgrad also in bf16 with the
+# prologue). No name contains another.
 ROUTE_KERNELS = ("wgrad_mma_kernel", "dgrad_mma_kernel",
                  "conv_fwd_mma_kernel", "block_fwd_mma_kernel",
-                 "wgrad_partial_kernel", "block_conv_dgrad_kernel",
-                 "conv3x3_fwd_kernel", "block_conv_fwd_kernel")
+                 "nhwc_fwd_mma_kernel", "wgrad_partial_kernel",
+                 "block_conv_dgrad_kernel", "conv3x3_fwd_kernel",
+                 "block_conv_fwd_kernel", "conv3x3_nhwc_fwd_kernel")
 # the launch counters whose every call runs one weight-gradient pass
 WGRAD_PASSES = ("conv3x3_nchw_wgrad", "conv3x3_nchw_wgrad_fullh",
                 "chain_conv_plain_bwd", "chain_conv_bnl_bwd",
@@ -441,7 +450,8 @@ def bf16_route(per_step, steps):
     `per_step` must show: every weight-gradient pass, every chain plain
     dgrad, every conv3x3_nchw forward and dgrad and every fused-block
     forward on the tensor cores; no CUDA-core wgrad pass or forward; the
-    CUDA-core fused-block dgrad only for the backwards with the prologue."""
+    CUDA-core fused-block dgrad only for the backwards with the prologue;
+    every NHWC forward and dgrad on the tensor cores."""
     plain = per_step["chain_conv_plain_bwd"]
     return {"wgrad_mma_kernel": steps * sum(per_step[k]
                                             for k in WGRAD_PASSES),
@@ -451,10 +461,12 @@ def bf16_route(per_step, steps):
                                                for k in NCHW_FWD_PASSES),
             "block_fwd_mma_kernel": steps * sum(per_step[k]
                                                 for k in BLOCK_FWD_PASSES),
+            "nhwc_fwd_mma_kernel": steps * per_step["conv3x3_nhwc"],
             "wgrad_partial_kernel": 0,
             "block_conv_dgrad_kernel": steps * (per_step["chain_conv_bnl_bwd"]
                                                 + per_step["conv3x3_bnl_bwd"]),
-            "conv3x3_fwd_kernel": 0, "block_conv_fwd_kernel": 0}
+            "conv3x3_fwd_kernel": 0, "block_conv_fwd_kernel": 0,
+            "conv3x3_nhwc_fwd_kernel": 0}
 
 
 def mma_registers(text):
@@ -476,7 +488,8 @@ def mma_registers(text):
             spill = m.group(1)
         m = re.search(r"Used (\d+) registers", line)
         if m:
-            fam = re.search(r"(?:wgrad|dgrad|conv_fwd|block_fwd)_mma_kernel",
+            fam = re.search(r"(?:wgrad|dgrad|conv_fwd|block_fwd|nhwc_fwd)"
+                            r"_mma_kernel",
                             name).group(0)
             args = ",".join(re.findall(r"L[ib](\d+)E", name))
             if re.search(r"Li\d+EfE", name):   # the f32-output forward
@@ -1717,6 +1730,48 @@ class Smoke:
                 exact("feature_dropout_bwd", f"feature dropout bwd {shape}",
                       dx, kpt.feature_dropout_bwd_plain(x, gy, sd),
                       same_mask(x, gy, y, dx))
+            # the dropout kernel's scalar tail and scalar path
+            # (csrc/perturb.cu): a level-0 count plus 1 and plus 7
+            # elements, then x and g one element past their allocations'
+            # 16-byte aligned start
+            c, hw = LEVELS[0]
+            n0 = BATCH * c * hw * hw
+            g = self.gen(SEED + 260)
+            sd = torch.randint(0, 2 ** 31 - 1, (), generator=g,
+                               device=self.dev)
+            for extra in (1, 7):
+                x, gy = (torch.randn(n0 + extra, generator=g,
+                                     device=self.dev).to(dtype)
+                         for _ in range(2))
+                for rate in sorted({ENC_DROPOUT[0], 0.5}):
+                    label = f"dropout p={rate} [{n0} + {extra}] {dname}"
+                    y, dx = run(kpt.fused_dropout, x, gy, sd, rate)
+                    exact("fused_dropout", label, y,
+                          kpt.dropout_plain(x, sd, rate))
+                    exact("fused_dropout", f"{label} bwd", dx,
+                          kpt.dropout_plain(gy, sd, rate),
+                          same_mask(x, gy, y, dx))
+            xb, gb = (torch.randn(n0 + 1, generator=g,
+                                  device=self.dev).to(dtype)
+                      for _ in range(2))
+            xb.requires_grad_()
+            x, gy = (t[1:].view(BATCH, c, hw, hw) for t in (xb, gb))
+            assert x.data_ptr() % 16 and gy.data_ptr() % 16, "not offset"
+            for rate in sorted({ENC_DROPOUT[0], 0.5}):
+                label = (f"dropout p={rate} [{BATCH},{c},{hw},{hw}] at a "
+                         f"one-element offset {dname}")
+                xb.grad = None
+                y = kpt.fused_dropout(x, sd, rate)
+                y.backward(gy)
+                self.sync()
+                dx = xb.grad[1:].view(x.shape)
+                ref = kpt.dropout_plain(gy, sd, rate)
+                exact("fused_dropout", label, y.detach(),
+                      kpt.dropout_plain(x.detach(), sd, rate))
+                exact("fused_dropout", f"{label} bwd", dx, ref,
+                      same_mask(x.detach(), gy, y.detach(), dx))
+                exact("fused_dropout", f"{label}, the kernel on g",
+                      kpt._dropout(gy, sd, rate), ref)
         self._perturb_distributions(bad)
 
         logits, w, gv = self._unc_case(SEED + 300)
@@ -2264,14 +2319,16 @@ class Smoke:
         torch = self.torch
         want = {"bf16": {"wgrad_mma_kernel": 2, "dgrad_mma_kernel": 1,
                          "conv_fwd_mma_kernel": 1, "block_fwd_mma_kernel": 1,
-                         "wgrad_partial_kernel": 0,
+                         "nhwc_fwd_mma_kernel": 0, "wgrad_partial_kernel": 0,
                          "block_conv_dgrad_kernel": 0,
-                         "conv3x3_fwd_kernel": 0, "block_conv_fwd_kernel": 0},
+                         "conv3x3_fwd_kernel": 0, "block_conv_fwd_kernel": 0,
+                         "conv3x3_nhwc_fwd_kernel": 0},
                 "f32": {"wgrad_mma_kernel": 0, "dgrad_mma_kernel": 0,
                         "conv_fwd_mma_kernel": 0, "block_fwd_mma_kernel": 0,
-                        "wgrad_partial_kernel": 2,
+                        "nhwc_fwd_mma_kernel": 0, "wgrad_partial_kernel": 2,
                         "block_conv_dgrad_kernel": 1,
-                        "conv3x3_fwd_kernel": 1, "block_conv_fwd_kernel": 1}}
+                        "conv3x3_fwd_kernel": 1, "block_conv_fwd_kernel": 1,
+                        "conv3x3_nhwc_fwd_kernel": 0}}
         for dname, dtype in (("f32", torch.float32),
                              ("bf16", torch.bfloat16)):
             x, w, _, _, gy, ds1, ds2, _ = self._chain_case(
@@ -2866,9 +2923,13 @@ class Smoke:
                 check("conv3x3_nchw_stats_bwd", f"{label} dW", wr.grad, rdw,
                       tol, rdw.abs().max())
             # the neu level-0 shape, then an odd Cout (scalar stores), a
-            # ragged tile edge and a dgrad writing Cin = 40 (two groups)
+            # ragged tile edge and a dgrad writing Cin = 40 (two groups);
+            # Cin 3 -> Cout 72: the forward's generic staging and two
+            # groups of 64, the dgrad's 16-byte staging with a last K chunk
+            # of 8 channels
             for i, shape in enumerate([NHWC_SHAPE, (2, 37, 70, 5, 13),
-                                       (2, 9, 131, 40, 8)]):
+                                       (2, 9, 131, 40, 8),
+                                       (2, 37, 70, 3, 72)]):
                 x, w, gy = self._nhwc_case(*shape, dtype, SEED + 540 + i)
                 label = f"nhwc {list(shape[:4])}->{shape[4]} {dname}"
                 xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
@@ -3191,6 +3252,27 @@ class Smoke:
             f"{self.nhwc_launches['conv3x3_nhwc_wgrad']}; max abs err y "
             f"{errs[0]:.3e}, dx {errs[1]:.3e}, dW {errs[2]:.3e} "
             f"{'ok' if ok else 'MISMATCH'}")
+        # the route by dtype from the profiler's kernel names: ROUTE_CALLS
+        # forwards and dgrads on the tensor cores in bf16, on the CUDA
+        # cores in f32
+        for dname, dtype in (("f32", torch.float32),
+                             ("bf16", torch.bfloat16)):
+            x, w, gy = self._nhwc_case(2, 37, 70, 16, 16, dtype, SEED + 640)
+
+            def run():
+                kn.conv3x3_forward(x, w)
+                kn.conv3x3_dgrad(gy, w)
+            got, seen = self._route(run, ROUTE_CALLS)
+            fam = ("nhwc_fwd_mma_kernel" if dname == "bf16"
+                   else "conv3x3_nhwc_fwd_kernel")
+            want = {k: 2 * ROUTE_CALLS if k == fam else 0
+                    for k in ROUTE_KERNELS}
+            self.report.setdefault("route", {})[f"nhwc_{dname}"] = got
+            log(f"route of {ROUTE_CALLS} NHWC forwards and dgrads, {dname}: "
+                f"{json.dumps(got)} {'ok' if got == want else 'MISMATCH'} "
+                f"(want {json.dumps(want)}; the profiler recorded {seen} of "
+                f"the {ROUTE_LEAD_IN} lead-in kernels)")
+            ok = ok and got == want
         assert ok
 
 

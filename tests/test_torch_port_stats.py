@@ -7,7 +7,8 @@ conv_variant="fullh", bn_backend="flat".
 The kernel functions are held to the Pallas kernels in interpret mode (their
 forwards and `jax.vjp`), in f32 at the shapes of tests/test_pallas.py:
 (1, 8, 16, 128) for the stats conv, (2, 8, 16, 128) for fullh, (2, 16, 128,
-16) -> 8 NHWC. Tolerances: outputs rtol 1e-4 / atol 1e-5 and the moments
+16) -> 8 NHWC, and NHWC at two shapes where the CUDA kernel's bf16
+tensor-core tile pads and masks (NHWC_ODD). Tolerances: outputs rtol 1e-4 / atol 1e-5 and the moments
 rtol 1e-5 / atol 1e-4, as tests/test_pallas.py holds the kernels to XLA (the
 same f32 products summed in another order); gradients within 1e-5 of the
 largest |grad| of their tensor (the same). The bf16 fullh conv with an f32
@@ -174,22 +175,39 @@ def test_unknown_variant_raises_as_in_jax():
 
 
 # ------------------------------------------------------------------ NHWC
-def _nhwc_data():
-    """tests/test_pallas.py TestConv3x3Kernels._data, and a cotangent."""
+def _nhwc_data(shape=(2, 16, 128, 16, 8)):
+    """x [B, H, W, Cin], w [3, 3, Cin, Cout] and a cotangent; the default
+    is tests/test_pallas.py TestConv3x3Kernels._data."""
+    b, h, wd, cin, cout = shape
     rng = np.random.default_rng(2)
-    return (_rand(rng, (2, 16, 128, 16)), _rand(rng, (3, 3, 16, 8), 0.1),
-            _rand(rng, (2, 16, 128, 8)))
+    return (_rand(rng, (b, h, wd, cin)), _rand(rng, (3, 3, cin, cout), 0.1),
+            _rand(rng, (b, h, wd, cout)))
 
 
-@pytest.mark.parametrize("part", ["forward", "wgrad", "small_vjp"])
-def test_nhwc_conv_matches_jax(part):
-    """conv3x3_forward, conv3x3_wgrad and conv3x3_small's VJP against
-    uaps_tpu/pallas/conv3x3.py in interpret mode."""
-    x, w, g = _nhwc_data()
+# where the CUDA kernels' bf16 tensor-core tile pads and masks: a ragged
+# 37 x 70 image (8 x 32 pixel tiles; JAX's _pick_slab takes all 37 rows),
+# Cin 3 (the generic staging) and Cout 13 (channels padded to 16, scalar
+# stores); Cin 40 (16-byte staging with a last K chunk of 8 channels) and
+# Cout 72 (two groups of 64 output channels), whose dgrad writes Cin 40
+NHWC_ODD = {"3->13 @37x70": (2, 37, 70, 3, 13),
+            "40->72 @37x70": (2, 37, 70, 40, 72)}
+
+
+@pytest.mark.parametrize(
+    "part,odd", [("forward", None), ("wgrad", None), ("small_vjp", None)]
+    + [("small_vjp", odd) for odd in NHWC_ODD],
+    ids=["forward", "wgrad", "small_vjp"]
+    + [f"small_vjp {odd}" for odd in NHWC_ODD])
+def test_nhwc_conv_matches_jax(part, odd):
+    """conv3x3_forward, conv3x3_wgrad and conv3x3_small's VJP (whose
+    forward is conv3x3_forward, its dgrad conv3x3_dgrad and its dW
+    conv3x3_wgrad) against uaps_tpu/pallas/conv3x3.py in interpret mode."""
+    shape = NHWC_ODD[odd] if odd else (2, 16, 128, 16, 8)
+    x, w, g = _nhwc_data(shape)
     if part == "forward":
         ref = jax.jit(lambda a, b: jnhwc.conv3x3_forward(a, b, True))(x, w)
         got = knhwc.conv3x3_forward(_t(x), _t(w))
-        assert got.is_contiguous() and got.shape == (2, 16, 128, 8)
+        assert got.is_contiguous() and got.shape == (*shape[:3], shape[4])
         np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-5)
         np.testing.assert_allclose(
             knhwc.reference_conv3x3(_t(x), _t(w)).numpy(), ref, rtol=1e-4,

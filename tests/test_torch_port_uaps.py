@@ -1,7 +1,8 @@
 """The port's UAPS slice against the JAX package on the CPU: the fused
 uncertainty module against the Pallas kernel (interpret mode), the
 perturbation applies against `uaps_tpu.ops.perturbations` given JAX's own
-draws, the port's generator contracts, the KL / MSE losses and the ramps,
+draws, the port's generator contracts, `fused_dropout` at every element of
+ragged counts and an offset view, the KL / MSE losses and the ramps,
 the perturbed multi-decoder forward, 1 and 3 UAPS steps, one step of the
 unfused route (fused_uncertainty=False, through the pseudo-label module)
 with the MTiles loss terms and fused_batch, `InferenceEngine.uncertainty`,
@@ -256,6 +257,39 @@ def test_generator_contracts():
     assert pops.perturb_features([sd], [x], "none") == [x]
     with pytest.raises(ValueError, match="perturbation kind"):
         pops.perturb_features([sd], [x], "bogus")
+
+
+@pytest.mark.parametrize("case", ["n=8k", "n=8k+1", "n=8k+7", "offset"])
+def test_fused_dropout_every_element(case):
+    """fused_dropout against the generator's definition at every element,
+    at counts that leave the CUDA kernel's 16-byte vectors (8 bf16, 4 f32
+    elements) a scalar tail of 0, 1 and 7 elements, and on a view one
+    element past its storage's start (a misaligned pointer on the card):
+    element i is kept when _bits_spec(seed, i) < round(0.7 * 2^32), as
+    f32(x * f32(1 / 0.7)), else 0; the backward zeroes the same elements of
+    the cotangent and scales the rest alike."""
+    rate, seed = 0.3, 2 ** 31 - 3
+    n = {"n=8k": 8 * 37, "n=8k+1": 8 * 37 + 1, "n=8k+7": 8 * 37 + 7,
+         "offset": 8 * 37}[case]
+    rng = np.random.default_rng(12)
+    base = rng.standard_normal(n + 1).astype(np.float32)
+    gbase = rng.standard_normal(n + 1).astype(np.float32)
+    lo = 1 if case == "offset" else 0
+    xb = torch.from_numpy(base).requires_grad_()
+    x = xb[lo:lo + n]
+    g = torch.from_numpy(gbase)[lo:lo + n]
+    assert x.storage_offset() == lo and g.storage_offset() == lo
+    y = kpt.fused_dropout(x, torch.tensor(seed), rate)
+    y.backward(g)
+    threshold = round((1 - rate) * 2 ** 32)
+    keep = np.array([_bits_spec(seed, i) < threshold for i in range(n)])
+    scale = np.float32(1 / (1 - rate))
+    np.testing.assert_array_equal(
+        y.detach().numpy(), np.where(keep, base[lo:lo + n] * scale, 0))
+    np.testing.assert_array_equal(
+        xb.grad[lo:lo + n].numpy(), np.where(keep, gbase[lo:lo + n] * scale,
+                                             0))
+    assert 0 < keep.mean() < 1
 
 
 def test_losses_and_ramps_match_jax():

@@ -22,8 +22,22 @@ bf16 times in ms:
   * `conv3x3_bnl` at the fused step's two shapes, summed over its 16
     launches (`bnl_fwd_per_step`), and the stats conv
     (`conv3x3_nchw_stats`) at the bn_stats blocks' four convs, summed
-    (`stats_fwd_per_run`).
-Each time is the median over 5 rounds of CUDA events around 20
+    (`stats_fwd_per_run`);
+  * the NHWC conv (`kernels/conv3x3.py`) at NHWC_SHAPE: `conv3x3_forward`
+    and `conv3x3_dgrad` (`nhwc_fwd`, `nhwc_dgrad`) and cuDNN's forward
+    and `conv2d_input` on the channels_last views of the same tensors
+    (`nhwc_cudnn_fwd`, `nhwc_cudnn_dgrad`);
+  * the dropout kernel (`kernels/perturb.py` `_dropout`, p = 0.5) at the 5
+    encoder levels of a neu UAPS step, summed over its 8 launches a level
+    (`dropout_per_step`), beside `F.dropout` on the same tensors
+    (`dropout_library_per_step`), each call timed alone after a 256 MiB
+    write has flushed the L2 (chip_smoke.py phase 11's timing); and
+    `dropout_sass`: the instructions of the bf16 dropout kernel's loop
+    that holds its global loads, per element, read from `cuobjdump -sass`
+    of ROOT's built library, with the integer-issue floor they set a step
+    (the integer instructions x the step's elements over the SMs' integer
+    lanes at the card's maximum SM clock).
+Each conv time is the median over 5 rounds of CUDA events around 20
 back-to-back calls queued behind a ~2.5 ms spin, so that the host's enqueue
 is not counted (chip_smoke.py `Smoke.time_ms`). Two separate runs may land
 on two different cards: compare checkouts within one run, in turns (A, B,
@@ -33,7 +47,10 @@ from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
 import statistics
+import subprocess
 import sys
 
 BATCH = 16
@@ -59,6 +76,15 @@ CHAIN_BLOCKS = [("in_conv", 3, 16, 256, 0.05, 2),
 # the bn_stats blocks' convs (chip_smoke.py STATS_SHAPES), once a run
 STATS_SHAPES = [("in_conv.0", 3, 16, 256), ("down1.0", 16, 32, 128),
                 ("in_conv.4", 16, 16, 256), ("down1.4", 32, 32, 128)]
+# the NHWC conv's shape (chip_smoke.py NHWC_SHAPE): (B, H, W, Cin, Cout)
+NHWC_SHAPE = (16, 256, 256, 16, 16)
+# the encoder levels of a neu UAPS step (chip_smoke.py LEVELS): (channels,
+# H = W); the dropout kernel runs 8 times a level a step (PER_LEVEL)
+LEVELS = [(16, 256), (32, 128), (64, 64), (128, 32), (256, 16)]
+DROPOUT_PER_LEVEL = 8
+# integer lanes an H100 SM issues a clock (4 partitions of 16 INT32 units;
+# the CUDA programming guide's throughput table for compute capability 9.0)
+INT_LANES_PER_SM = 64
 
 
 def time_ms(torch, fn, iters=20, rounds=5, warmup=3):
@@ -77,6 +103,125 @@ def time_ms(torch, fn, iters=20, rounds=5, warmup=3):
         b.synchronize()
         times.append(a.elapsed_time(b) / iters)
     return statistics.median(times)
+
+
+def cold_ms(torch, fn, calls=100, warmup=3):
+    """Median device time of one fn() call, each timed alone with CUDA
+    events after a 256 MiB write has flushed the 50 MB L2."""
+    for _ in range(warmup):
+        fn()
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    times = []
+    for _ in range(calls):
+        flush.zero_()   # still running when the events are queued
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+# SASS opcodes (the part before the first '.') issued to the integer lanes
+INT_OPS = {"IMAD", "IADD3", "IADD", "LOP3", "LOP", "SHF", "SHL", "SHR",
+           "ISETP", "LEA", "SEL", "PRMT", "IMNMX", "IABS", "VIADD", "VIMNMX",
+           "POPC", "FLO", "BREV", "BMSK", "SGXT", "IMUL"}
+# bytes a global load moves, by its width suffix
+LDG_BYTES = {"U8": 1, "S8": 1, "U16": 2, "S16": 2, "64": 8, "128": 16}
+
+
+def sass_loop(body):
+    """(instructions, elements, integer instructions) of one iteration of
+    the loop that moves the most global-load bytes in one bf16 kernel's
+    SASS listing: the longest path from the loop's head to its backward
+    branch (the compiler may give an iteration alternative paths, such as
+    one that skips the hash where every element is kept; the longest is
+    the one that does all the work), NOPs not counted, elements = the
+    path's load bytes / 2. Branch targets are addresses or labels."""
+    ops, at = [], {}
+    for line in body.splitlines():
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            at[m.group(1)] = len(ops)
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T\d]+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)([^;]*);", line)
+        if m:
+            at[int(m.group(1), 16)] = len(ops)
+            ops.append((m.group(3), m.group(4), bool(m.group(2))))
+
+    def target(args):
+        t = re.search(r"(\.L_x_\d+)|0x([0-9a-f]+)", args)
+        return at.get(t.group(1) or int(t.group(2), 16)) if t else None
+
+    def cost(op):   # (instructions, load bytes, integer instructions)
+        if op == "NOP":
+            return (0, 0, 0)
+        nbytes = (next((LDG_BYTES[w] for w in op.split(".")
+                        if w in LDG_BYTES), 4) if op.startswith("LDG") else 0)
+        return (1, nbytes, int(op.split(".")[0] in INT_OPS))
+
+    best = None
+    for j, (op, args, _) in enumerate(ops):
+        i = target(args) if op.startswith("BRA") else None
+        if i is None or i > j:
+            continue
+        # longest path i -> j over the loop's forward edges
+        dist = {i: cost(ops[i][0])}
+        for k in range(i, j):
+            if k not in dist:
+                continue
+            op_k, args_k, pred = ops[k]
+            succ = []
+            if not (op_k.startswith(("BRA", "EXIT")) and not pred):
+                succ.append(k + 1)
+            t = target(args_k) if op_k.startswith("BRA") else None
+            if t is not None and k < t <= j:
+                succ.append(t)
+            for n in succ:
+                c = tuple(a + b for a, b in zip(dist[k], cost(ops[n][0])))
+                if n not in dist or c > dist[n]:
+                    dist[n] = c
+        path = dist.get(j)
+        if path and path[1] and (best is None or path[1] > best[1]):
+            best = path
+    n_all, nbytes, n_int = best
+    return n_all, nbytes // 2, n_int
+
+
+def dropout_sass(root, elements, sms):
+    """The bf16 dropout kernel's load loop (sass_loop) from `cuobjdump
+    -sass` of ROOT's libperturb.so: instructions and integer instructions
+    per element, and the floors those set on `elements` elements at the
+    card's maximum SM clock: integer issue (INT_LANES_PER_SM lanes an SM a
+    clock) and all issue (128 lanes: 4 warp instructions an SM a clock).
+    The kernel's listing goes to chiprun_out/dropout_<root's name>.sass."""
+    lib = os.path.join(root, "uaps_tpu_torch", "build", "libperturb.so")
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    body = next(f for f in re.split(r"\n\s*Function : ", text)
+                if re.match(r"\S*dropout_kernelI13__nv_bfloat16", f))
+    out_dir = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "dropout_" + os.path.basename(root)
+                           + ".sass"), "w") as f:
+        f.write(body)
+    n_all, per, n_int = sass_loop(body)
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    lanes_hz = sms * mhz * 1e6
+    return {"loop_instructions": n_all, "elements": per,
+            "instructions_per_element": n_all / per,
+            "int_per_element": n_int / per, "max_sm_clock_mhz": mhz,
+            "int_floor_ms": n_int / per * elements
+            / (INT_LANES_PER_SM * lanes_hz) * 1e3,
+            "issue_floor_ms": n_all / per * elements / (128 * lanes_hz) * 1e3}
 
 
 def _case(torch, dev, seed, cin, cout, hw):
@@ -108,7 +253,11 @@ def main(root: str) -> dict:
     from uaps_tpu_torch.kernels import conv_bnl as kbnl
     if not kc.__file__.startswith(root):
         raise SystemExit(f"conv_times: imported {kc.__file__}, not {root}")
-    _build.build(["conv3x3_nchw", "conv3x3_wgrad_nchw", "block_conv"])
+    import torch.nn.functional as F
+    from uaps_tpu_torch.kernels import conv3x3 as kn
+    from uaps_tpu_torch.kernels import perturb as kpt
+    _build.build(["conv3x3_nchw", "conv3x3_wgrad_nchw", "block_conv",
+                  "conv3x3_nhwc", "perturb"])
     dev, bf = torch.device("cuda:0"), torch.bfloat16
     sums = ("fwd", "dgrad", "wgrad", "fwd_fullh_per_step",
             "dgrad_fullh_per_step", "wgrad_fullh_per_step",
@@ -155,6 +304,37 @@ def main(root: str) -> dict:
         ms = time_ms(torch, lambda: kc.conv3x3_nchw_stats(x, w))
         out["stats"][f"{mod} {cin}->{cout} @{hw}"] = ms
         out["stats_fwd_per_run"] += ms
+    b, h, wd, cin, cout = NHWC_SHAPE
+    g = torch.Generator(device=dev).manual_seed(1460)
+    x = torch.randn((b, h, wd, cin), generator=g, device=dev).to(bf)
+    w = (torch.randn((3, 3, cin, cout), generator=g, device=dev)
+         / (9 * cin) ** 0.5).to(bf)
+    gy = torch.randn((b, h, wd, cout), generator=g, device=dev).to(bf)
+    xl, gl = x.permute(0, 3, 1, 2), gy.permute(0, 3, 1, 2)  # channels_last
+    wl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    out["nhwc_fwd"] = time_ms(torch, lambda: kn.conv3x3_forward(x, w))
+    out["nhwc_dgrad"] = time_ms(torch, lambda: kn.conv3x3_dgrad(gy, w))
+    out["nhwc_cudnn_fwd"] = time_ms(torch,
+                                    lambda: F.conv2d(xl, wl, padding=1))
+    out["nhwc_cudnn_dgrad"] = time_ms(torch, lambda: torch.nn.grad.
+                                      conv2d_input(xl.shape, wl, gl,
+                                                   padding=1))
+    out["dropout"], out["dropout_library"] = {}, {}
+    out["dropout_per_step"] = out["dropout_library_per_step"] = 0.0
+    elements = 0
+    for i, (c, hw) in enumerate(LEVELS):
+        g = torch.Generator(device=dev).manual_seed(1480 + i)
+        x = torch.randn((BATCH, c, hw, hw), generator=g, device=dev).to(bf)
+        sd = torch.randint(0, 2 ** 31 - 1, (), generator=g, device=dev)
+        label = f"[{BATCH},{c},{hw},{hw}]"
+        ms = cold_ms(torch, lambda: kpt._dropout(x, sd, 0.5))
+        lib = cold_ms(torch, lambda: F.dropout(x, 0.5, training=True))
+        out["dropout"][label], out["dropout_library"][label] = ms, lib
+        out["dropout_per_step"] += DROPOUT_PER_LEVEL * ms
+        out["dropout_library_per_step"] += DROPOUT_PER_LEVEL * lib
+        elements += DROPOUT_PER_LEVEL * x.numel()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out["dropout_sass"] = dropout_sass(root, elements, sms)
     return out
 
 

@@ -11,17 +11,23 @@
 //     conv_fwd_mma_kernel  conv3x3_nchw.cu's forward (bf16 -> bf16 or f32)
 //                          and, through a rotated weight view, its dgrad,
 //     block_conv.cu's block_fwd_mma_kernel, the fused-block forward (BN
-//                          prologue and output moments on or off).
+//                          prologue and output moments on or off),
+//     conv3x3_nhwc.cu's nhwc_fwd_mma_kernel, the NHWC forward and, through
+//                          a flipped weight view, its dgrad (NhwcLoad,
+//                          staged 16 bytes a cp.async by stage_tile_nhwc).
 //
 // Replaces, for bf16 inputs, uaps_tpu/pallas/conv3x3_nchw.py:601
 // conv3x3_nchw_wgrad (its pallas_call at :692), the dgrad of
 // uaps_tpu/pallas/block_conv.py:345 _chain_bwd_call (its pallas_call at
-// :368) without the prologue, and conv3x3_nchw.py:289 conv3x3_nchw (:425;
-// :752 -> :763 for fullh, and the VJPs' dgrads :932, :987). The TPU kernels
+// :368) without the prologue, conv3x3_nchw.py:289 conv3x3_nchw (:425;
+// :752 -> :763 for fullh, and the VJPs' dgrads :932, :987) and
+// uaps_tpu/pallas/conv3x3.py:73 conv3x3_forward (:90; the dgrad of the VJP
+// conv3x3_small :174). The TPU kernels
 // compute every tap as a dot_general on the MXU; these compute every tap as
 // m16n8k16 products on the tensor cores. f32 inputs keep the CUDA-core
 // kernels of conv3x3_tile.cuh (conv_tile, wgrad_partial_kernel): tensor
-// cores would only give TF32 there. The entry points route by dtype alone.
+// cores would only give TF32 there. The entry points (NCHW and NHWC) route
+// by dtype alone.
 //
 // Operands are read through the same loaders as the CUDA-core kernels
 // (L.at(b, c0)(ch, gy, gx) -> float; conv3x3_tile.cuh). For bf16 every
@@ -56,8 +62,10 @@
 // memory, and the staging loads of many warps and blocks are in flight at
 // once (two blocks an SM). A bf16 PlainLoad input whose W is a multiple of
 // 4 is staged 8 bytes (4 pixels of one channel) a load and transposed in
-// registers (stage_tile_vec); the other loaders transform each value and
-// are read one value a load. The wgrad's strip height (chosen by
+// registers (stage_tile_vec); a bf16 NhwcLoad input whose C is a multiple
+// of 8 is already channel-minor, and each 16-byte unit is one cp.async
+// (stage_tile_nhwc); the other loaders transform each value and are read
+// one value a load. The wgrad's strip height (chosen by
 // the Python wrappers' wgrad_strips: the tallest of 16, 8, 4 rows that
 // still gives 256 blocks, two an SM) trades blocks in flight against the
 // partials' traffic (9 * Cin * Cout f32 a strip) and each block's fixed
@@ -126,6 +134,21 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16 bytes global -> shared, asynchronously; src_bytes 0 writes zeros
+// (src must still be a valid global address)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :
+               : "r"(dst), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// every cp.async of this thread has landed in shared memory
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // ----------------------------------------------------------------- staging
@@ -449,6 +472,13 @@ inline dim3 mma_grid(int batch, int nout, int h, int wd) {
               batch * ((nout + 8 * NB - 1) / (8 * NB)));
 }
 
+// The channel groups of the forwards' tensor-core grid (launch_conv_fwd_mma
+// and the NHWC forward take NB = 2, 4 or 8 by nout): one up to 32 output
+// channels, else groups of 64.
+inline int mma_fwd_groups(int nout) {
+  return nout <= 32 ? 1 : (nout + 63) / 64;
+}
+
 // Where a block of conv_mma_tile sits: image b, output channels [n0, n0 +
 // 8 NB), rows [y0, y0 + kTH) and columns [x0, x0 + kTW); blockIdx.z = image
 // * groups + channel group.
@@ -533,6 +563,34 @@ __device__ __forceinline__ void stage_tile_vec(
   }
 }
 
+// The input tile of conv_mma_tile from a bf16 NHWC tensor whose channel
+// count is a multiple of 8 and whose base is 16-byte aligned: unit (p, c)
+// is channels 8c .. 8c + 7 of one pixel, 16 contiguous bytes of x, copied
+// as they are by cp.async into their swizzled slot (no transpose); the halo
+// and the chunks past nk are zero-filled by the copy (source size 0).
+// Consecutive threads take consecutive chunks of a pixel, then consecutive
+// pixels, so a warp reads whole pixels of one tile row, contiguous in x
+// where the staged chunks are all of its channels. nchunk is 2 or 4. The
+// caller waits (cp_async_wait_all) before the barrier that publishes the
+// tile.
+__device__ __forceinline__ void stage_tile_nhwc(
+    uint4* xs, const NhwcLoad<__nv_bfloat16>::At& rd, int nchunk, int nk,
+    const MmaTile& t, int h, int wd) {
+  const int shift = nchunk == 4 ? 2 : 1;
+#pragma unroll 1
+  for (int i = threadIdx.x; i < dg::kSPix * nchunk; i += dg::kThreads) {
+    const int c = i & (nchunk - 1);
+    const int p = i >> shift;
+    const int gy = t.y0 - 1 + p / dg::kSW;
+    const int gx = t.x0 - 1 + p % dg::kSW;
+    const bool in =
+        gy >= 0 && gy < h && gx >= 0 && gx < wd && 8 * c < nk;
+    const __nv_bfloat16* src =
+        in ? rd.p + static_cast<size_t>(gy * wd + gx) * rd.c + 8 * c : rd.p;
+    cp_async16(smem_addr(xs + unit<dg::kCH>(p, c)), src, in ? 16 : 0);
+  }
+}
+
 // acc[hh][n][e] = the sum over input channels k < kin and the 9 taps (kh,
 // kw) of in[b, k, y + kh - 1, x + kw - 1] * W(tap, k, n0 + n'), for the
 // warp's output row y = y0 + warp and its two m16 tiles (columns x0 + 16 hh
@@ -560,10 +618,13 @@ __device__ __forceinline__ void conv_mma_tile(float (&acc)[2][NB][4],
   const int lane = threadIdx.x & 31;
   const int mi = lane >> 3;
   constexpr bool kVec = std::is_same<In, PlainLoad<__nv_bfloat16>>::value;
+  constexpr bool kNhwc = std::is_same<In, NhwcLoad<__nv_bfloat16>>::value;
   bool vec = false;
   if constexpr (kVec)
     vec = (wd % kVecPx) == 0 &&
           (reinterpret_cast<uintptr_t>(in.x) & (2 * kVecPx - 1)) == 0;
+  if constexpr (kNhwc)
+    vec = (in.c % 8) == 0 && (reinterpret_cast<uintptr_t>(in.x) & 15) == 0;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh)
 #pragma unroll
@@ -577,6 +638,7 @@ __device__ __forceinline__ void conv_mma_tile(float (&acc)[2][NB][4],
     __syncthreads();  // the previous chunk is consumed by every warp
     if (vec) {
       if constexpr (kVec) stage_tile_vec(xs, rd, 2 * kc, nk, t, h, wd);
+      if constexpr (kNhwc) stage_tile_nhwc(xs, rd, 2 * kc, nk, t, h, wd);
     } else {
       stage<dg::kCH, dg::kSPix, dg::kThreads>(
           xs, rd, 2 * kc, nk, [&](int p, int& gy, int& gx) {
@@ -586,6 +648,7 @@ __device__ __forceinline__ void conv_mma_tile(float (&acc)[2][NB][4],
           });
     }
     stage_w(ws, k0, nk);
+    if constexpr (kNhwc) cp_async_wait_all();   // the copies overlap stage_w
     __syncthreads();
 #pragma unroll 1
     for (int tap = 0; tap < 9; ++tap) {

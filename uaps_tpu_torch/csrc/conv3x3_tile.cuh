@@ -466,5 +466,26 @@ struct PlainLoad {
   }
 };
 
+// A contiguous NHWC tensor read as f32: channel c0 + ch of pixel (gy, gx)
+// of image b. The per-pixel index is 32-bit (the entry points refuse
+// H * W > INT_MAX), the channel stride multiply 64-bit.
+template <typename T>
+struct NhwcLoad {
+  const T* x;
+  int c;   // channels of x (the innermost dimension)
+  int h, wd;
+  struct At {
+    const T* p;   // channel c0 of pixel (0, 0) of image b
+    int wd, c;
+    __device__ __forceinline__ float operator()(int ch, int gy,
+                                                int gx) const {
+      return to_f32(__ldg(p + static_cast<size_t>(gy * wd + gx) * c + ch));
+    }
+  };
+  __device__ __forceinline__ At at(int b, int c0) const {
+    return At{x + static_cast<size_t>(b) * h * wd * c + c0, wd, c};
+  }
+};
+
 }  // namespace conv
 }  // namespace uaps

@@ -33,12 +33,35 @@
 // round-to-nearest intrinsic (no fused multiply-add), so the plain PyTorch
 // versions in kernels/perturb.py give the same bits.
 //
-// What bounds them: a few integer and float operations per element against
-// 2 (bf16) or 4 (f32) bytes read and written, so device-memory bandwidth.
-// Consecutive threads take consecutive elements (dropout, noise) or pixels
-// (feature dropout, whose threads walk the channels with stride H*W), so
-// every load and store is coalesced. The feature-dropout forward reads x
-// twice (once per pass; the second pass mostly from the 50 MB L2).
+// What bounds them. Feature noise and feature dropout: a few integer and
+// float operations per element against 2 (bf16) or 4 (f32) bytes read and
+// written, so device-memory bandwidth. Consecutive threads take consecutive
+// elements (noise) or pixels (feature dropout, whose threads walk the
+// channels with stride H*W), so every load and store is coalesced. The
+// feature-dropout forward reads x twice (once per pass; the second pass
+// mostly from the 50 MB L2).
+//
+// Dropout is bound by bytes and integer issue together. A UAPS step drops
+// 260 M elements (5 encoder levels of 32.5 M at B = 16, 8 launches each):
+// 1.04 GB in bf16, 0.31 ms at 3.35 TB/s. Each element also takes two mix32
+// hashes, the compare and the bf16 unpacking: 20.2 integer instructions an
+// element in the bf16 kernel's loop (cuobjdump -sass; conv_times.py counts
+// them), and an H100 SM issues 64 integer lanes a clock: 0.31 ms a step at
+// 1.98 GHz, as much as the bytes. The two overlap, so the kernel can
+// approach the larger, not their sum.
+// What the design does about both: each thread reads the seed and hashes
+// the key once, then takes kDropVecs 16-byte vectors (8 bf16 or 4 f32
+// elements) per iteration with 32-bit indices, its loads issued first and
+// the iteration free of branches, so that the hashes run while 32 bytes a
+// thread are in flight; a warp's loads at one vector slot are 512
+// contiguous bytes. A vector's first index is a multiple of its length, so
+// mix32's first xorshift of the index is shared by the vector
+// (keep_vec). Where x and out are both 16-byte aligned, the elements past
+// the last whole vector (the tail) go through a scalar loop in the same
+// kernel, with the same bits at the same flat index; where either is not
+// (x a view with a storage offset: out is a fresh allocation, so no scalar
+// head could align both), every element takes that loop. The path is
+// decided from the pointers.
 
 #include <stdint.h>
 
@@ -49,13 +72,17 @@ namespace {
 constexpr int kThreads = 256;
 constexpr uint32_t kKeySalt = 0x9e3779b9u;
 
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16;
+// mix32 after its first xorshift
+__device__ __forceinline__ uint32_t mix32_tail(uint32_t x) {
   x *= 0x7feb352du;
   x ^= x >> 15;
   x *= 0x846ca68bu;
   x ^= x >> 16;
   return x;
+}
+
+__device__ __forceinline__ uint32_t mix32(uint32_t x) {
+  return mix32_tail(x ^ (x >> 16));
 }
 
 struct Stream {
@@ -70,19 +97,114 @@ struct Stream {
   }
 };
 
+// Dropout: 16-byte vectors a thread per loop iteration.
+constexpr int kDropVecs = 2;
+
+// keep(bits) = bits < threshold for a threshold <= 2^32, in 32-bit compares,
+// without a branch (a short-circuit || would let the compiler skip the hash
+// where every element is kept, and branch around it)
+struct KeepTest {
+  uint32_t lo;
+  bool all;   // threshold == 2^32: every element is kept
+  __device__ __forceinline__ explicit KeepTest(unsigned long long threshold)
+      : lo(static_cast<uint32_t>(threshold)), all((threshold >> 32) != 0) {}
+  __device__ __forceinline__ bool operator()(uint32_t bits) const {
+    return (bits < lo) | all;
+  }
+};
+
+__device__ __forceinline__ float drop1(float v, bool keep, float scale) {
+  return keep ? __fmul_rn(v, scale) : 0.f;
+}
+
+// Whether elements i0 + j (j < N) of a vector are kept, i0 a multiple of N
+// (a power of two <= 8): then i0 + j = i0 ^ j, and (i0 + j) ^ key = t ^ j
+// with t = i0 ^ key, whose bits above the lowest 3 do not depend on j; so
+// mix32's first xorshift of it is (t ^ (t >> 16)) ^ j, shared by the
+// vector but for the one xor. The same bits as Stream::bits(i0 + j).
+template <int N>
+__device__ __forceinline__ void keep_vec(bool (&kept)[N], uint32_t i0,
+                                         const Stream& rng,
+                                         const KeepTest& keep) {
+  const uint32_t t = i0 ^ rng.key;
+  const uint32_t h = t ^ (t >> 16);
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    kept[j] = keep(mix32(mix32_tail(h ^ j) + rng.seed));
+}
+
+// The dropped 16-byte vector u of elements i0, i0 + 1, ... (i0 % 4 == 0)
+__device__ __forceinline__ uint4 drop_vec(uint4 u, uint32_t i0,
+                                          const Stream& rng,
+                                          const KeepTest& keep, float scale,
+                                          float) {
+  bool kept[4];
+  keep_vec(kept, i0, rng, keep);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+  uint32_t r[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    r[j] = __float_as_uint(drop1(__uint_as_float(w[j]), kept[j], scale));
+  return make_uint4(r[0], r[1], r[2], r[3]);
+}
+
+// ... of 8 bf16 elements (i0 % 8 == 0); each rounds once
+__device__ __forceinline__ uint4 drop_vec(uint4 u, uint32_t i0,
+                                          const Stream& rng,
+                                          const KeepTest& keep, float scale,
+                                          __nv_bfloat16) {
+  bool kept[8];
+  keep_vec(kept, i0, rng, keep);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+  uint32_t r[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    // a word holds elements 2j (low half) and 2j + 1
+    const __nv_bfloat162 p = __floats2bfloat162_rn(
+        drop1(__uint_as_float(w[j] << 16), kept[2 * j], scale),
+        drop1(__uint_as_float(w[j] & 0xffff0000u), kept[2 * j + 1], scale));
+    r[j] = static_cast<uint32_t>(__bfloat16_as_ushort(p.x)) |
+           (static_cast<uint32_t>(__bfloat16_as_ushort(p.y)) << 16);
+  }
+  return make_uint4(r[0], r[1], r[2], r[3]);
+}
+
+// Elements [0, nvec * kPer) as nvec 16-byte vectors (x and out 16-byte
+// aligned; nvec = 0 where either is not), the rest one at a time. A
+// thread's kDropVecs loads are issued first; an index past the last vector
+// loads the last one again (never stored), so that the iteration has no
+// branch and the hashes overlap the loads.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     dropout_kernel(const T* __restrict__ x, T* __restrict__ out,
-                   const long long* __restrict__ seed, long long n,
-                   unsigned long long threshold, float scale) {
+                   const long long* __restrict__ seed, uint32_t n,
+                   uint32_t nvec, unsigned long long threshold, float scale) {
+  constexpr uint32_t kPer = 16 / sizeof(T);
   const Stream rng(seed);
-  for (long long i = blockIdx.x * static_cast<long long>(kThreads) +
-                     threadIdx.x;
-       i < n; i += static_cast<long long>(gridDim.x) * kThreads) {
-    const bool keep = rng.bits(static_cast<uint32_t>(i)) < threshold;
-    out[i] = uaps::from_f32<T>(keep ? __fmul_rn(uaps::to_f32(x[i]), scale)
-                                    : 0.f);
+  const KeepTest keep(threshold);
+  const uint4* xv = reinterpret_cast<const uint4*>(x);
+  uint4* ov = reinterpret_cast<uint4*>(out);
+  const uint32_t stride = gridDim.x * kThreads * kDropVecs;
+  for (uint32_t v0 = blockIdx.x * kThreads * kDropVecs + threadIdx.x;
+       v0 < nvec; v0 += stride) {
+    uint4 u[kDropVecs];
+#pragma unroll
+    for (int k = 0; k < kDropVecs; ++k)
+      u[k] = __ldg(xv + min(v0 + k * kThreads, nvec - 1));
+#pragma unroll
+    for (int k = 0; k < kDropVecs; ++k) {
+      const uint32_t v = v0 + k * kThreads;
+      const uint4 r = drop_vec(u[k], v * kPer, rng, keep, scale, T());
+      if (v < nvec) ov[v] = r;
+    }
   }
+  // the tail past the last whole vector, or every element (a 64-bit count:
+  // with no vectors it runs to n < 2^32)
+  for (unsigned long long i = static_cast<unsigned long long>(nvec) * kPer +
+                              blockIdx.x * kThreads + threadIdx.x;
+       i < n; i += static_cast<unsigned long long>(gridDim.x) * kThreads)
+    out[i] = uaps::from_f32<T>(drop1(
+        uaps::to_f32(x[i]), keep(rng.bits(static_cast<uint32_t>(i))), scale));
 }
 
 // grid (blocks over one example, batch)
@@ -175,13 +297,26 @@ unsigned blocks_for(long long n) {
   return static_cast<unsigned>(want < (1 << 30) ? want : (1 << 30));
 }
 
+// The vector path where x and out are both 16-byte aligned (out, a fresh
+// allocation, always is; x may be a view with a storage offset), else the
+// scalar loop for every element.
 template <typename T>
 cudaError_t dropout(const void* x, void* out, const long long* seed,
-                    long long n, unsigned long long threshold, float scale,
+                    uint32_t n, unsigned long long threshold, float scale,
                     cudaStream_t s) {
-  dropout_kernel<T><<<blocks_for(n), kThreads, 0, s>>>(
-      static_cast<const T*>(x), static_cast<T*>(out), seed, n, threshold,
-      scale);
+  constexpr uint32_t kPer = 16 / sizeof(T);
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
+  const uintptr_t oa = reinterpret_cast<uintptr_t>(out);
+  if (xa % sizeof(T) != 0 || oa % sizeof(T) != 0) return cudaErrorInvalidValue;
+  const uint32_t nvec = (xa % 16 == 0 && oa % 16 == 0) ? n / kPer : 0;
+  // one pass: every thread takes kDropVecs vectors (or one scalar element)
+  const unsigned long long per_block = nvec ? kThreads * kDropVecs : kThreads;
+  const unsigned long long want = nvec ? nvec : n;
+  const unsigned blocks =
+      static_cast<unsigned>((want + per_block - 1) / per_block);
+  dropout_kernel<T><<<blocks, kThreads, 0, s>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), seed, n, nvec,
+      threshold, scale);
   return cudaGetLastError();
 }
 
@@ -230,10 +365,11 @@ extern "C" int uaps_dropout(const void* x, void* out, const void* seed,
     return static_cast<int>(cudaErrorInvalidValue);
   const long long* sd = static_cast<const long long*>(seed);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint32_t n32 = static_cast<uint32_t>(n);
   return static_cast<int>(
       dtype == uaps::kF32
-          ? dropout<float>(x, out, sd, n, threshold, scale, s)
-          : dropout<__nv_bfloat16>(x, out, sd, n, threshold, scale, s));
+          ? dropout<float>(x, out, sd, n32, threshold, scale, s)
+          : dropout<__nv_bfloat16>(x, out, sd, n32, threshold, scale, s));
 }
 
 // x, out: [batch, inner] contiguous; the noise depends on the inner index.

@@ -3,8 +3,9 @@
 Counterpart of `uaps_tpu/pallas/conv3x3.py`: `conv3x3_forward` (the
 implicit-GEMM kernel), `conv3x3_wgrad`, the custom VJP `conv3x3_small` and
 the oracle `reference_conv3x3`. One CUDA source, `csrc/conv3x3_nhwc.cu`
-(forward, dgrad as the forward with flipped weights, weight gradient); its
-note says what bounds it and how the design answers that.
+(forward, dgrad as the forward with flipped weights, weight gradient; bf16
+on the tensor cores, f32 on the CUDA cores); its note says what bounds it
+and how the design answers that.
 
 Contract (as in JAX): x [B, H, W, Cin] f32 or bf16 (f64 on the plain
 path), w [3, 3, Cin, Cout] HWIO, cast to x's dtype; zero halo; f32
@@ -78,6 +79,15 @@ def _check(x: torch.Tensor, w: torch.Tensor, what: str) -> None:
                          "want [B,H,W,Cin], [3,3,Cin,Cout]")
 
 
+def _grid_groups(dtype: torch.dtype, cout: int) -> int:
+    """The output-channel groups along the kernel grid's z (with the
+    batch): bf16 runs the tensor-core tile (one group up to 32 channels,
+    else groups of 64), f32 the CUDA-core tile (groups of 32)."""
+    if dtype == torch.bfloat16:
+        return 1 if cout <= 32 else -(-cout // 64)
+    return -(-cout // 32)
+
+
 def _launch(x: torch.Tensor, w: torch.Tensor, flipped: bool) -> torch.Tensor:
     """The CUDA conv of x with w (in x's dtype), or (flipped) with w
     flipped in (kh, kw) and its channels swapped, read through negated
@@ -96,9 +106,10 @@ def _launch(x: torch.Tensor, w: torch.Tensor, flipped: bool) -> torch.Tensor:
         cout = w.shape[2]
         ptr += (2 * s_kh + 2 * s_kw) * w.element_size()
         s_kh, s_kw, s_ci, s_co = -s_kh, -s_kw, s_co, s_ci
-    if b * -(-cout // 32) > 65535:
-        raise ValueError(f"{what}: B * ceil(Cout / 32) = "
-                         f"{b * -(-cout // 32)} > 65535")
+    groups = _grid_groups(x.dtype, cout)
+    if b * groups > 65535:
+        raise ValueError(f"{what}: B * {groups} channel groups = "
+                         f"{b * groups} > 65535")
     y = torch.empty((b, h, wd, cout), dtype=x.dtype, device=x.device)
     lib, fwd, _ = _fns()
     _build.call(lib, fwd, x.device, f"{what} kernel launch", x.data_ptr(),
