@@ -54,8 +54,9 @@ Phases (any failure: exit 1 and no result line):
      ms, its plain version's, the library call's and the bound; a profile
      of 2 kernel-path steps, whose kernel names must show every weight-
      gradient pass, every conv3x3_nchw forward and dgrad and every
-     fused-block forward on the tensor cores and none of them on the CUDA
-     cores (bf16_route; the same route proof in phases 11, 14 and 18);
+     fused-block forward and dgrad on the tensor cores and none of them on
+     the CUDA cores (bf16_route; the same route proof in phases 11, 14 and
+     18);
   9. UAPS kernels: every perturbation kernel (dropout at each level's rate
      and at 0.5, feature noise, feature dropout) forward and backward at
      the 5 skip shapes of a neu UAPS step (B=16), f32 and bf16, equal to
@@ -63,7 +64,9 @@ Phases (any failure: exit 1 and no result line):
      forward's mask; dropout also at a level-0 count plus 1 and plus 7
      elements (the kernel's scalar tail) and on x and g one element past
      their allocations' start (a misaligned pointer: the scalar path),
-     forward, backward and the kernel on g, bit for bit; on the card,
+     forward, backward and the kernel on g, bit for bit; feature noise
+     likewise at a level-0 in-example count plus 1 and plus 7 and on the
+     offset views (its scalar path), forward and backward; on the card,
      dropout's zero share within 0.01 of p over 16.8 M elements, noise in
      [-r, r) and shared across the batch,
      feature dropout's threshold in [0.7, 0.9] x max; the fused
@@ -87,13 +90,15 @@ Phases (any failure: exit 1 and no result line):
      dropout rate) and conv3x3_bnl, forward and backward, at every block
      shape of the chain and fused paths (CHAIN_BLOCKS, B=16), f32 and bf16,
      against their plain versions (tolerances in Smoke.chain_kernels), and
-     chain_conv_plain and chain_conv_bnl (p = 0.1) also at ODD_CHAIN (3 ->
-     16, 40 -> 13, 64 -> 32 on a 37 x 70 image: y, s1, s2 and the backward
-     with both moment cotangents); the dropout keep-mask bit for bit
-     through a centre-tap identity weight; the route by dtype from the
-     profiler's kernel names: 3 chain plain forwards and backwards, 3 conv
-     forwards and 3 wgrads launch the tensor-core kernels in bf16 and only
-     the CUDA-core ones in f32;
+     chain_conv_plain and chain_conv_bnl also at ODD_CHAIN (3 -> 16, 40 ->
+     13, 64 -> 32, 72 -> 13 on a 37 x 70 image: y, s1, s2 and the backward;
+     plain with both moment cotangents, bnl with both at p = 0.1, with
+     s1's alone at p = 0.1 and with none at p = 0); the dropout keep-mask
+     bit for bit through a centre-tap identity weight; the route by dtype
+     from the profiler's kernel names: 3 chain plain forwards and
+     backwards, 3 chain bnl backwards, 3 conv forwards and 3 wgrads launch
+     the tensor-core kernels in bf16 (bnl_bwd_mma_kernel for the dgrad with
+     the prologue) and only the CUDA-core ones in f32;
  13. the chain and fused UAPS steps (the UAPS slice with
      ModelConfig.conv_backend="chain" / "fused"): 3 warm-up and 10 timed
      steps each with finite losses and CHAIN_STEP_LAUNCHES /
@@ -108,7 +113,7 @@ Phases (any failure: exit 1 and no result line):
      normalise, leaky and dropout before it; backwards: autograd of the
      composite) and the bound, summed per step by launches; the UAPS step of
      the auto, chain and fused paths in alternating rounds; a profile of 2
-     chain steps;
+     chain steps and of 2 fused steps, each with phase 8's route proof;
  15. the fused pseudo-label kernel against its plain version at the logits
      of each preset's UAPS step (PSEUDO_GEOMS: 4 x [16, 256, 256, 4 / 7 /
      6] and 4 x [12, 256, 512, 2]), f32 and bf16, as NHWC views of NCHW
@@ -311,18 +316,19 @@ PER_LEVEL = {"fused_dropout": 8, "feature_noise": 4, "feature_dropout": 2,
 # ODD_BATCH
 ODD_HW, ODD_BATCH = (37, 70), 2
 ODD_WGRAD = [(3, 16), (40, 4), (40, 13), (16, 13)]
-ODD_CHAIN = [(3, 16), (40, 13), (64, 32)]
+ODD_CHAIN = [(3, 16), (40, 13), (64, 32), (72, 13)]
 # ... and where the tensor-core forwards pad their K (Cin 3, 40; the dgrad's
 # Cout) and N (Cout 4, 13; 72: two groups of 64), checked in phases 2 and 6
 ODD_CONV = [(3, 4), (3, 13), (40, 4), (40, 13), (13, 72)]
 # the profiler's kernel names that the route proof counts: the tensor-core
 # (bf16) weight-gradient pass, chain plain dgrad, conv3x3_nchw forward
-# (and its dgrad), fused-block forward and NHWC forward (and its dgrad),
-# then the CUDA-core ones (f32; the fused-block dgrad also in bf16 with the
-# prologue). No name contains another.
+# (and its dgrad), fused-block forward, NHWC forward (and its dgrad) and
+# fused-block dgrad with the BN prologue, then the CUDA-core ones (f32).
+# No name contains another.
 ROUTE_KERNELS = ("wgrad_mma_kernel", "dgrad_mma_kernel",
                  "conv_fwd_mma_kernel", "block_fwd_mma_kernel",
-                 "nhwc_fwd_mma_kernel", "wgrad_partial_kernel",
+                 "nhwc_fwd_mma_kernel", "bnl_bwd_mma_kernel",
+                 "wgrad_partial_kernel",
                  "block_conv_dgrad_kernel", "conv3x3_fwd_kernel",
                  "block_conv_fwd_kernel", "conv3x3_nhwc_fwd_kernel")
 # the launch counters whose every call runs one weight-gradient pass
@@ -342,8 +348,10 @@ CHAIN_PLAIN_NO_DX = 2
 # calls of phase 12's routed backward that one profile counts
 ROUTE_CALLS = 3
 # kernels launched first in each profile that proves a route (phase 12's
-# and the steps' of phases 8, 11, 14 and 18), left uncounted
+# and the steps' of phases 8, 11, 14 and 18), left uncounted; profiler
+# windows a route proof may take (Smoke._profiled)
 ROUTE_LEAD_IN = 64
+LEAD_IN_TRIES = 3
 # the least time the card could take: published H100 SXM peaks
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
@@ -448,10 +456,10 @@ def route_of(entries):
 def bf16_route(per_step, steps):
     """The ROUTE_KERNELS counts that `steps` bf16 steps launching
     `per_step` must show: every weight-gradient pass, every chain plain
-    dgrad, every conv3x3_nchw forward and dgrad and every fused-block
-    forward on the tensor cores; no CUDA-core wgrad pass or forward; the
-    CUDA-core fused-block dgrad only for the backwards with the prologue;
-    every NHWC forward and dgrad on the tensor cores."""
+    dgrad, every conv3x3_nchw forward and dgrad, every fused-block forward,
+    every NHWC forward and dgrad and every fused-block dgrad with the BN
+    prologue (the chain bnl and conv3x3_bnl backwards) on the tensor cores;
+    no CUDA-core kernel."""
     plain = per_step["chain_conv_plain_bwd"]
     return {"wgrad_mma_kernel": steps * sum(per_step[k]
                                             for k in WGRAD_PASSES),
@@ -462,9 +470,9 @@ def bf16_route(per_step, steps):
             "block_fwd_mma_kernel": steps * sum(per_step[k]
                                                 for k in BLOCK_FWD_PASSES),
             "nhwc_fwd_mma_kernel": steps * per_step["conv3x3_nhwc"],
-            "wgrad_partial_kernel": 0,
-            "block_conv_dgrad_kernel": steps * (per_step["chain_conv_bnl_bwd"]
-                                                + per_step["conv3x3_bnl_bwd"]),
+            "bnl_bwd_mma_kernel": steps * (per_step["chain_conv_bnl_bwd"]
+                                           + per_step["conv3x3_bnl_bwd"]),
+            "wgrad_partial_kernel": 0, "block_conv_dgrad_kernel": 0,
             "conv3x3_fwd_kernel": 0, "block_conv_fwd_kernel": 0,
             "conv3x3_nhwc_fwd_kernel": 0}
 
@@ -488,14 +496,14 @@ def mma_registers(text):
             spill = m.group(1)
         m = re.search(r"Used (\d+) registers", line)
         if m:
-            fam = re.search(r"(?:wgrad|dgrad|conv_fwd|block_fwd|nhwc_fwd)"
-                            r"_mma_kernel",
+            fam = re.search(r"(?:wgrad|dgrad|conv_fwd|block_fwd|nhwc_fwd|"
+                            r"bnl_bwd)_mma_kernel",
                             name).group(0)
             args = ",".join(re.findall(r"L[ib](\d+)E", name))
             if re.search(r"Li\d+EfE", name):   # the f32-output forward
                 args += ",f32 out"
             loads = "/".join(re.findall(r"(PlainLoad|ProLoad|FoldLoad|"
-                                        r"NhwcLoad)", name))
+                                        r"NhwcLoad|DgradArgs)", name))
             out.append(f"{fam}<{args}> {loads}: {m.group(1)} registers, "
                        f"{spill or 0} B spilled")
             name = None
@@ -1596,16 +1604,11 @@ class Smoke:
         profiler must show the conv route of bf16_route, or this raises.
         The steps come after the lead-in (whose kernels no number here
         counts): a step's first kernel is a conv forward."""
-        from torch.profiler import ProfilerActivity, profile
         cuda = self.torch.autograd.DeviceType.CUDA
         t = self.report["times"]
         try:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                self._lead_in()
-                for _ in range(2):
-                    step(state, batch)
-                self.sync()
+            prof = self._profiled(lambda: [step(state, batch)
+                                           for _ in range(2)])
             events = prof.key_averages()
             table = events.table(sort_by="cuda_time_total", row_limit=40)
         except RuntimeError as exc:
@@ -1772,6 +1775,34 @@ class Smoke:
                       same_mask(x.detach(), gy, y.detach(), dx))
                 exact("fused_dropout", f"{label}, the kernel on g",
                       kpt._dropout(gy, sd, rate), ref)
+            # the noise kernel's scalar path (csrc/perturb.cu): a level-0
+            # in-example count plus 1 and plus 7 (no whole vectors a row),
+            # then x and g one element past their allocations' start
+            inner = c * hw * hw
+            for extra in (1, 7):
+                x, gy = (torch.randn((BATCH, inner + extra), generator=g,
+                                     device=self.dev).to(dtype)
+                         for _ in range(2))
+                label = f"feature noise [{BATCH}, {inner} + {extra}] {dname}"
+                y, dx = run(kpt.fused_feature_noise, x, gy, sd)
+                exact("feature_noise", label, y,
+                      kpt.feature_noise_plain(x, sd, 0.3))
+                exact("feature_noise", f"{label} bwd", dx,
+                      kpt.feature_noise_plain(gy, sd, 0.3))
+            xb, gb = (torch.randn(n0 + 1, generator=g,
+                                  device=self.dev).to(dtype)
+                      for _ in range(2))
+            xb.requires_grad_()
+            x, gy = (t[1:].view(BATCH, c, hw, hw) for t in (xb, gb))
+            label = (f"feature noise [{BATCH},{c},{hw},{hw}] at a "
+                     f"one-element offset {dname}")
+            y = kpt.fused_feature_noise(x, sd)
+            y.backward(gy)
+            self.sync()
+            exact("feature_noise", label, y.detach(),
+                  kpt.feature_noise_plain(x.detach(), sd, 0.3))
+            exact("feature_noise", f"{label} bwd", xb.grad[1:].view(x.shape),
+                  kpt.feature_noise_plain(gy, sd, 0.3))
         self._perturb_distributions(bad)
 
         logits, w, gv = self._unc_case(SEED + 300)
@@ -2160,6 +2191,8 @@ class Smoke:
                 bad.append(label)
 
         def chain_case(x, w, f, s, gy, ds1, ds2, sd, rate, label, tol):
+            """ds1 or ds2 None: that moment takes no cotangent (autograd
+            hands the backward None, which adds nothing to the fold)."""
             pro = f is not None
             name = "chain_conv_bnl" if pro else "chain_conv_plain"
             ins = [t.clone().requires_grad_() if t is not None else None
@@ -2168,7 +2201,10 @@ class Smoke:
                 y, s1, s2 = kbc.chain_conv_bnl(*ins, sd, rate)
             else:
                 y, s1, s2 = kbc.chain_conv_plain(ins[0], ins[3])
-            torch.autograd.backward([y, s1, s2], [gy, ds1, ds2])
+            outs = [(o, c) for o, c in ((y, gy), (s1, ds1), (s2, ds2))
+                    if c is not None]
+            torch.autograd.backward([o for o, _ in outs],
+                                    [c for _, c in outs])
             self.sync()
             with torch.no_grad():
                 ry, r1, r2 = (kbc.chain_bnl_ref(x, f, s, w, sd, rate) if pro
@@ -2260,16 +2296,23 @@ class Smoke:
                 else:
                     bnl_case(x, w, f, s, gy, f"conv3x3_bnl {blk}.4 "
                              f"{cout}->{cout} @{hw} {dname}", tol)
-            # where the tensor-core dgrad and wgrad pad and mask (bf16)
+            # where the tensor-core dgrads and wgrad pad and mask, and the
+            # dgrad with the prologue takes its scalar epilogue (W = 70;
+            # Cin 72: two channel groups write one df/ds slot), with both
+            # moment cotangents, s1's alone and none (bf16)
             for i, (cin, cout) in enumerate(ODD_CHAIN):
                 x, w, f, s, gy, ds1, ds2, sd = self._chain_case(
                     cin, cout, ODD_HW, dtype, SEED + 440 + i, ODD_BATCH)
+                odd = (f"odd {cin}->{cout} @{ODD_HW[0]}x{ODD_HW[1]} "
+                       f"B={ODD_BATCH}")
                 chain_case(x, w, None, None, gy, ds1, ds2, sd, 0.0,
-                           f"chain plain odd {cin}->{cout} @{ODD_HW[0]}x"
-                           f"{ODD_HW[1]} B={ODD_BATCH} {dname}", tol)
-                chain_case(x, w, f, s, gy, ds1, ds2, sd, 0.1,
-                           f"chain bnl odd {cin}->{cout} @{ODD_HW[0]}x"
-                           f"{ODD_HW[1]} B={ODD_BATCH} p=0.1 {dname}", tol)
+                           f"chain plain {odd} {dname}", tol)
+                for d1, d2, rate, cots in ((ds1, ds2, 0.1, "ds1+ds2"),
+                                           (ds1, None, 0.1, "ds1"),
+                                           (None, None, 0.0, "no ds")):
+                    chain_case(x, w, f, s, gy, d1, d2, sd, rate,
+                               f"chain bnl {odd} p={rate} {cots} {dname}",
+                               tol)
         self._route_by_dtype(bad)
         for name, e in errs.items():
             self.report["kernels"][name] = {"max_abs_err": e}
@@ -2288,21 +2331,37 @@ class Smoke:
             lead.add_(1)
         torch.cuda._sleep(1 << 22)
 
+    def _profiled(self, fn):
+        """The torch.profiler window of the lead-in, then fn(). Where the
+        profiler recorded no kernel of the lead-in's end (its spin), what
+        it missed at the window's start may reach past the lead-in into
+        the counted kernels (one run lost 11 of the 64 adds, another a
+        step's first conv forward): the window runs again, up to
+        LEAD_IN_TRIES times in all, and the last is returned."""
+        from torch.profiler import ProfilerActivity, profile
+        cuda = self.torch.autograd.DeviceType.CUDA
+        for attempt in range(1, LEAD_IN_TRIES + 1):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                self._lead_in()
+                fn()
+                self.sync()
+            if any(e.device_type == cuda and "spin_kernel" in e.key
+                   for e in prof.key_averages()):
+                break
+            log(f"the profiler missed the lead-in's spin (window {attempt} "
+                f"of {LEAD_IN_TRIES})")
+        return prof
+
     def _route(self, fn, calls):
         """route_of the device entries of `calls` fn() calls, after one
         unprofiled call (builds, loads) and, inside the profiler, the
         lead-in. Also how many of the lead-in's adds it recorded."""
-        from torch.profiler import ProfilerActivity, profile
         torch = self.torch
         cuda = torch.autograd.DeviceType.CUDA
         fn()
         self.sync()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            self._lead_in()
-            for _ in range(calls):
-                fn()
-            self.sync()
+        prof = self._profiled(lambda: [fn() for _ in range(calls)])
         entries = [(e.key, e.count) for e in prof.key_averages()
                    if e.device_type == cuda]
         seen = sum(n for name, n in entries
@@ -2311,34 +2370,39 @@ class Smoke:
 
     def _route_by_dtype(self, bad):
         """From the profiler's kernel names: a plain chain conv forward and
-        its backward (dgrad + wgrad), one conv3x3_nchw forward and one
-        conv3x3_nchw_wgrad, ROUTE_CALLS times, launch the tensor-core
+        its backward (dgrad + wgrad), one chain_conv_bnl backward (p = 0.1:
+        the dgrad with the prologue + wgrad), one conv3x3_nchw forward and
+        one conv3x3_nchw_wgrad, ROUTE_CALLS times, launch the tensor-core
         kernels in bf16 and none of them in f32."""
         from uaps_tpu_torch.kernels import block_conv as kbc
         from uaps_tpu_torch.kernels import conv3x3_nchw as kc
         torch = self.torch
-        want = {"bf16": {"wgrad_mma_kernel": 2, "dgrad_mma_kernel": 1,
+        want = {"bf16": {"wgrad_mma_kernel": 3, "dgrad_mma_kernel": 1,
                          "conv_fwd_mma_kernel": 1, "block_fwd_mma_kernel": 1,
-                         "nhwc_fwd_mma_kernel": 0, "wgrad_partial_kernel": 0,
+                         "nhwc_fwd_mma_kernel": 0, "bnl_bwd_mma_kernel": 1,
+                         "wgrad_partial_kernel": 0,
                          "block_conv_dgrad_kernel": 0,
                          "conv3x3_fwd_kernel": 0, "block_conv_fwd_kernel": 0,
                          "conv3x3_nhwc_fwd_kernel": 0},
                 "f32": {"wgrad_mma_kernel": 0, "dgrad_mma_kernel": 0,
                         "conv_fwd_mma_kernel": 0, "block_fwd_mma_kernel": 0,
-                        "nhwc_fwd_mma_kernel": 0, "wgrad_partial_kernel": 2,
-                        "block_conv_dgrad_kernel": 1,
+                        "nhwc_fwd_mma_kernel": 0, "bnl_bwd_mma_kernel": 0,
+                        "wgrad_partial_kernel": 3,
+                        "block_conv_dgrad_kernel": 2,
                         "conv3x3_fwd_kernel": 1, "block_conv_fwd_kernel": 1,
                         "conv3x3_nhwc_fwd_kernel": 0}}
         for dname, dtype in (("f32", torch.float32),
                              ("bf16", torch.bfloat16)):
-            x, w, _, _, gy, ds1, ds2, _ = self._chain_case(
+            x, w, f, s, gy, ds1, ds2, sd = self._chain_case(
                 40, 13, ODD_HW, dtype, SEED + 460, ODD_BATCH)
             y = kbc.chain_conv_plain(x, w)[0]
+            yb = kbc.chain_conv_bnl(x, f, s, w, sd, 0.1)[0]
 
-            def run():   # the chain conv both ways, on this thread
+            def run():   # the chain convs both ways, on this thread
                 kbc.chain_conv_plain(x, w)
                 kbc._backward(gy, ds1, ds2, y, x, None, None, w, None, 0.0,
                               True)
+                kbc._backward(gy, ds1, ds2, yb, x, f, s, w, sd, 0.1, True)
                 kc.conv3x3_nchw(x, w)
                 kc.conv3x3_nchw_wgrad(x, gy)
             got, seen = self._route(run, ROUTE_CALLS)
@@ -2346,7 +2410,7 @@ class Smoke:
             ok = got == want[dname]
             self.report.setdefault("route", {})[f"calls_{dname}"] = got
             log(f"route of {ROUTE_CALLS} chain plain forwards and backwards "
-                f"+ conv forwards and wgrads, "
+                f"+ chain bnl backwards + conv forwards and wgrads, "
                 f"{dname}: {json.dumps(got)} {'ok' if ok else 'MISMATCH'} "
                 f"(want {json.dumps(want[dname])}; the profiler recorded "
                 f"{seen} of the {ROUTE_LEAD_IN} lead-in kernels)")
@@ -2473,7 +2537,8 @@ class Smoke:
         (cuDNN F.conv2d; for bnl the torch normalise, leaky and F.dropout
         before it; backwards: autograd of that composite) and the bound,
         summed per step by launches; the UAPS step of the auto, chain and
-        fused paths in alternating rounds; a profile of 2 chain steps."""
+        fused paths in alternating rounds; a profile of 2 chain steps and
+        of 2 fused steps."""
         import torch.nn.functional as F
         from uaps_tpu_torch.kernels import block_conv as kbc
         from uaps_tpu_torch.kernels import conv_bnl as kbnl
@@ -2586,10 +2651,11 @@ class Smoke:
         for b, (_, state, step, batch) in self.fused_paths.items():
             paths[b] = (step, state, batch)
         self.step_rounds(t, "step_rounds", paths)
-        _, state, step, batch = self.fused_paths["chain"]
-        self.profile_steps("chain", "chain UAPS", step, state, batch,
-                           t["step_rounds"]["chain"]["median"],
-                           CHAIN_STEP_LAUNCHES)
+        for b, per_step in (("chain", CHAIN_STEP_LAUNCHES),
+                            ("fused", FUSED_STEP_LAUNCHES)):
+            _, state, step, batch = self.fused_paths[b]
+            self.profile_steps(b, f"{b} UAPS", step, state, batch,
+                               t["step_rounds"][b]["median"], per_step)
 
     def step_rounds(self, t, key, paths, rounds=5, reps=3):
         """The UAPS steps of `paths` ({label: (step, state, batch)}) in

@@ -357,3 +357,61 @@ def test_fwd_tiles_match_c_grid(dtype):
     for b, h, wd in shapes:
         assert kbc.fwd_tiles(getattr(torch, dtype), b, h, wd) == (
             b * -(-h // want_h) * -(-wd // want_w)), (b, h, wd)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_dfds_rows_match_c_grid(dtype, monkeypatch):
+    """The backward's df/ds scratch (`block_conv.kernel_bwd`'s part_d, one
+    [2, Cin] partial a block of the dgrad with the BN prologue) holds
+    `fwd_tiles` rows, and the C side reduces as many: the tensor-core
+    dgrad (csrc/block_conv.cu bnl_bwd_mma_kernel, on the dg::kTH x dg::kTW
+    grid of `mma_grid`) for bf16 through `mma_tiles_per_image`, the
+    CUDA-core one (`tile_grid`, kTH x kTW) for f32 through
+    `tiles_per_image`; the wrapper's arguments are captured with the
+    launch stubbed, at a main-path shape, a ragged one and Cin 72 (two
+    channel groups of the tensor-core grid)."""
+    from uaps_tpu_torch.kernels import block_conv as kbc
+    block = _c_source("block_conv.cu")
+    mma = _c_source("conv3x3_mma.cuh")
+    assert re.search(r"batch \* uaps::conv::tc::mma_tiles_per_image\(h, wd\),"
+                     r"\s*2 \* cin", block)
+    assert re.search(r"batch \* tiles_per_image\(h, wd\),\s*2 \* cin", block)
+    assert "tc::mma_grid<NB>(batch, a.cin, a.h, a.wd)" in block
+    assert re.search(r"return dim3\(\(wd \+ dg::kTW - 1\) / dg::kTW, "
+                     r"\(h \+ dg::kTH - 1\) / dg::kTH,", mma)
+    if dtype == "bfloat16":
+        consts = re.search(r"namespace dg \{(.*?)\}", mma, re.S).group(1)
+        pat = r"constexpr int {} = (\d+);"
+    else:
+        consts = _c_source("conv3x3_tile.cuh")
+        pat = r"^constexpr int {} = (\d+);"
+    th, tw = (int(re.search(pat.format(k), consts, re.M).group(1))
+              for k in ("kTH", "kTW"))
+    tdt = getattr(torch, dtype)
+    made, seen = [], []
+    empty = torch.empty
+
+    def record(*a, **k):
+        t = empty(*a, **k)
+        made.append(t)
+        return t
+
+    monkeypatch.setattr(torch, "empty", record)
+    monkeypatch.setattr(kbc, "_fns", lambda: (None, None, None))
+    monkeypatch.setattr(kbc._build, "call",
+                        lambda lib, fn, dev, what, *args: seen.append(args))
+    for b, cin, cout, h, wd in [(16, 16, 16, 256, 256), (2, 40, 13, 37, 70),
+                                (2, 72, 13, 37, 70)]:
+        made.clear()
+        seen.clear()
+        x = empty((b, cin, h, wd), dtype=tdt)
+        g = empty((b, cout, h, wd), dtype=tdt)
+        wk = empty((9, cin, cout), dtype=tdt)
+        f, s = torch.ones(cin), torch.zeros(cin)
+        kbc.kernel_bwd(g, None, None, None, x, wk, f, s, None, 0.0, True,
+                       "test")
+        (args,) = seen
+        part_d = next(t for t in made if t.data_ptr() == args[10])
+        rows = kbc.fwd_tiles(tdt, b, h, wd)
+        assert part_d.numel() == rows * 2 * cin, (b, cin, h, wd)
+        assert rows == b * -(-h // th) * -(-wd // tw)

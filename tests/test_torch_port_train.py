@@ -307,3 +307,29 @@ def test_trainer_one_epoch_on_cpu(tmp_path):
              str(tmp_path / "best_model.pth"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train.main(argv + ["--resume"])
+
+
+@pytest.mark.parametrize("knob,value", [
+    (None, None), ("steps_per_dispatch", 4), ("device_pools", True),
+    ("save_every", 5), ("keep_checkpoints", 3), ("profile_steps", (2, 4)),
+    ("debug_nans", True)])
+def test_unported_run_knobs_raise(knob, value):
+    """Each RunConfig knob that the JAX Trainer reads and the port does not
+    yet raises NotImplementedError at a non-default value, naming the
+    ROADMAP Queue A item that ports it, before the Trainer builds anything;
+    the defaults, and the JAX-only prng_impl and use_shard_map, pass."""
+    from uaps_tpu_torch import train
+    from uaps_tpu_torch.utils.config import Config, RunConfig
+    items = {"steps_per_dispatch": "The step as a CUDA graph",
+             "device_pools": "The step as a CUDA graph"}
+    if knob is None:
+        train.check_run_config(RunConfig(prng_impl="rbg",
+                                         use_shard_map=True))
+        return
+    run = dataclasses.replace(RunConfig(), **{knob: value})
+    item = items.get(knob, "The rest of the Trainer and CLIs")
+    with pytest.raises(NotImplementedError,
+                       match=rf"RunConfig\.{knob}=.*Queue A, '{item}'"):
+        train.check_run_config(run)
+    with pytest.raises(NotImplementedError, match=knob):
+        train.Trainer(Config(run=run), device="cpu", data=object())

@@ -1,12 +1,14 @@
 """The port's UAPS slice against the JAX package on the CPU: the fused
 uncertainty module against the Pallas kernel (interpret mode), the
 perturbation applies against `uaps_tpu.ops.perturbations` given JAX's own
-draws, the port's generator contracts, `fused_dropout` at every element of
-ragged counts and an offset view, the KL / MSE losses and the ramps,
-the perturbed multi-decoder forward, 1 and 3 UAPS steps, one step of the
-unfused route (fused_uncertainty=False, through the pseudo-label module)
-with the MTiles loss terms and fused_batch, `InferenceEngine.uncertainty`,
-the routing of one step through the kernel modules, and the Trainer.
+draws, the port's generator contracts, `fused_dropout` and
+`fused_feature_noise` at every element of ragged counts and an offset view
+(the noise against the CUDA kernel's vector draw), the KL / MSE losses and
+the ramps, the perturbed multi-decoder forward, 1 and 3 UAPS steps, one
+step of the unfused route (fused_uncertainty=False, through the
+pseudo-label module) with the MTiles loss terms and fused_batch,
+`InferenceEngine.uncertainty`, the routing of one step through the kernel
+modules, and the Trainer.
 
 The deterministic recipe (ROADMAP.md): perturbations "none" and dropout 0
 on both sides, the same seeded f32 weights (tests/_torch_port_util.py), the
@@ -290,6 +292,62 @@ def test_fused_dropout_every_element(case):
         xb.grad[lo:lo + n].numpy(), np.where(keep, gbase[lo:lo + n] * scale,
                                              0))
     assert 0 < keep.mean() < 1
+
+
+def _bits_vec_spec(seed, i0, n):
+    """The noise and dropout kernels' vector draw (csrc/perturb.cu
+    bits_vec): bits(i0 + j) for j < n, i0 a multiple of n, with mix32's
+    first xorshift of (i0 ^ key) shared by the vector."""
+    def tail(v):
+        v = (v * 0x7FEB352D) & 0xFFFFFFFF
+        v ^= v >> 15
+        v = (v * 0x846CA68B) & 0xFFFFFFFF
+        return v ^ (v >> 16)
+
+    def mix32(v):
+        return tail(v ^ (v >> 16))
+    s = seed & 0xFFFFFFFF
+    t = i0 ^ mix32(s ^ 0x9E3779B9)
+    h = t ^ (t >> 16)
+    return [mix32((tail(h ^ j) + s) & 0xFFFFFFFF) for j in range(n)]
+
+
+@pytest.mark.parametrize("case", ["n=8k", "n=8k+1", "n=8k+7", "offset"])
+def test_fused_feature_noise_every_element(case):
+    """fused_feature_noise against the CUDA kernel's draw at every element
+    of 3 examples, at in-example counts that leave 0, 1 and 7 elements past
+    the last 8-element vector, and on a view one element past its
+    storage's start: element (b, j) is f32(x * f32(1 + f32(f32(u * 0.6) -
+    0.3))), u = (bits >> 8) * 2^-24, where bits comes from the vector draw
+    (_bits_vec_spec, 4 and 8 elements: the f32 and bf16 vectors) for j in
+    a whole vector, else from the generator's definition; the same noise
+    for every example, and the backward scales the cotangent alike."""
+    seed, batch = 2 ** 31 - 5, 3
+    n = {"n=8k": 8 * 37, "n=8k+1": 8 * 37 + 1, "n=8k+7": 8 * 37 + 7,
+         "offset": 8 * 37}[case]
+    for vec in (4, 8):
+        bits = [_bits_spec(seed, j) for j in range(n)]
+        for i0 in range(0, n - n % vec, vec):
+            bits[i0:i0 + vec] = _bits_vec_spec(seed, i0, vec)
+        assert bits == [_bits_spec(seed, j) for j in range(n)]
+    u = (np.array(bits, np.int64) >> 8).astype(np.float32) * np.float32(
+        2.0 ** -24)
+    m = np.float32(1) + ((u * np.float32(0.6)) - np.float32(0.3))
+    rng = np.random.default_rng(13)
+    base = rng.standard_normal(batch * n + 1).astype(np.float32)
+    gbase = rng.standard_normal(batch * n + 1).astype(np.float32)
+    lo = 1 if case == "offset" else 0
+    xb = torch.from_numpy(base).requires_grad_()
+    x = xb[lo:lo + batch * n].view(batch, n)
+    g = torch.from_numpy(gbase)[lo:lo + batch * n].view(batch, n)
+    assert x.storage_offset() == lo
+    y = kpt.fused_feature_noise(x, torch.tensor(seed))
+    y.backward(g)
+    np.testing.assert_array_equal(
+        y.detach().numpy(), base[lo:lo + batch * n].reshape(batch, n) * m)
+    np.testing.assert_array_equal(
+        xb.grad[lo:lo + batch * n].numpy().reshape(batch, n),
+        gbase[lo:lo + batch * n].reshape(batch, n) * m)
 
 
 def test_losses_and_ramps_match_jax():

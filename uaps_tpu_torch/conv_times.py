@@ -18,9 +18,15 @@ bf16 times in ms:
     `chain_conv_plain` (the moment fold, the dgrad and the wgrad, both
     moment cotangents on; no dgrad for in_conv, whose input is the image),
     each with its sum over a chain step's launches (`chain_fwd_per_step`,
-    `chain_bnl_fwd_per_step`, `chain_bwd_per_step`);
+    `chain_bnl_fwd_per_step`, `chain_bwd_per_step`), and the backward of
+    `chain_conv_bnl` (the fold, the dgrad with the BN prologue's backward
+    and df/ds, the wgrad) summed alike (`chain_bnl_bwd_per_step`) beside
+    autograd of the library composite (the torch normalise, leaky and
+    `F.dropout`, then `F.conv2d`: `chain_bnl_bwd_library_per_step`);
   * `conv3x3_bnl` at the fused step's two shapes, summed over its 16
-    launches (`bnl_fwd_per_step`), and the stats conv
+    launches (`bnl_fwd_per_step`; its backward `bnl_bwd_per_step`, beside
+    autograd of normalise, leaky and `F.conv2d`:
+    `bnl_bwd_library_per_step`), and the stats conv
     (`conv3x3_nchw_stats`) at the bn_stats blocks' four convs, summed
     (`stats_fwd_per_run`);
   * the NHWC conv (`kernels/conv3x3.py`) at NHWC_SHAPE: `conv3x3_forward`
@@ -36,7 +42,10 @@ bf16 times in ms:
     that holds its global loads, per element, read from `cuobjdump -sass`
     of ROOT's built library, with the integer-issue floor they set a step
     (the integer instructions x the step's elements over the SMs' integer
-    lanes at the card's maximum SM clock).
+    lanes at the card's maximum SM clock);
+  * the feature-noise kernel (`_noise`, r = 0.3) at the same 5 levels,
+    summed over its 4 launches a level (`noise_per_step`), timed as
+    dropout.
 Each conv time is the median over 5 rounds of CUDA events around 20
 back-to-back calls queued behind a ~2.5 ms spin, so that the host's enqueue
 is not counted (chip_smoke.py `Smoke.time_ms`). Two separate runs may land
@@ -82,6 +91,7 @@ NHWC_SHAPE = (16, 256, 256, 16, 16)
 # H = W); the dropout kernel runs 8 times a level a step (PER_LEVEL)
 LEVELS = [(16, 256), (32, 128), (64, 64), (128, 32), (256, 16)]
 DROPOUT_PER_LEVEL = 8
+NOISE_PER_LEVEL = 4
 # integer lanes an H100 SM issues a clock (4 partitions of 16 INT32 units;
 # the CUDA programming guide's throughput table for compute capability 9.0)
 INT_LANES_PER_SM = 64
@@ -242,6 +252,23 @@ def _case(torch, dev, seed, cin, cout, hw):
     return x, w, gy, f, s, ds1, ds2, sd
 
 
+def composite_bwd(torch, x, f, s, w, rate):
+    """A backward of the library's composite of the chain bnl conv and of
+    conv3x3_bnl: autograd through leaky(x f + s), F.dropout (rate > 0) and
+    F.conv2d, as chip_smoke.py phase 14 times it: g -> the gradients of x,
+    f, s and w."""
+    import torch.nn.functional as F
+    ins = [t.detach().clone().requires_grad_() for t in (x, f, s)]
+    w_oihw = w.permute(3, 2, 0, 1).contiguous().requires_grad_()
+    z = F.leaky_relu(ins[0].float() * ins[1][:, None, None]
+                     + ins[2][:, None, None], 0.01)
+    if rate > 0:
+        z = F.dropout(z, rate)
+    out = F.conv2d(z.to(x.dtype), w_oihw, padding=1)
+    return lambda g: torch.autograd.grad(out, [*ins, w_oihw], g,
+                                         retain_graph=True)
+
+
 def main(root: str) -> dict:
     sys.path.insert(0, root)
     import torch
@@ -262,7 +289,10 @@ def main(root: str) -> dict:
     sums = ("fwd", "dgrad", "wgrad", "fwd_fullh_per_step",
             "dgrad_fullh_per_step", "wgrad_fullh_per_step",
             "chain_fwd_per_step", "chain_bnl_fwd_per_step",
-            "chain_bwd_per_step", "bnl_fwd_per_step", "stats_fwd_per_run")
+            "chain_bwd_per_step", "chain_bnl_bwd_per_step",
+            "chain_bnl_bwd_library_per_step", "bnl_fwd_per_step",
+            "bnl_bwd_per_step", "bnl_bwd_library_per_step",
+            "stats_fwd_per_run")
     out = {"root": root, "card": torch.cuda.get_device_name(0),
            "shapes": {}, "chain": {}, "stats": {}, **dict.fromkeys(sums, 0.0)}
     for i, (mod, cin, cout, hw) in enumerate(CONV_SHAPES):
@@ -288,13 +318,25 @@ def main(root: str) -> dict:
                "plain_bwd": time_ms(torch, lambda: kbc._backward(
                    gy, ds1, ds2, y, x, None, None, w, None, 0.0, need_dx))}
         # the second conv: Cout -> Cout on the first's raw output
-        z, w2, _, f, s, _, _, sd = _case(torch, dev, 1420 + i, cout, cout, hw)
+        z, w2, g2, f, s, ds1, ds2, sd = _case(torch, dev, 1420 + i, cout,
+                                              cout, hw)
+        y2 = kbc.chain_conv_bnl(z, f, s, w2, sd, rate)[0]
         row["bnl_fwd"] = time_ms(
             torch, lambda: kbc.chain_conv_bnl(z, f, s, w2, sd, rate))
+        row["bnl_bwd"] = time_ms(torch, lambda: kbc._backward(
+            g2, ds1, ds2, y2, z, f, s, w2, sd, rate, True))
+        lib_b = composite_bwd(torch, z, f, s, w2, rate)
+        row["bnl_bwd_library"] = time_ms(torch, lambda: lib_b(g2))
+        out["chain_bnl_bwd_per_step"] += n * row["bnl_bwd"]
+        out["chain_bnl_bwd_library_per_step"] += n * row["bnl_bwd_library"]
         if rate == 0:
             row["conv3x3_bnl"] = time_ms(
                 torch, lambda: kbnl.conv3x3_bnl(z, f, s, w2))
+            row["conv3x3_bnl_bwd"] = time_ms(
+                torch, lambda: kbnl._backward(g2, z, f, s, w2))
             out["bnl_fwd_per_step"] += n * row["conv3x3_bnl"]
+            out["bnl_bwd_per_step"] += n * row["conv3x3_bnl_bwd"]
+            out["bnl_bwd_library_per_step"] += n * row["bnl_bwd_library"]
         out["chain"][f"{blk} {cin}->{cout}->{cout} @{hw}"] = row
         out["chain_fwd_per_step"] += n * row["plain_fwd"]
         out["chain_bnl_fwd_per_step"] += n * row["bnl_fwd"]
@@ -335,6 +377,14 @@ def main(root: str) -> dict:
         elements += DROPOUT_PER_LEVEL * x.numel()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out["dropout_sass"] = dropout_sass(root, elements, sms)
+    out["noise"], out["noise_per_step"] = {}, 0.0
+    for i, (c, hw) in enumerate(LEVELS):
+        g = torch.Generator(device=dev).manual_seed(1500 + i)
+        x = torch.randn((BATCH, c, hw, hw), generator=g, device=dev).to(bf)
+        sd = torch.randint(0, 2 ** 31 - 1, (), generator=g, device=dev)
+        ms = cold_ms(torch, lambda: kpt._noise(x, sd, 0.3))
+        out["noise"][f"[{BATCH},{c},{hw},{hw}]"] = ms
+        out["noise_per_step"] += NOISE_PER_LEVEL * ms
     return out
 
 

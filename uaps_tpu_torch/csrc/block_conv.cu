@@ -42,11 +42,24 @@
 //
 // Routing (by dtype, in the entry points): in bf16 every forward (plain +
 // moments, prologue + moments, prologue only: block_fwd_mma_kernel), the
-// backward's wgrad pass (with or without the prologue) and the dgrad
-// without the prologue (chain_conv_plain's) run on the tensor cores
-// (conv3x3_mma.cuh: conv_mma_tile, wgrad_mma_kernel, dgrad_mma_kernel;
-// their note says what bounds them and how they answer it); the dgrad with
-// the prologue and every f32 kernel run on the CUDA cores, as below.
+// backward's wgrad pass (with or without the prologue), the dgrad without
+// the prologue (chain_conv_plain's: dgrad_mma_kernel) and the dgrad with it
+// (bnl_bwd_mma_kernel, below) run on the tensor cores (conv3x3_mma.cuh:
+// conv_mma_tile, wgrad_mma_kernel; its note says what bounds them and how
+// they answer it); every f32 kernel runs on the CUDA cores, as below.
+//
+// The bf16 dgrad with the prologue (bnl_bwd_mma_kernel) replaces the
+// dgrad of uaps_tpu/pallas/block_conv.py:345 _chain_bwd_call (:368) with
+// the prologue and of uaps_tpu/pallas/conv_bnl.py:196 _bnl_vjp_bwd (:211).
+// Its bound is bytes: g, y (with ds2) and x read once, dx written once,
+// 2 bytes an element each (~0.04 ms at 16 channels @ 256^2, B = 16),
+// against ~0.01 ms of products at the bf16 peak. What the design does:
+// the conv is conv_mma_tile's (the folded cotangent staged 4 pixels a
+// load, the rotated weight as dgrad_mma_kernel stages it); the epilogue
+// reads x once, 16 bytes a lane, and writes dx once, 16 bytes a lane, from
+// the f32 accumulators parked in shared memory, and reduces df and ds per
+// channel inside one warp, so the prologue's backward costs one pass over x
+// and dx and no extra launch but the fixed-order reduce.
 //
 // What bounds the CUDA-core kernels: the conv is conv3x3_nchw.cu's tiling
 // (conv3x3_tile.cuh: kTH x kTW output tile, Cin chunks of kCK channels in
@@ -136,9 +149,13 @@ struct ProLoad {
   }
 };
 
-// ge = g + ds1[c] + (2 y) ds2[c] in f32, rounded to T (either ds may be null)
+// ge = g + ds1[c] + (2 y) ds2[c] in f32, rounded to T (either ds may be
+// null). In bf16 (kVec4) the tensor-core tile reads 4 pixels of g (and of y)
+// a load where W % 4 == 0 and g and y are 8-byte aligned (vec4_ok), folds
+// each value in f32 and rounds it once, as operator() does.
 template <typename T>
 struct FoldLoad {
+  static constexpr bool kVec4 = std::is_same<T, __nv_bfloat16>::value;
   const T* g;
   const T* y;
   const float* __restrict__ ds1;
@@ -162,12 +179,42 @@ struct FoldLoad {
                                    ds2[c0 + ch]));
       return to_f32(from_f32<T>(v));
     }
+    // pixels gx .. gx + 3 (bf16): the words of g, or of the folded values
+    __device__ __forceinline__ uint2 vec4(int ch, int gy, int gx) const {
+      const size_t i = ch * plane + (gy * wd + gx);
+      const uint2 gv = __ldg(reinterpret_cast<const uint2*>(g + i));
+      if (ds1 == nullptr && ds2 == nullptr) return gv;
+      const uint2 yv = ds2 == nullptr
+                           ? make_uint2(0u, 0u)
+                           : __ldg(reinterpret_cast<const uint2*>(y + i));
+      const uint32_t gw[2] = {gv.x, gv.y};
+      const uint32_t yw[2] = {yv.x, yv.y};
+      float v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        // a word holds pixels 2w (low half) and 2w + 1
+        const auto half = [k](uint32_t w) {
+          return __uint_as_float((k & 1) ? (w & 0xffff0000u) : (w << 16));
+        };
+        v[k] = half(gw[k >> 1]);
+        if (ds1 != nullptr) v[k] = __fadd_rn(v[k], ds1[c0 + ch]);
+        if (ds2 != nullptr)
+          v[k] = __fadd_rn(v[k], __fmul_rn(__fmul_rn(2.f, half(yw[k >> 1])),
+                                           ds2[c0 + ch]));
+      }
+      return make_uint2(uaps::conv::tc::pack_bf16(v[0], v[1]),
+                        uaps::conv::tc::pack_bf16(v[2], v[3]));
+    }
   };
   __device__ __forceinline__ At at(int b, int c0) const {
     const size_t plane = static_cast<size_t>(h) * wd;
     const size_t base = static_cast<size_t>(b * c + c0) * plane;
     return At{g + base, y == nullptr ? nullptr : y + base, ds1, ds2, plane,
               wd, c0};
+  }
+  __device__ __forceinline__ bool vec4_ok() const {
+    return (wd % 4) == 0 && (reinterpret_cast<uintptr_t>(g) & 7) == 0 &&
+           (reinterpret_cast<uintptr_t>(y) & 7) == 0;
   }
 };
 
@@ -298,7 +345,8 @@ struct DgradArgs {
 // dz = conv3x3(ge, w rotated): the forward tile with the cotangent's cout
 // channels as its input and the forward's cin as its output; tap t of the
 // rotated weight is the forward's tap 8 - t, channels swapped. With PRO the
-// epilogue turns dz into dx, df and ds.
+// epilogue turns dz into dx, df and ds. f32 only (bf16 takes
+// dgrad_mma_kernel and bnl_bwd_mma_kernel).
 template <typename T, bool PRO, int COP>
 __global__ void __launch_bounds__(kThreads, uaps::conv::min_blocks(COP))
     block_conv_dgrad_kernel(DgradArgs<T> a) {
@@ -348,6 +396,147 @@ __global__ void __launch_bounds__(kThreads, uaps::conv::min_blocks(COP))
   uaps::conv::store_tile<T, COP>(a.dx, acc, t, a.cin, a.h, a.wd);
 }
 
+// The bf16 dgrad with the prologue's backward on the tensor cores: dz =
+// conv3x3(ge, w rotated) by conv_mma_tile with the FoldLoad and the
+// RotWeights of dgrad_mma_kernel, its f32 accumulators parked in the
+// output plane in shared memory (mma_tile_to_smem). Then warp w takes
+// channels w, w + 8, ... of the block's 8 NB, one at a time, and lane l
+// the 8 pixels (l / 4, 8 (l % 4) .. + 7) of the 8 x 32 tile: x read there
+// (one 16-byte load where W % 8 == 0 and x and dx are 16-byte aligned,
+// else one value a load), dl = dz * keep * scale (the mask hashed per
+// element only with dropout), da = dl * leaky'(x f + s), dx = da f rounded
+// to bf16 once (16 bytes a store likewise), and the lane's sums of da x and
+// da over its in-image pixels, added over the warp by a butterfly into the
+// channel's entries of the block's [2, cin] slot: a fixed order, no
+// atomics. Each float operation is the CUDA-core kernel's intrinsic, so
+// dx and the partials differ from it only by the conv's summation order.
+// The plane is read with each lane's two 16-byte halves in the order of its
+// row's parity, so that the 8 lanes of a quarter warp hit 8 bank groups.
+template <int NB>
+__global__ void __launch_bounds__(uaps::conv::tc::dg::kThreads, 2)
+    bnl_bwd_mma_kernel(DgradArgs<__nv_bfloat16> a) {
+  namespace tc = uaps::conv::tc;
+  namespace dg = tc::dg;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const tc::MmaTile t = tc::mma_tile_of_block<NB>(a.groups);
+  float acc[2][NB][4];
+  tc::conv_mma_tile<NB>(acc, smem, t, a.ge,
+                        tc::RotWeights<NB>{a.w9, a.cin, a.cout, t.n0},
+                        a.cout, a.h, a.wd);
+  float* os = reinterpret_cast<float*>(smem);
+  tc::mma_tile_to_smem<NB>(os, acc);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int r = lane >> 2;
+  const int c8 = 8 * (lane & 3);
+  const int gy = t.y0 + r;
+  const int gx = t.x0 + c8;
+  const bool live = gy < a.h && gx < a.wd;
+  const bool vec = (a.wd % 8) == 0 &&
+                   ((reinterpret_cast<uintptr_t>(a.x) |
+                     reinterpret_cast<uintptr_t>(a.dx)) & 15) == 0;
+  const uint32_t seed =
+      a.pro.drop ? static_cast<uint32_t>(__ldg(a.pro.seed)) : 0u;
+  const size_t plane = static_cast<size_t>(a.h) * a.wd;
+  float* part = a.part + partial_slot(t.b) * 2 * a.cin;
+  const int odd = r & 1;
+#pragma unroll 1
+  for (int k = 0; k < NB; ++k) {
+    const int ci = t.n0 + warp + 8 * k;
+    if (ci >= a.cin) break;   // the same for the whole warp
+    float sdx = 0.f, sda = 0.f;
+    if (live) {
+      const float* src = os + (warp + 8 * k) * dg::kOutStride + r * dg::kTW +
+                         c8;
+      const float4 p = *reinterpret_cast<const float4*>(src + 4 * odd);
+      const float4 q = *reinterpret_cast<const float4*>(src + 4 - 4 * odd);
+      const float4 lo = odd ? q : p;
+      const float4 hi = odd ? p : q;
+      const float dz[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+      const size_t off = (static_cast<size_t>(t.b) * a.cin + ci) * plane +
+                         static_cast<size_t>(gy) * a.wd + gx;
+      float xv[8];
+      if (vec) {
+        const uint4 u = __ldg(reinterpret_cast<const uint4*>(a.x + off));
+        const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          xv[j] = __uint_as_float((j & 1) ? (w[j >> 1] & 0xffff0000u)
+                                          : (w[j >> 1] << 16));
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          xv[j] = gx + j < a.wd ? to_f32(a.x[off + j]) : 0.f;
+      }
+      const float f = a.pro.f[ci];
+      const float s = a.pro.s[ci];
+      const uint32_t pos =
+          ((static_cast<uint32_t>(t.b) * a.cin + ci) * a.h + gy) * a.wd + gx;
+      float dx[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float dl = dz[j];
+        if (a.pro.drop)
+          dl = hash_u32(pos + j, seed) <= a.pro.thr
+                   ? __fmul_rn(dl, a.pro.scale)
+                   : 0.f;
+        const float da = __fmul_rn(
+            dl, __fadd_rn(__fmul_rn(xv[j], f), s) >= 0.f ? 1.f : kNegSlope);
+        dx[j] = __fmul_rn(da, f);
+        if (gx + j < a.wd) {
+          sdx = __fadd_rn(sdx, __fmul_rn(da, xv[j]));
+          sda = __fadd_rn(sda, da);
+        }
+      }
+      if (vec) {
+        *reinterpret_cast<uint4*>(a.dx + off) =
+            make_uint4(tc::pack_bf16(dx[0], dx[1]), tc::pack_bf16(dx[2], dx[3]),
+                       tc::pack_bf16(dx[4], dx[5]),
+                       tc::pack_bf16(dx[6], dx[7]));
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (gx + j < a.wd) a.dx[off + j] = from_f32<__nv_bfloat16>(dx[j]);
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      sdx += __shfl_xor_sync(0xffffffffu, sdx, o);
+      sda += __shfl_xor_sync(0xffffffffu, sda, o);
+    }
+    if (lane == 0) {
+      part[ci] = sdx;
+      part[a.cin + ci] = sda;
+    }
+  }
+}
+
+template <int NB>
+cudaError_t bnl_bwd_mma_launch(DgradArgs<__nv_bfloat16> a, int batch,
+                               cudaStream_t stream) {
+  namespace tc = uaps::conv::tc;
+  constexpr int kSmem = tc::mma_tile_smem(NB, 4);   // the f32 plane
+  // above 48 KB only after opting in, once per kernel
+  static const cudaError_t opt = cudaFuncSetAttribute(
+      bnl_bwd_mma_kernel<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmem);
+  if (opt != cudaSuccess) return opt;
+  const dim3 grid = tc::mma_grid<NB>(batch, a.cin, a.h, a.wd);
+  a.groups = static_cast<int>(grid.z) / batch;
+  bnl_bwd_mma_kernel<NB><<<grid, tc::dg::kThreads, kSmem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// NB n8 tiles of the forward's input channels a block, as
+// launch_dgrad_mma: 16, 32 or 64, in groups of 64 above (each group writes
+// its own channels of the block's partial slot)
+cudaError_t launch_bnl_bwd_mma(const DgradArgs<__nv_bfloat16>& a, int batch,
+                               cudaStream_t stream) {
+  if (a.cin <= 16) return bnl_bwd_mma_launch<2>(a, batch, stream);
+  if (a.cin <= 32) return bnl_bwd_mma_launch<4>(a, batch, stream);
+  return bnl_bwd_mma_launch<8>(a, batch, stream);
+}
+
 template <bool PRO, bool MOM>
 cudaError_t launch_fwd(const FwdArgs<float>& a, int batch,
                        cudaStream_t stream) {
@@ -379,8 +568,8 @@ cudaError_t launch_dgrad(const DgradArgs<T>& a, int batch,
 }
 
 // The number of CUDA-core tiles of one image plane: the per-channel
-// partials' row count of their forward (f32) and of the dgrad with the
-// prologue is batch times this.
+// partials' row count of their forward and of the dgrad with the prologue
+// (both f32) is batch times this.
 int tiles_per_image(int h, int wd) {
   const dim3 g = uaps::conv::tile_grid(1, 1, h, wd);
   return static_cast<int>(g.x * g.y);
@@ -436,26 +625,32 @@ cudaError_t bwd(const void* g, const void* y, const float* ds1,
                 cudaStream_t stream) {
   const FoldLoad<T> ge{static_cast<const T*>(g), static_cast<const T*>(y),
                        ds1, ds2, cout, h, wd};
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   cudaError_t err = cudaSuccess;
   if (dx != nullptr) {
     const DgradArgs<T> a{ge, static_cast<const T*>(w9),
                          static_cast<const T*>(x), pro, static_cast<T*>(dx),
                          static_cast<float*>(part_d), cin, cout, h, wd,
                          uaps::conv::tile_groups(cin)};
-    if (prologue) {
-      err = launch_dgrad<T, true>(a, batch, stream);
-    } else {
-      if constexpr (std::is_same<T, __nv_bfloat16>::value)
-        err = uaps::conv::tc::launch_dgrad_mma(
-            ge, a.w9, a.dx, batch, cin, cout, h, wd, stream);
-      else
-        err = launch_dgrad<T, false>(a, batch, stream);
-    }
+    // bf16 on the tensor cores, f32 on the CUDA cores
+    if constexpr (kBf16)
+      err = prologue ? launch_bnl_bwd_mma(a, batch, stream)
+                     : uaps::conv::tc::launch_dgrad_mma(
+                           ge, a.w9, a.dx, batch, cin, cout, h, wd, stream);
+    else
+      err = prologue ? launch_dgrad<T, true>(a, batch, stream)
+                     : launch_dgrad<T, false>(a, batch, stream);
     if (err != cudaSuccess) return err;
     if (prologue) {
-      err = uaps::conv::reduce_partials(
-          static_cast<const float*>(part_d), static_cast<float*>(dfds),
-          batch * tiles_per_image(h, wd), 2 * cin, stream);
+      const float* pp = static_cast<const float*>(part_d);
+      float* m = static_cast<float*>(dfds);
+      if constexpr (kBf16)
+        err = uaps::conv::reduce_partials_tall(
+            pp, m, batch * uaps::conv::tc::mma_tiles_per_image(h, wd),
+            2 * cin, stream);
+      else
+        err = uaps::conv::reduce_partials(pp, m, batch * tiles_per_image(h, wd),
+                                          2 * cin, stream);
       if (err != cudaSuccess) return err;
     }
   }
@@ -521,7 +716,9 @@ extern "C" int uaps_block_conv_fwd(const void* x, const void* w9,
 // prologue's f, s, seed, thr, scale and drop as in the forward. Writes dx
 // [B, Cin, H, W] in dtype (skipped when dx is null; not allowed with the
 // prologue), with the prologue dfds [2, Cin] f32 (df, ds) through part_d (f32
-// scratch of B * ceil(H / 8) * ceil(W / 64) * 2 * Cin), and dw [9, Cin,
+// scratch of B * ceil(H / 8) * ceil(W / 64) (f32) or B * ceil(H / 8) *
+// ceil(W / 32) (bf16: the tensor-core tile) * 2 * Cin elements,
+// kernels/block_conv.py fwd_tiles, as the forward's), and dw [9, Cin,
 // Cout] f32 through part_w (f32 scratch of B * ceil(H / strip_rows) * 9 *
 // Cin * Cout; strip_rows as uaps_conv3x3_wgrad_nchw takes it). Returns a
 // cudaError_t code.

@@ -11,7 +11,9 @@
 //     conv_fwd_mma_kernel  conv3x3_nchw.cu's forward (bf16 -> bf16 or f32)
 //                          and, through a rotated weight view, its dgrad,
 //     block_conv.cu's block_fwd_mma_kernel, the fused-block forward (BN
-//                          prologue and output moments on or off),
+//                          prologue and output moments on or off), and
+//                          bnl_bwd_mma_kernel, the fused-block dgrad with
+//                          the BN prologue's backward as its epilogue,
 //     conv3x3_nhwc.cu's nhwc_fwd_mma_kernel, the NHWC forward and, through
 //                          a flipped weight view, its dgrad (NhwcLoad,
 //                          staged 16 bytes a cp.async by stage_tile_nhwc).
@@ -19,7 +21,7 @@
 // Replaces, for bf16 inputs, uaps_tpu/pallas/conv3x3_nchw.py:601
 // conv3x3_nchw_wgrad (its pallas_call at :692), the dgrad of
 // uaps_tpu/pallas/block_conv.py:345 _chain_bwd_call (its pallas_call at
-// :368) without the prologue, conv3x3_nchw.py:289 conv3x3_nchw (:425;
+// :368; with the prologue through block_conv.cu), conv3x3_nchw.py:289 conv3x3_nchw (:425;
 // :752 -> :763 for fullh, and the VJPs' dgrads :932, :987) and
 // uaps_tpu/pallas/conv3x3.py:73 conv3x3_forward (:90; the dgrad of the VJP
 // conv3x3_small :174). The TPU kernels
@@ -60,12 +62,14 @@
 // tile's input), every staged value feeds 3 taps x up to 32 output
 // channels (wgrad) or 9 taps x up to 64 (the conv tile) from shared
 // memory, and the staging loads of many warps and blocks are in flight at
-// once (two blocks an SM). A bf16 PlainLoad input whose W is a multiple of
-// 4 is staged 8 bytes (4 pixels of one channel) a load and transposed in
-// registers (stage_tile_vec); a bf16 NhwcLoad input whose C is a multiple
-// of 8 is already channel-minor, and each 16-byte unit is one cp.async
-// (stage_tile_nhwc); the other loaders transform each value and are read
-// one value a load. The wgrad's strip height (chosen by
+// once (two blocks an SM). A bf16 PlainLoad or FoldLoad input (block_conv.cu:
+// the folded cotangent of the fused-block dgrads) whose W is a multiple of
+// 4 is staged 8 bytes (4 pixels of one channel) a load, g's and y's for the
+// fold, and transposed in registers (stage_tile_vec); a bf16 NhwcLoad
+// input whose C is a multiple of 8 is already channel-minor, and each
+// 16-byte unit is one cp.async (stage_tile_nhwc); the prologue's ProLoad
+// transforms and hashes each value and is read one value a load, as are
+// the wgrad's operands. The wgrad's strip height (chosen by
 // the Python wrappers' wgrad_strips: the tallest of 16, 8, 4 rows that
 // still gives 256 blocks, two an SM) trades blocks in flight against the
 // partials' traffic (9 * Cin * Cout f32 a strip) and each block's fixed
@@ -500,18 +504,30 @@ __device__ __forceinline__ MmaTile mma_tile_of_block(int groups) {
 // block an SM) and than one value a load (PERF.md, section 6).
 constexpr int kVecPx = 4;
 
+// Whether the loader In reads 4 bf16 pixels of one channel at a time: a
+// static kVec4 (PlainLoad, block_conv.cu's FoldLoad) that is true, then
+// In::vec4_ok() for this call's pointers and W and At::vec4(ch, gy, gx),
+// the 4 values (rounded to bf16 as operator() rounds them) as two words.
+template <typename In, typename = void>
+struct HasVec4 : std::false_type {};
+template <typename In>
+struct HasVec4<In, std::void_t<decltype(In::kVec4)>>
+    : std::integral_constant<bool, In::kVec4> {};
+
 // The input tile of conv_mma_tile (kTH + 2 rows of kSW pixels, nchunk
-// 8-channel chunks of the nk channels at rd) from a bf16 NCHW tensor whose
-// W is a multiple of kVecPx (so every kVecPx-pixel group of a row is
-// 8-byte aligned and lies wholly inside or outside the image): each
-// interior group of a row is read as one 8-byte load per channel, and 8
-// channels are transposed in registers into the group's 4 16-byte units;
-// the two halo columns are read one value a load. Consecutive threads take
-// consecutive rows of a group, which spreads the units of a quarter warp's
-// store over the swizzle's bank groups.
-__device__ __forceinline__ void stage_tile_vec(
-    uint4* xs, const PlainLoad<__nv_bfloat16>::At& rd, int nchunk, int nk,
-    const MmaTile& t, int h, int wd) {
+// 8-channel chunks of the nk channels at rd) from a bf16 NCHW loader whose
+// vec4 read applies (W a multiple of kVecPx, so every kVecPx-pixel group
+// of a row is 8-byte aligned and lies wholly inside or outside the
+// image): each interior group of a row is read as one vec4 per channel,
+// and 8 channels are transposed in registers into the group's 4 16-byte
+// units; the two halo columns are read one value a load. Consecutive
+// threads take consecutive rows of a group, which spreads the units of a
+// quarter warp's store over the swizzle's bank groups.
+template <typename Rd>
+__device__ __forceinline__ void stage_tile_vec(uint4* xs, const Rd& rd,
+                                               int nchunk, int nk,
+                                               const MmaTile& t, int h,
+                                               int wd) {
   constexpr int kRows = dg::kTH + 2;
   constexpr int kGroups = dg::kTW / kVecPx;
   const int nvec = nchunk * kRows * kGroups;
@@ -529,9 +545,7 @@ __device__ __forceinline__ void stage_tile_vec(
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         v[j] = make_uint2(0u, 0u);
-        if (in && 8 * c + j < nk)
-          v[j] = __ldg(reinterpret_cast<const uint2*>(
-              rd.p + (8 * c + j) * rd.plane + (gy * wd + gx)));
+        if (in && 8 * c + j < nk) v[j] = rd.vec4(8 * c + j, gy, gx);
       }
 #pragma unroll
       for (int px = 0; px < kVecPx; ++px) {
@@ -617,12 +631,11 @@ __device__ __forceinline__ void conv_mma_tile(float (&acc)[2][NB][4],
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int mi = lane >> 3;
-  constexpr bool kVec = std::is_same<In, PlainLoad<__nv_bfloat16>>::value;
+  constexpr bool kVec = HasVec4<In>::value;
   constexpr bool kNhwc = std::is_same<In, NhwcLoad<__nv_bfloat16>>::value;
+  static_assert(kVecPx == 4, "the loaders' vec4 reads 4 pixels");
   bool vec = false;
-  if constexpr (kVec)
-    vec = (wd % kVecPx) == 0 &&
-          (reinterpret_cast<uintptr_t>(in.x) & (2 * kVecPx - 1)) == 0;
+  if constexpr (kVec) vec = in.vec4_ok();
   if constexpr (kNhwc)
     vec = (in.c % 8) == 0 && (reinterpret_cast<uintptr_t>(in.x) & 15) == 0;
 #pragma unroll
@@ -698,18 +711,14 @@ __device__ __forceinline__ int mma_ch(int n, int e, int lane) {
   return 8 * n + 2 * (lane & 3) + (e & 1);
 }
 
-// y[b, n0 + n, y, x] = acc rounded to Tout (bf16: round to nearest even,
-// as store_tile) for the tile's in-image pixels and the channels below nout
-// (y contiguous [B, nout, H, W]): through a [8 NB][kTH][kTW] Tout tile in
-// shared memory, then 16-byte stores (8 bf16 or 4 f32 pixels) where W % 8
-// == 0.
+// The tile's accumulators rounded to Tout (bf16: round to nearest even, as
+// store_tile; f32: as they are) in the output plane os (the operand tiles'
+// shared memory, consumed): channel n0 + ch, tile row r, column x at
+// ch * kOutStride + r * kTW + x. Every thread of the block calls it; the plane is complete
+// when it returns.
 template <int NB, typename Tout>
-__device__ __forceinline__ void store_mma_tile(Tout* __restrict__ y,
-                                               const float (&acc)[2][NB][4],
-                                               unsigned char* smem,
-                                               const MmaTile& t, int nout,
-                                               int h, int wd) {
-  Tout* os = reinterpret_cast<Tout*>(smem);
+__device__ __forceinline__ void mma_tile_to_smem(Tout* os,
+                                                 const float (&acc)[2][NB][4]) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   __syncthreads();  // the operand tiles are consumed
@@ -722,6 +731,20 @@ __device__ __forceinline__ void store_mma_tile(Tout* __restrict__ y,
         os[mma_ch(n, e, lane) * dg::kOutStride + warp * dg::kTW +
            mma_px(hh, e, lane)] = from_f32<Tout>(acc[hh][n][e]);
   __syncthreads();
+}
+
+// y[b, n0 + n, y, x] = acc rounded to Tout for the tile's in-image pixels
+// and the channels below nout (y contiguous [B, nout, H, W]): through a
+// [8 NB][kTH][kTW] Tout tile in shared memory (mma_tile_to_smem), then
+// 16-byte stores (8 bf16 or 4 f32 pixels) where W % 8 == 0.
+template <int NB, typename Tout>
+__device__ __forceinline__ void store_mma_tile(Tout* __restrict__ y,
+                                               const float (&acc)[2][NB][4],
+                                               unsigned char* smem,
+                                               const MmaTile& t, int nout,
+                                               int h, int wd) {
+  Tout* os = reinterpret_cast<Tout*>(smem);
+  mma_tile_to_smem<NB>(os, acc);
   const size_t plane = static_cast<size_t>(h) * wd;
   const bool vec = (wd % 8) == 0;
   for (int i = threadIdx.x; i < 8 * NB * dg::kTH * (dg::kTW / 8);

@@ -26,6 +26,7 @@
 #include <stdint.h>
 
 #include <climits>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -445,9 +446,13 @@ inline bool index_fits(int batch, int c, int h, int wd) {
 }
 
 // A contiguous NCHW tensor read as f32 (through the read-only data cache,
-// as a __restrict__ kernel argument would be).
+// as a __restrict__ kernel argument would be). In bf16 (kVec4) the
+// tensor-core tile also reads 4 pixels of one channel as one 8-byte load
+// (vec4: the raw bf16 pair words), where vec4_ok: W % 4 == 0 and x 8-byte
+// aligned, so that every group of 4 at a column multiple of 4 is aligned.
 template <typename T>
 struct PlainLoad {
+  static constexpr bool kVec4 = std::is_same<T, __nv_bfloat16>::value;
   const T* x;
   int c;   // channels of x
   int h, wd;
@@ -459,7 +464,14 @@ struct PlainLoad {
                                                 int gx) const {
       return to_f32(__ldg(p + ch * plane + (gy * wd + gx)));
     }
+    __device__ __forceinline__ uint2 vec4(int ch, int gy, int gx) const {
+      return __ldg(reinterpret_cast<const uint2*>(p + ch * plane +
+                                                  (gy * wd + gx)));
+    }
   };
+  __device__ __forceinline__ bool vec4_ok() const {
+    return (wd % 4) == 0 && (reinterpret_cast<uintptr_t>(x) & 7) == 0;
+  }
   __device__ __forceinline__ At at(int b, int c0) const {
     const size_t plane = static_cast<size_t>(h) * wd;
     return At{x + static_cast<size_t>(b * c + c0) * plane, plane, wd};

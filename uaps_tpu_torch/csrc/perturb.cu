@@ -33,13 +33,28 @@
 // round-to-nearest intrinsic (no fused multiply-add), so the plain PyTorch
 // versions in kernels/perturb.py give the same bits.
 //
-// What bounds them. Feature noise and feature dropout: a few integer and
-// float operations per element against 2 (bf16) or 4 (f32) bytes read and
-// written, so device-memory bandwidth. Consecutive threads take consecutive
-// elements (noise) or pixels (feature dropout, whose threads walk the
-// channels with stride H*W), so every load and store is coalesced. The
-// feature-dropout forward reads x twice (once per pass; the second pass
-// mostly from the 50 MB L2).
+// What bounds them. Feature dropout: a few integer and float operations per
+// element against 2 (bf16) or 4 (f32) bytes read and written, so
+// device-memory bandwidth. Consecutive threads take consecutive pixels
+// (its threads walk the channels with stride H*W), so every load and store
+// is coalesced. The feature-dropout forward reads x twice (once per pass;
+// the second pass mostly from the 50 MB L2).
+//
+// Feature noise is bound by bytes once its hashes are shared: a UAPS step
+// moves 130 M elements through it (20 launches at the 5 skip levels, B =
+// 16), 0.52 GB in bf16, 0.155 ms at 3.35 TB/s, while one draw an element
+// (two mix32 hashes, ~15 integer instructions) would cost as much integer
+// issue as dropout's. What the design does: the noise depends on the index
+// within one example only, so a thread draws the factors of one in-example
+// 16-byte vector once (the seed read and the key hashed once a thread,
+// mix32's first xorshift shared by the vector, as keep_vec) and applies them
+// to that vector in each of its examples, the loads of kNoiseEx examples
+// issued together; the batch is split over blockIdx.y only as far as it
+// takes to give every SM two blocks (at B = 16: one draw for 16 elements
+// at the level-0 shape, for 2 at the smallest), so the hashes are a
+// fraction of the bytes' time at every level. 32-bit indices; where the
+// in-example count is no multiple of the vector or x or out is not 16-byte
+// aligned, the same kernel takes one element a thread with the same bits.
 //
 // Dropout is bound by bytes and integer issue together. A UAPS step drops
 // 260 M elements (5 encoder levels of 32.5 M at B = 16, 8 launches each):
@@ -117,20 +132,29 @@ __device__ __forceinline__ float drop1(float v, bool keep, float scale) {
   return keep ? __fmul_rn(v, scale) : 0.f;
 }
 
-// Whether elements i0 + j (j < N) of a vector are kept, i0 a multiple of N
-// (a power of two <= 8): then i0 + j = i0 ^ j, and (i0 + j) ^ key = t ^ j
-// with t = i0 ^ key, whose bits above the lowest 3 do not depend on j; so
-// mix32's first xorshift of it is (t ^ (t >> 16)) ^ j, shared by the
-// vector but for the one xor. The same bits as Stream::bits(i0 + j).
+// Stream::bits(i0 + j) for j < N, i0 a multiple of N (a power of two <=
+// 8): then i0 + j = i0 ^ j, and (i0 + j) ^ key = t ^ j with t = i0 ^ key,
+// whose bits above the lowest 3 do not depend on j; so mix32's first
+// xorshift of it is (t ^ (t >> 16)) ^ j, shared by the vector but for the
+// one xor.
+template <int N>
+__device__ __forceinline__ void bits_vec(uint32_t (&bits)[N], uint32_t i0,
+                                         const Stream& rng) {
+  const uint32_t t = i0 ^ rng.key;
+  const uint32_t h = t ^ (t >> 16);
+#pragma unroll
+  for (int j = 0; j < N; ++j) bits[j] = mix32(mix32_tail(h ^ j) + rng.seed);
+}
+
+// Whether elements i0 + j (j < N) of a vector are kept (bits_vec's i0)
 template <int N>
 __device__ __forceinline__ void keep_vec(bool (&kept)[N], uint32_t i0,
                                          const Stream& rng,
                                          const KeepTest& keep) {
-  const uint32_t t = i0 ^ rng.key;
-  const uint32_t h = t ^ (t >> 16);
+  uint32_t bits[N];
+  bits_vec(bits, i0, rng);
 #pragma unroll
-  for (int j = 0; j < N; ++j)
-    kept[j] = keep(mix32(mix32_tail(h ^ j) + rng.seed));
+  for (int j = 0; j < N; ++j) kept[j] = keep(bits[j]);
 }
 
 // The dropped 16-byte vector u of elements i0, i0 + 1, ... (i0 % 4 == 0)
@@ -207,21 +231,84 @@ __global__ void __launch_bounds__(kThreads)
         uaps::to_f32(x[i]), keep(rng.bits(static_cast<uint32_t>(i))), scale));
 }
 
-// grid (blocks over one example, batch)
+// Feature noise: examples whose loads a thread issues together.
+constexpr int kNoiseEx = 4;
+
+// 1 + (u * span - r), u = uniform24(bits): the factor of one element
+__device__ __forceinline__ float noise_factor(uint32_t bits, float span,
+                                              float r) {
+  const float u =
+      __fmul_rn(__uint2float_rn(bits >> 8), 5.9604644775390625e-08f);
+  return __fadd_rn(1.f, __fsub_rn(__fmul_rn(u, span), r));
+}
+
+// x * m elementwise over a 16-byte vector of 4 f32 ...
+__device__ __forceinline__ uint4 scale_vec(uint4 u, const float (&m)[4]) {
+  return make_uint4(__float_as_uint(__fmul_rn(__uint_as_float(u.x), m[0])),
+                    __float_as_uint(__fmul_rn(__uint_as_float(u.y), m[1])),
+                    __float_as_uint(__fmul_rn(__uint_as_float(u.z), m[2])),
+                    __float_as_uint(__fmul_rn(__uint_as_float(u.w), m[3])));
+}
+
+// ... or of 8 bf16, each rounded once
+__device__ __forceinline__ uint4 scale_vec(uint4 u, const float (&m)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+  uint32_t r[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    // a word holds elements 2j (low half) and 2j + 1
+    const __nv_bfloat162 p = __floats2bfloat162_rn(
+        __fmul_rn(__uint_as_float(w[j] << 16), m[2 * j]),
+        __fmul_rn(__uint_as_float(w[j] & 0xffff0000u), m[2 * j + 1]));
+    r[j] = static_cast<uint32_t>(__bfloat16_as_ushort(p.x)) |
+           (static_cast<uint32_t>(__bfloat16_as_ushort(p.y)) << 16);
+  }
+  return make_uint4(r[0], r[1], r[2], r[3]);
+}
+
+// x, out [batch, inner]; grid (blocks over one example's vectors, or over
+// its elements where nvec = 0; groups of per_ex examples). Thread t draws
+// the factors of in-example vector t (elements t * kPer ..) once and
+// scales that vector in examples [blockIdx.y * per_ex, + per_ex), kNoiseEx
+// loads issued first (an example past the group loads the group's last
+// again and is not stored); with nvec = 0 it takes element t alike, one
+// value a load.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     noise_kernel(const T* __restrict__ x, T* __restrict__ out,
-                 const long long* __restrict__ seed, long long inner,
-                 float span, float r) {
+                 const long long* __restrict__ seed, uint32_t inner,
+                 uint32_t nvec, int batch, int per_ex, float span, float r) {
+  constexpr uint32_t kPer = 16 / sizeof(T);
   const Stream rng(seed);
-  const long long base = static_cast<long long>(blockIdx.y) * inner;
-  for (long long j = blockIdx.x * static_cast<long long>(kThreads) +
-                     threadIdx.x;
-       j < inner; j += static_cast<long long>(gridDim.x) * kThreads) {
-    const float u = __fsub_rn(__fmul_rn(rng.uniform(static_cast<uint32_t>(j)),
-                                        span), r);
-    out[base + j] = uaps::from_f32<T>(
-        __fmul_rn(uaps::to_f32(x[base + j]), __fadd_rn(1.f, u)));
+  const uint32_t t = blockIdx.x * kThreads + threadIdx.x;
+  const int b0 = blockIdx.y * per_ex;
+  const int b1 = min(batch, b0 + per_ex);
+  if (nvec != 0) {
+    if (t >= nvec) return;
+    uint32_t bits[kPer];
+    bits_vec(bits, t * kPer, rng);
+    float m[kPer];
+#pragma unroll
+    for (uint32_t j = 0; j < kPer; ++j) m[j] = noise_factor(bits[j], span, r);
+    const uint4* xv = reinterpret_cast<const uint4*>(x);
+    uint4* ov = reinterpret_cast<uint4*>(out);
+    for (int b = b0; b < b1; b += kNoiseEx) {
+      uint4 u[kNoiseEx];
+#pragma unroll
+      for (int k = 0; k < kNoiseEx; ++k)
+        u[k] = __ldg(xv + static_cast<uint32_t>(min(b + k, b1 - 1)) * nvec + t);
+#pragma unroll
+      for (int k = 0; k < kNoiseEx; ++k)
+        if (b + k < b1)
+          ov[static_cast<uint32_t>(b + k) * nvec + t] = scale_vec(u[k], m);
+    }
+  } else {
+    if (t >= inner) return;
+    const float m = noise_factor(rng.bits(t), span, r);
+    for (int b = b0; b < b1; ++b) {
+      const uint32_t i = static_cast<uint32_t>(b) * inner + t;
+      out[i] = uaps::from_f32<T>(__fmul_rn(uaps::to_f32(x[i]), m));
+    }
   }
 }
 
@@ -320,13 +407,41 @@ cudaError_t dropout(const void* x, void* out, const long long* seed,
   return cudaGetLastError();
 }
 
+// The SMs of the current device, read once.
+int sm_count() {
+  static const int n = [] {
+    int dev = 0, sms = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      return 0;
+    return sms;
+  }();
+  return n;
+}
+
+// The vector path where the in-example count is a multiple of the vector
+// and x and out are both 16-byte aligned, else one element a thread; the
+// batch split into the fewest groups that give every SM two blocks.
 template <typename T>
 cudaError_t noise(const void* x, void* out, const long long* seed, int batch,
-                  long long inner, float span, float r, cudaStream_t s) {
-  const dim3 grid(blocks_for(inner), batch);
+                  uint32_t inner, float span, float r, cudaStream_t s) {
+  constexpr uint32_t kPer = 16 / sizeof(T);
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
+  const uintptr_t oa = reinterpret_cast<uintptr_t>(out);
+  if (xa % sizeof(T) != 0 || oa % sizeof(T) != 0) return cudaErrorInvalidValue;
+  const int sms = sm_count();
+  if (sms < 1) return cudaErrorInvalidDevice;
+  const uint32_t nvec =
+      (inner % kPer == 0 && xa % 16 == 0 && oa % 16 == 0) ? inner / kPer : 0;
+  const unsigned bx = ((nvec ? nvec : inner) + kThreads - 1) / kThreads;
+  const int want = static_cast<int>((2u * sms + bx - 1) / bx);
+  const int groups = want < batch ? want : batch;
+  const int per_ex = (batch + groups - 1) / groups;
+  const dim3 grid(bx, (batch + per_ex - 1) / per_ex);
   noise_kernel<T><<<grid, kThreads, 0, s>>>(static_cast<const T*>(x),
                                            static_cast<T*>(out), seed, inner,
-                                           span, r);
+                                           nvec, batch, per_ex, span, r);
   return cudaGetLastError();
 }
 
@@ -372,19 +487,21 @@ extern "C" int uaps_dropout(const void* x, void* out, const void* seed,
           : dropout<__nv_bfloat16>(x, out, sd, n32, threshold, scale, s));
 }
 
-// x, out: [batch, inner] contiguous; the noise depends on the inner index.
+// x, out: [batch, inner] contiguous, fewer than 2^32 elements; the noise
+// depends on the inner index.
 extern "C" int uaps_feature_noise(const void* x, void* out, const void* seed,
                                   int batch, long long inner, float span,
                                   float r, int dtype, void* stream) {
-  if (batch < 1 || batch > 65535 || inner < 1 || inner > 0xffffffffLL ||
-      bad_dtype(dtype))
+  if (batch < 1 || batch > 65535 || inner < 1 ||
+      static_cast<long long>(batch) * inner > 0xffffffffLL || bad_dtype(dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long* sd = static_cast<const long long*>(seed);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint32_t n = static_cast<uint32_t>(inner);
   return static_cast<int>(
       dtype == uaps::kF32
-          ? noise<float>(x, out, sd, batch, inner, span, r, s)
-          : noise<__nv_bfloat16>(x, out, sd, batch, inner, span, r, s));
+          ? noise<float>(x, out, sd, batch, n, span, r, s)
+          : noise<__nv_bfloat16>(x, out, sd, batch, n, span, r, s));
 }
 
 // x: [batch, c, hw] contiguous; mx: [batch] keys of the max attention.

@@ -75,10 +75,11 @@ MMA_TILE_H, MMA_TILE_W = 8, 32
 
 
 def fwd_tiles(dtype, b: int, h: int, wd: int) -> int:
-    """Blocks of the forward kernel, one [2, Cout] moment partial each (the
-    scratch rows the moments' fixed-order reduce adds): the tensor-core
-    tile's grid for bf16, the CUDA-core tile's for f32 (csrc/block_conv.cu
-    `fwd`)."""
+    """Blocks of the forward kernel, one [2, Cout] moment partial each, and
+    of the dgrad with the prologue, one [2, Cin] df/ds partial each (the
+    scratch rows each fixed-order reduce adds): the tensor-core tile's grid
+    for bf16, the CUDA-core tile's for f32 (csrc/block_conv.cu `fwd`,
+    `bwd`)."""
     th, tw = ((MMA_TILE_H, MMA_TILE_W) if dtype == torch.bfloat16
               else (TILE_H, TILE_W))
     return b * -(-h // th) * -(-wd // tw)
@@ -294,8 +295,8 @@ def kernel_bwd(g: torch.Tensor, y, ds1, ds2, x: torch.Tensor,
     dx = torch.empty_like(x) if need_dx or pro else None
     part_d = dfds = None
     if pro:
-        tiles = b * -(-h // TILE_H) * -(-wd // TILE_W)
-        part_d = torch.empty(tiles * 2 * cin, dtype=torch.float32,
+        part_d = torch.empty(fwd_tiles(x.dtype, b, h, wd) * 2 * cin,
+                             dtype=torch.float32,
                              device=x.device)
         dfds = torch.empty((2, cin), dtype=torch.float32, device=x.device)
     rows, n_part = wgrad_strips(x.dtype, b, cin, cout, h, wd)

@@ -11,7 +11,8 @@ keep-best `best_model.pth` (the reference's training dict) and one line of
 metrics JSONL per epoch under `--out_dir`. The step runs on `cuda` unless
 `--device cpu` is given. Not ported yet: `--resume` and device-resident
 pools (ROADMAP.md Queue A, "The rest of the Trainer and CLIs"), more than
-one device ("Multi-GPU").
+one device ("Multi-GPU"), and the `RunConfig` knobs of
+`UNPORTED_RUN_KNOBS`, which raise when set (`check_run_config`).
 """
 from __future__ import annotations
 
@@ -28,8 +29,33 @@ import torch
 from uaps_tpu_torch.data import DefectDataset, SyntheticDefects
 from uaps_tpu_torch.methods import base, get_method
 from uaps_tpu_torch.utils.cli import parse_args
+from uaps_tpu_torch.utils.config import RunConfig
 from uaps_tpu_torch.utils.logging_utils import MetricWriter, get_logger
 from uaps_tpu_torch.utils.weights import save_pth
+
+# RunConfig knobs that the JAX Trainer reads and the port does not yet, with
+# the ROADMAP.md Queue A item that ports each (prng_impl and use_shard_map
+# are JAX's alone and stay accepted)
+UNPORTED_RUN_KNOBS = {
+    "steps_per_dispatch": "The step as a CUDA graph",
+    "device_pools": "The step as a CUDA graph",
+    "save_every": "The rest of the Trainer and CLIs",
+    "keep_checkpoints": "The rest of the Trainer and CLIs",
+    "profile_steps": "The rest of the Trainer and CLIs",
+    "debug_nans": "The rest of the Trainer and CLIs",
+}
+
+
+def check_run_config(run: RunConfig) -> None:
+    """Raise NotImplementedError for a knob of UNPORTED_RUN_KNOBS set away
+    from its default, rather than train without it."""
+    default = RunConfig()
+    for name, item in UNPORTED_RUN_KNOBS.items():
+        value = getattr(run, name)
+        if value != getattr(default, name):
+            raise NotImplementedError(
+                f"RunConfig.{name}={value!r} is not ported yet: ROADMAP.md "
+                f"Queue A, '{item}'")
 
 
 def make_data(cfg, seed: int = 0):
@@ -67,6 +93,7 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str,
 
 class Trainer:
     def __init__(self, cfg, device="cuda", data=None):
+        check_run_config(cfg.run)
         self.cfg = cfg
         self.device = base.resolve_device(device)
         self.logger = get_logger(cfg.run.out_dir)
