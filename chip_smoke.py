@@ -66,7 +66,11 @@ Phases (any failure: exit 1 and no result line):
      their allocations' start (a misaligned pointer: the scalar path),
      forward, backward and the kernel on g, bit for bit; feature noise
      likewise at a level-0 in-example count plus 1 and plus 7 and on the
-     offset views (its scalar path), forward and backward; on the card,
+     offset views (its scalar path), forward and backward; feature
+     dropout's attention pass equal to channel_mean, and the feature
+     dropout at FDROP_ODD (C 13, 40 and 300: a short last channel group,
+     two rounds of groups; 37 x 70 and 16 x 24; B 1-3) and on the offset
+     views, forward, backward and the kernel on g; on the card,
      dropout's zero share within 0.01 of p over 16.8 M elements, noise in
      [-r, r) and shared across the batch,
      feature dropout's threshold in [0.7, 0.9] x max; the fused
@@ -85,7 +89,11 @@ Phases (any failure: exit 1 and no result line):
      InferenceEngine.uncertainty on the trained weights;
  11. UAPS times: per new kernel and step shape, ms (L2 flushed), the plain
      version's, the library call's (F.dropout; none for the others) and
-     the bound, summed per step by launches; a profile of 2 UAPS steps;
+     the bound (feature dropout: x read, out and the attention written;
+     its backward: g and the attention read, dx written), summed per step
+     by launches; a profile of 2 UAPS steps, whose kernel names must show
+     phase 8's route and 10 fdrop_att_kernel and 10 + 10
+     fdrop_apply_kernel a step (no feature_dropout_max_kernel);
  12. fused-block kernels: chain_conv_plain, chain_conv_bnl (at each level's
      dropout rate) and conv3x3_bnl, forward and backward, at every block
      shape of the chain and fused paths (CHAIN_BLOCKS, B=16), f32 and bf16,
@@ -317,20 +325,29 @@ PER_LEVEL = {"fused_dropout": 8, "feature_noise": 4, "feature_dropout": 2,
 ODD_HW, ODD_BATCH = (37, 70), 2
 ODD_WGRAD = [(3, 16), (40, 4), (40, 13), (16, 13)]
 ODD_CHAIN = [(3, 16), (40, 13), (64, 32), (72, 13)]
+# feature dropout's odd cases in phase 9: (B, C, (H, W))
+FDROP_ODD = [(1, 13, ODD_HW), (1, 40, ODD_HW), (3, 13, (16, 24)),
+             (3, 40, (16, 24)), (2, 300, (16, 24))]
 # ... and where the tensor-core forwards pad their K (Cin 3, 40; the dgrad's
 # Cout) and N (Cout 4, 13; 72: two groups of 64), checked in phases 2 and 6
 ODD_CONV = [(3, 4), (3, 13), (40, 4), (40, 13), (13, 72)]
+# the feature-dropout kernels the route proof counts: the attention pass
+# and the apply pass (forward and backward), and the max kernel they
+# replaced, which must not run
+FDROP_ROUTE = ("fdrop_att_kernel", "fdrop_apply_kernel",
+               "feature_dropout_max_kernel")
 # the profiler's kernel names that the route proof counts: the tensor-core
 # (bf16) weight-gradient pass, chain plain dgrad, conv3x3_nchw forward
 # (and its dgrad), fused-block forward, NHWC forward (and its dgrad) and
-# fused-block dgrad with the BN prologue, then the CUDA-core ones (f32).
-# No name contains another.
+# fused-block dgrad with the BN prologue, then the CUDA-core ones (f32),
+# then FDROP_ROUTE. No name contains another.
 ROUTE_KERNELS = ("wgrad_mma_kernel", "dgrad_mma_kernel",
                  "conv_fwd_mma_kernel", "block_fwd_mma_kernel",
                  "nhwc_fwd_mma_kernel", "bnl_bwd_mma_kernel",
                  "wgrad_partial_kernel",
                  "block_conv_dgrad_kernel", "conv3x3_fwd_kernel",
-                 "block_conv_fwd_kernel", "conv3x3_nhwc_fwd_kernel")
+                 "block_conv_fwd_kernel", "conv3x3_nhwc_fwd_kernel",
+                 *FDROP_ROUTE)
 # the launch counters whose every call runs one weight-gradient pass
 WGRAD_PASSES = ("conv3x3_nchw_wgrad", "conv3x3_nchw_wgrad_fullh",
                 "chain_conv_plain_bwd", "chain_conv_bnl_bwd",
@@ -459,7 +476,9 @@ def bf16_route(per_step, steps):
     dgrad, every conv3x3_nchw forward and dgrad, every fused-block forward,
     every NHWC forward and dgrad and every fused-block dgrad with the BN
     prologue (the chain bnl and conv3x3_bnl backwards) on the tensor cores;
-    no CUDA-core kernel."""
+    no CUDA-core kernel; every feature-dropout forward as the attention
+    and apply passes, every backward as the apply pass, and the replaced
+    max kernel never."""
     plain = per_step["chain_conv_plain_bwd"]
     return {"wgrad_mma_kernel": steps * sum(per_step[k]
                                             for k in WGRAD_PASSES),
@@ -474,7 +493,11 @@ def bf16_route(per_step, steps):
                                            + per_step["conv3x3_bnl_bwd"]),
             "wgrad_partial_kernel": 0, "block_conv_dgrad_kernel": 0,
             "conv3x3_fwd_kernel": 0, "block_conv_fwd_kernel": 0,
-            "conv3x3_nhwc_fwd_kernel": 0}
+            "conv3x3_nhwc_fwd_kernel": 0,
+            "fdrop_att_kernel": steps * per_step["feature_dropout"],
+            "fdrop_apply_kernel": steps * (per_step["feature_dropout"]
+                                           + per_step["feature_dropout_bwd"]),
+            "feature_dropout_max_kernel": 0}
 
 
 def mma_registers(text):
@@ -570,8 +593,10 @@ class Smoke:
         (tens of µs a call) is not counted; without it, a call
         cheaper on the device than on the host measures the host. With
         `cold`, each of iters * rounds calls is timed alone after a 256 MiB
-        write has flushed the 50 MB L2, and the median is taken over
-        those."""
+        write has flushed the 50 MB L2 (with `lead`, then a ~0.5 ms spin,
+        which touches no memory: a call of several launches may take the
+        host longer to queue than the flush takes the device), and the
+        median is taken over those."""
         torch = self.torch
         for _ in range(warmup):
             fn()
@@ -581,6 +606,8 @@ class Smoke:
                                 device=self.dev)
             for _ in range(iters * rounds):
                 flush.zero_()   # still running when the events are queued
+                if lead:
+                    torch.cuda._sleep(1_000_000)   # cycles, ~0.5 ms
                 a = torch.cuda.Event(enable_timing=True)
                 b = torch.cuda.Event(enable_timing=True)
                 a.record()
@@ -1710,6 +1737,20 @@ class Smoke:
             live = (x != 0) & (gy != 0)
             return bool(torch.equal((y != 0) & live, (dx != 0) & live))
 
+        def fdrop_case(x, gy, sd, label):
+            """Feature dropout's forward and backward through autograd (the
+            backward from the saved attention and maxima) against the plain
+            versions from x, and the attention pass's output against
+            channel_mean, bit for bit."""
+            y, dx = run(kpt.fused_feature_dropout, x, gy, sd)
+            exact("feature_dropout", label, y,
+                  kpt.feature_dropout_plain(x, sd))
+            exact("feature_dropout_bwd", f"{label} bwd", dx,
+                  kpt.feature_dropout_bwd_plain(x, gy, sd),
+                  same_mask(x, gy, y, dx))
+            exact("feature_dropout", f"{label} attention",
+                  kpt._fdrop_fwd(x, sd)[1], kpt.channel_mean(x))
+
         for dname, dtype in (("f32", torch.float32),
                              ("bf16", torch.bfloat16)):
             for lvl, (c, hw) in enumerate(LEVELS):
@@ -1727,12 +1768,7 @@ class Smoke:
                       kpt.feature_noise_plain(x, sd, 0.3))
                 exact("feature_noise", f"feature noise bwd {shape}", dx,
                       kpt.feature_noise_plain(gy, sd, 0.3))
-                y, dx = run(kpt.fused_feature_dropout, x, gy, sd)
-                exact("feature_dropout", f"feature dropout {shape}", y,
-                      kpt.feature_dropout_plain(x, sd))
-                exact("feature_dropout_bwd", f"feature dropout bwd {shape}",
-                      dx, kpt.feature_dropout_bwd_plain(x, gy, sd),
-                      same_mask(x, gy, y, dx))
+                fdrop_case(x, gy, sd, f"feature dropout {shape}")
             # the dropout kernel's scalar tail and scalar path
             # (csrc/perturb.cu): a level-0 count plus 1 and plus 7
             # elements, then x and g one element past their allocations'
@@ -1803,6 +1839,40 @@ class Smoke:
                   kpt.feature_noise_plain(x.detach(), sd, 0.3))
             exact("feature_noise", f"{label} bwd", xb.grad[1:].view(x.shape),
                   kpt.feature_noise_plain(gy, sd, 0.3))
+            # feature dropout's odd cases (csrc/perturb.cu): C = 13, 40 and
+            # 300 (a short last channel group; 300: 38 groups, two rounds
+            # of the attention pass), H x W = 37 x 70 (no whole vectors:
+            # the scalar path of both passes) and 16 x 24 (the vector
+            # path), B = 1 to 3; then x and g one element past their
+            # allocations' start at the level-0 shape (misaligned: the
+            # scalar path), forward, backward and the kernel on g
+            for bsz, c_odd, (h, wd) in FDROP_ODD:
+                x, gy = (torch.randn((bsz, c_odd, h, wd), generator=g,
+                                     device=self.dev).to(dtype)
+                         for _ in range(2))
+                fdrop_case(x, gy, sd,
+                           f"feature dropout [{bsz},{c_odd},{h},{wd}] "
+                           f"{dname}")
+            xb, gb = (torch.randn(n0 + 1, generator=g,
+                                  device=self.dev).to(dtype)
+                      for _ in range(2))
+            xb.requires_grad_()
+            x, gy = (t[1:].view(BATCH, c, hw, hw) for t in (xb, gb))
+            label = (f"feature dropout [{BATCH},{c},{hw},{hw}] at a "
+                     f"one-element offset {dname}")
+            y = kpt.fused_feature_dropout(x, sd)
+            y.backward(gy)
+            self.sync()
+            x, y = x.detach(), y.detach()
+            dx = xb.grad[1:].view(x.shape)
+            ref = kpt.feature_dropout_bwd_plain(x, gy, sd)
+            exact("feature_dropout", label, y,
+                  kpt.feature_dropout_plain(x, sd))
+            exact("feature_dropout_bwd", f"{label} bwd", dx, ref,
+                  same_mask(x, gy, y, dx))
+            _, att, mx = kpt._fdrop_fwd(x, sd)
+            exact("feature_dropout_bwd", f"{label}, the kernel on g",
+                  kpt._fdrop_bwd(gy, sd, att, mx), ref)
         self._perturb_distributions(bad)
 
         logits, w, gv = self._unc_case(SEED + 300)
@@ -2073,8 +2143,11 @@ class Smoke:
         for lvl, (c, hw) in enumerate(LEVELS):
             x, gy, sd = self._level_case(lvl, bf, SEED + 200 + lvl)
             with torch.no_grad():
-                _, mx = kpt._fdrop_fwd(x, sd)
+                _, att, mx = kpt._fdrop_fwd(x, sd)
             n = x.numel() * 2
+            # feature dropout's bytes: x read, out and att written; g and
+            # att read, dx written
+            n_fdrop = 2 * n + att.numel() * 4
             label = f"[{BATCH},{c},{hw},{hw}]"
             add("fused_dropout", label, PER_LEVEL["fused_dropout"],
                 lambda: kpt._dropout(x, sd, 0.5),
@@ -2087,12 +2160,12 @@ class Smoke:
             add("feature_dropout", label, PER_LEVEL["feature_dropout"],
                 lambda: kpt._fdrop_fwd(x, sd),
                 lambda: kpt.feature_dropout_plain(x, sd), None,
-                2 * n, 0, "bf16")
+                n_fdrop, 0, "bf16")
             add("feature_dropout_bwd", label,
                 PER_LEVEL["feature_dropout_bwd"],
-                lambda: kpt._fdrop_bwd(x, gy, sd, mx),
+                lambda: kpt._fdrop_bwd(gy, sd, att, mx),
                 lambda: kpt.feature_dropout_bwd_plain(x, gy, sd), None,
-                3 * n, 0, "bf16")
+                n_fdrop, 0, "bf16")
         logits, w, gv = self._unc_case(SEED + 300)
         px = BATCH * HW * HW
         label = f"{N_DEC} x [{BATCH},{HW},{HW},{NUM_CLASSES}] f32"
@@ -2383,14 +2456,16 @@ class Smoke:
                          "wgrad_partial_kernel": 0,
                          "block_conv_dgrad_kernel": 0,
                          "conv3x3_fwd_kernel": 0, "block_conv_fwd_kernel": 0,
-                         "conv3x3_nhwc_fwd_kernel": 0},
+                         "conv3x3_nhwc_fwd_kernel": 0,
+                         **dict.fromkeys(FDROP_ROUTE, 0)},
                 "f32": {"wgrad_mma_kernel": 0, "dgrad_mma_kernel": 0,
                         "conv_fwd_mma_kernel": 0, "block_fwd_mma_kernel": 0,
                         "nhwc_fwd_mma_kernel": 0, "bnl_bwd_mma_kernel": 0,
                         "wgrad_partial_kernel": 3,
                         "block_conv_dgrad_kernel": 2,
                         "conv3x3_fwd_kernel": 1, "block_conv_fwd_kernel": 1,
-                        "conv3x3_nhwc_fwd_kernel": 0}}
+                        "conv3x3_nhwc_fwd_kernel": 0,
+                        **dict.fromkeys(FDROP_ROUTE, 0)}}
         for dname, dtype in (("f32", torch.float32),
                              ("bf16", torch.bfloat16)):
             x, w, f, s, gy, ds1, ds2, sd = self._chain_case(

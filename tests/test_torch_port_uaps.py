@@ -190,6 +190,103 @@ def test_perturbation_apply_matches_jax(kind):
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
 
+def _grouped_mean_spec(x, group=8):
+    """The attention's order in numpy f32: s_k = the in-order sum of
+    channels group * k, ..., then ((s_0 + s_1) + s_2) + ..., times
+    f32(1 / C)."""
+    c = x.shape[1]
+    att = None
+    for k0 in range(0, c, group):
+        s = np.zeros(x[:, 0].shape, np.float32)
+        for k in range(k0, min(k0 + group, c)):
+            s = s + x[:, k]
+        att = s if att is None else att + s
+    return att * np.float32(1 / c)
+
+
+def _fdrop_input(c, seed=21):
+    """[2, C, 4, 8] f32 of magnitudes 1e-4 .. 1e4, where the order of an
+    f32 channel sum changes its bits."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((2, c, 4, 8)) * 10.0 ** rng.uniform(-4, 4,
+                                                                 (2, c, 4, 8))
+    return x.astype(np.float32)
+
+
+@pytest.mark.parametrize("c", [3, 8, 13, 64, 256])
+def test_channel_mean_grouped_order(c):
+    """kpt.channel_mean, the order that the CUDA attention pass sums in
+    (csrc/perturb.cu fdrop_att_kernel), equals its numpy spec bit for bit;
+    for C <= 8 that is the sum in channel order, above it the order
+    matters on these inputs (the sum in channel order differs)."""
+    x = _fdrop_input(c)
+    got = kpt.channel_mean(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, _grouped_mean_spec(x))
+    in_order = _grouped_mean_spec(x, group=c)
+    if c <= kpt.FDROP_GROUP:
+        np.testing.assert_array_equal(got, in_order)
+    else:
+        assert (got != in_order).any()
+
+
+@pytest.mark.parametrize("c", [64, 256])
+def test_feature_dropout_apply_matches_jax_wide(c):
+    """At C > 8 (the grouped order) the port's apply given JAX's own scale
+    equals `uaps_tpu.ops.perturbations.feature_dropout` (f32, NCHW,
+    channel axis 1) at every pixel whose attention is not within 1e-6 of
+    the threshold, relative: there the two packages' channel sums, taken
+    in other orders (~1e-7 relative apart), may round the compare apart."""
+    from uaps_tpu.ops import perturbations as jpert
+    x = np.random.default_rng(c).standard_normal(
+        (2, c, 16, 32)).astype(np.float32)
+    key = jax.random.key(12)
+    ref = np.asarray(jpert.feature_dropout(key, jnp.asarray(x),
+                                           channel_axis=1))
+    scale = jax.random.uniform(key, (), minval=0.7, maxval=0.9)
+    got = pops.feature_dropout_apply(torch.from_numpy(x),
+                                     torch.tensor(float(scale))).numpy()
+    att = kpt.channel_mean(torch.from_numpy(x)).numpy()
+    thr = att.reshape(2, -1).max(1) * np.float32(scale)
+    near = (np.abs(att - thr[:, None, None])
+            <= 1e-6 * np.abs(thr)[:, None, None])
+    far = np.broadcast_to(~near[:, None], x.shape)
+    np.testing.assert_array_equal(got[far], ref[far])
+    assert near.mean() < 0.01
+    assert 0 < float((got[:, 0] == 0).mean()) < 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_feature_dropout_backward_from_saved_attention(dtype):
+    """Autograd through fused_feature_dropout on the CPU (C = 13: two
+    channel groups) saves the attention, the maxima and the seed, not x,
+    and gives feature_dropout_bwd_plain(x, g, seed), the mask regenerated
+    from x, exactly; the forward is feature_dropout_plain exactly."""
+    x = torch.from_numpy(_fdrop_input(13, seed=22)).to(dtype)
+    g = torch.from_numpy(np.random.default_rng(23).standard_normal(
+        x.shape).astype(np.float32)).to(dtype)
+    sd = torch.tensor(2 ** 31 - 5)
+    xr = x.clone().requires_grad_()
+    y = kpt.fused_feature_dropout(xr, sd)
+    assert [tuple(t.shape) for t in y.grad_fn.saved_tensors] == [
+        (2, 4, 8), (2,), ()]
+    y.backward(g)
+    assert torch.equal(y.detach(), kpt.feature_dropout_plain(x, sd))
+    assert torch.equal(xr.grad, kpt.feature_dropout_bwd_plain(x, g, sd))
+    assert xr.grad.dtype == dtype
+    assert 0 < float((xr.grad[:, 0] == 0).float().mean()) < 1
+
+
+def test_fdrop_group_matches_c_source():
+    """The attention's group width: csrc/perturb.cu kGroup equals
+    kernels/perturb.py FDROP_GROUP."""
+    import re
+    from pathlib import Path
+    src = (Path(kpt.__file__).resolve().parent.parent / "csrc"
+           / "perturb.cu").read_text()
+    (width,) = re.findall(r"^constexpr int kGroup = (\d+);", src, re.M)
+    assert int(width) == kpt.FDROP_GROUP == 8
+
+
 def _bits_spec(seed, i):
     """The generator's definition in Python integers."""
     def mix32(v):

@@ -45,7 +45,13 @@ bf16 times in ms:
     lanes at the card's maximum SM clock);
   * the feature-noise kernel (`_noise`, r = 0.3) at the same 5 levels,
     summed over its 4 launches a level (`noise_per_step`), timed as
-    dropout.
+    dropout;
+  * the feature-dropout forward (`_fdrop_fwd`: the max or attention pass
+    and the apply pass) and backward (`_fdrop_bwd`) at the same 5 levels,
+    each summed over its 2 launches a level (`fdrop_fwd_per_step`,
+    `fdrop_bwd_per_step`), timed as dropout, through ROOT's own API (since
+    the attention pass the backward takes the forward's attention and
+    maxima, before it x and the maxima).
 Each conv time is the median over 5 rounds of CUDA events around 20
 back-to-back calls queued behind a ~2.5 ms spin, so that the host's enqueue
 is not counted (chip_smoke.py `Smoke.time_ms`). Two separate runs may land
@@ -54,6 +60,7 @@ B, A). Needs a CUDA card.
 """
 from __future__ import annotations
 
+import inspect
 import json
 import os
 import re
@@ -92,6 +99,7 @@ NHWC_SHAPE = (16, 256, 256, 16, 16)
 LEVELS = [(16, 256), (32, 128), (64, 64), (128, 32), (256, 16)]
 DROPOUT_PER_LEVEL = 8
 NOISE_PER_LEVEL = 4
+FDROP_PER_LEVEL = 2
 # integer lanes an H100 SM issues a clock (4 partitions of 16 INT32 units;
 # the CUDA programming guide's throughput table for compute capability 9.0)
 INT_LANES_PER_SM = 64
@@ -385,6 +393,27 @@ def main(root: str) -> dict:
         ms = cold_ms(torch, lambda: kpt._noise(x, sd, 0.3))
         out["noise"][f"[{BATCH},{c},{hw},{hw}]"] = ms
         out["noise_per_step"] += NOISE_PER_LEVEL * ms
+    out["fdrop_fwd"], out["fdrop_bwd"] = {}, {}
+    out["fdrop_fwd_per_step"] = out["fdrop_bwd_per_step"] = 0.0
+    saves_att = "att" in inspect.signature(kpt._fdrop_bwd).parameters
+    for i, (c, hw) in enumerate(LEVELS):
+        g = torch.Generator(device=dev).manual_seed(1520 + i)
+        x, gy = (torch.randn((BATCH, c, hw, hw), generator=g,
+                             device=dev).to(bf) for _ in range(2))
+        sd = torch.randint(0, 2 ** 31 - 1, (), generator=g, device=dev)
+        res = kpt._fdrop_fwd(x, sd)
+        if saves_att:   # (out, att, mx); the backward from att and mx
+            def bwd():
+                return kpt._fdrop_bwd(gy, sd, res[1], res[2])
+        else:           # (out, mx); the backward from x and mx
+            def bwd():
+                return kpt._fdrop_bwd(x, gy, sd, res[1])
+        label = f"[{BATCH},{c},{hw},{hw}]"
+        fwd_ms = cold_ms(torch, lambda: kpt._fdrop_fwd(x, sd))
+        bwd_ms = cold_ms(torch, bwd)
+        out["fdrop_fwd"][label], out["fdrop_bwd"][label] = fwd_ms, bwd_ms
+        out["fdrop_fwd_per_step"] += FDROP_PER_LEVEL * fwd_ms
+        out["fdrop_bwd_per_step"] += FDROP_PER_LEVEL * bwd_ms
     return out
 
 

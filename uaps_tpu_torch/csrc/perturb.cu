@@ -17,28 +17,46 @@
 //   feature noise    i = index within one example (noise shared across the
 //                    batch); out = x * (1 + (u * span - r)) in f32.
 //   feature dropout  one draw at i = 0: scale = u * 0.2 + 0.7; attention =
-//                    channel mean in f32 (channels summed in order); keep a
+//                    channel mean in f32 in a fixed grouped order (each
+//                    group of kGroup channels summed in order, the groups'
+//                    sums added in group order, times f32(1 / C)); keep a
 //                    pixel where attention < (its example's max) * scale.
-//                    Two passes: feature_dropout_max_kernel takes each
-//                    example's max attention with atomicMax on an
-//                    order-preserving integer key (max is order-independent,
-//                    so the result is deterministic);
-//                    feature_dropout_apply_kernel recomputes each pixel's
-//                    attention and writes src * mask. The backward is the
-//                    apply kernel with src = g: the mask comes again from x,
-//                    the forward's maxima and the seed.
+//                    Pass 1 (fdrop_att_kernel) writes the attention [B, HW]
+//                    in f32 and takes each example's max with atomicMax on
+//                    an order-preserving integer key (max is
+//                    order-independent, so the result is deterministic);
+//                    pass 2 (fdrop_apply_kernel) writes src * mask from the
+//                    attention, the max and the seed. The backward is pass
+//                    2 with src = g on the forward's attention and maxima:
+//                    it never reads x.
 //
 // The seed is read through a device pointer, so the host never waits for it.
 // Every float operation that decides or forms a value is an explicit
 // round-to-nearest intrinsic (no fused multiply-add), so the plain PyTorch
 // versions in kernels/perturb.py give the same bits.
 //
-// What bounds them. Feature dropout: a few integer and float operations per
-// element against 2 (bf16) or 4 (f32) bytes read and written, so
-// device-memory bandwidth. Consecutive threads take consecutive pixels
-// (its threads walk the channels with stride H*W), so every load and store
-// is coalesced. The feature-dropout forward reads x twice (once per pass;
-// the second pass mostly from the 50 MB L2).
+// What bounds them. Feature dropout is bound by bytes: a UAPS step (10
+// forwards and 10 backwards at the 5 skip levels, B = 16) reads x and
+// writes out, 260 MB in bf16, and writes 11.2 MB of attention, 0.081 ms
+// at 3.35 TB/s; the backward reads g and the attention and writes dx, as
+// much. A sum over the channels in channel order would tie one pixel to
+// one thread, which at the deep levels ([16, 256, 16, 16]: 4 K pixels)
+// leaves most SMs idle and each thread a chain of 256 dependent loads.
+// What the design does: the grouped order splits the channels, so pass 1
+// gives a thread one group of 8 channels at one 16-byte pixel vector (8
+// bf16 or 4 f32 pixels), its 8 loads issued together (at [16, 256, 16,
+// 16]: 16 K threads, all 2 MB of x in flight), and a block folds its
+// groups' sums through shared memory in group order, kAttGroups groups a
+// round. Pass 2 is elementwise: 16-byte vectors of src, kApplyVecs a
+// thread, each against its pixels' attention (16 or 32 bytes), the seed
+// read and the threshold formed once a thread (a thread stays in one
+// example), its blocks in reverse order, so that the forward's pass 2
+// starts on the rows of x that pass 1 read last, the likeliest still in
+// L2. x is read once a pass, g once. Where H*W is no multiple of the
+// vector or a pointer is not 16-byte aligned (a view with a storage
+// offset), both passes take one pixel (pass 1) or element (pass 2) a unit
+// in the same kernels, with the same bits; pass 1 decides from x, pass 2
+// from src, out and the attention.
 //
 // Feature noise is bound by bytes once its hashes are shared: a UAPS step
 // moves 130 M elements through it (20 launches at the 5 skip levels, B =
@@ -322,66 +340,198 @@ __device__ __forceinline__ float from_order_key(unsigned k) {
   return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
 }
 
-template <typename T>
-__device__ __forceinline__ float channel_mean(const T* __restrict__ xb, int c,
-                                              long long hw, long long p,
-                                              float inv_c) {
-  float s = 0.f;
-  // unrolled so that several loads are in flight; the adds stay in order
-#pragma unroll 8
-  for (int k = 0; k < c; ++k) s = __fadd_rn(s, uaps::to_f32(xb[k * hw + p]));
-  return __fmul_rn(s, inv_c);
+// Feature dropout: channels a pass-1 thread sums in order (a group); the
+// groups' sums are then added in group order (kernels/perturb.py
+// FDROP_GROUP, channel_mean)
+constexpr int kGroup = 8;
+// pass 1: threads a block, and groups a block sums at once (a round)
+constexpr int kAttThreads = 128;
+constexpr int kAttGroups = 32;
+// pass 2: 16-byte vectors a thread
+constexpr int kApplyVecs = 2;
+
+// The values of a 16-byte vector in f32: 4 f32 ...
+__device__ __forceinline__ void unpack(uint4 u, float (&v)[4]) {
+  v[0] = __uint_as_float(u.x);
+  v[1] = __uint_as_float(u.y);
+  v[2] = __uint_as_float(u.z);
+  v[3] = __uint_as_float(u.w);
 }
 
-// grid (pixel blocks, batch); mx[b] starts at 0 (below every key)
+// ... or 8 bf16 (a word holds elements 2j, the low half, and 2j + 1)
+__device__ __forceinline__ void unpack(uint4 u, float (&v)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    v[2 * j] = __uint_as_float(w[j] << 16);
+    v[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+  }
+}
+
+// Pass 1. x [batch, c, hw]; att [batch, hw] f32; mx[b] starts at 0 (below
+// every key). Grid (blocks of vx units, batch); a unit is a 16-byte pixel
+// vector (nvec != 0: hw a multiple of the vector, x 16-byte aligned) or
+// one pixel. Thread (tx, ty) = (t % vx, t / vx), ty < gy, sums group
+// r + ty at unit tx in each round r = 0, gy, 2 gy, ..., its loads issued
+// together, into shared memory; then thread t adds the round's groups in
+// order to the running sums of pixels t, t + kAttThreads, ... of the
+// block. gy * vx <= kAttThreads.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    feature_dropout_max_kernel(const T* __restrict__ x,
-                               unsigned* __restrict__ mx, int c, long long hw,
-                               float inv_c) {
-  __shared__ unsigned sm[kThreads / 32];
-  const long long p = blockIdx.x * static_cast<long long>(kThreads) +
-                      threadIdx.x;
-  const T* xb = x + static_cast<long long>(blockIdx.y) * c * hw;
-  unsigned k = p < hw ? order_key(channel_mean(xb, c, hw, p, inv_c)) : 0u;
+__global__ void __launch_bounds__(kAttThreads)
+    fdrop_att_kernel(const T* __restrict__ x, float* __restrict__ att,
+                     unsigned* __restrict__ mx, int c, uint32_t hw,
+                     uint32_t nvec, int gy, int vx, float inv_c) {
+  constexpr int kPer = 16 / sizeof(T);
+  __shared__ __align__(16) float part[kAttThreads * kPer];
+  __shared__ unsigned wmax[kAttThreads / 32];
+  const int per = nvec ? kPer : 1;   // pixels a unit
+  const int npx = vx * per;          // pixels a block
+  const int tx = threadIdx.x % vx, ty = threadIdx.x / vx;
+  const uint32_t unit = blockIdx.x * vx + tx;
+  const uint32_t p0 = blockIdx.x * static_cast<uint32_t>(npx);
+  const T* xb = x + blockIdx.y * static_cast<uint32_t>(c) * hw;
+  const int groups = (c + kGroup - 1) / kGroup;
+  float acc[kPer] = {};
+  for (int r = 0; r < groups; r += gy) {
+    const int grp = r + ty;
+    if (ty < gy && grp < groups) {
+      const int k0 = grp * kGroup;
+      const int nk = min(kGroup, c - k0);
+      const T* row = xb + static_cast<uint32_t>(k0) * hw;
+      if (nvec != 0 && unit < nvec) {
+        const uint4* xv = reinterpret_cast<const uint4*>(row) + unit;
+        const uint32_t stride = hw / kPer;
+        uint4 u[kGroup];
+#pragma unroll
+        for (int k = 0; k < kGroup; ++k)
+          if (k < nk) u[k] = __ldg(xv + k * stride);
+        float s[kPer] = {};
+#pragma unroll
+        for (int k = 0; k < kGroup; ++k) {
+          if (k < nk) {
+            float v[kPer];
+            unpack(u[k], v);
+#pragma unroll
+            for (int j = 0; j < kPer; ++j) s[j] = __fadd_rn(s[j], v[j]);
+          }
+        }
+        float4* dst = reinterpret_cast<float4*>(part + ty * npx + tx * kPer);
+#pragma unroll
+        for (int j = 0; j < kPer / 4; ++j)
+          dst[j] = make_float4(s[4 * j], s[4 * j + 1], s[4 * j + 2],
+                               s[4 * j + 3]);
+      } else if (nvec == 0 && unit < hw) {
+        T u[kGroup];
+#pragma unroll
+        for (int k = 0; k < kGroup; ++k)
+          if (k < nk) u[k] = row[k * hw + unit];
+        float s = 0.f;
+#pragma unroll
+        for (int k = 0; k < kGroup; ++k)
+          if (k < nk) s = __fadd_rn(s, uaps::to_f32(u[k]));
+        part[ty * npx + tx] = s;
+      }
+    }
+    __syncthreads();
+    const int ng = min(gy, groups - r);
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int p = threadIdx.x + j * kAttThreads;
+      if (p < npx) {
+        float a = r == 0 ? part[p] : __fadd_rn(acc[j], part[p]);
+        for (int q = 1; q < ng; ++q) a = __fadd_rn(a, part[q * npx + p]);
+        acc[j] = a;
+      }
+    }
+    __syncthreads();
+  }
+  unsigned key = 0u;
+  float* ab = att + blockIdx.y * hw;
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const uint32_t p = p0 + threadIdx.x + j * kAttThreads;
+    if (threadIdx.x + j * kAttThreads < npx && p < hw) {
+      const float a = __fmul_rn(acc[j], inv_c);
+      ab[p] = a;
+      key = max(key, order_key(a));
+    }
+  }
 #pragma unroll
   for (int off = 16; off > 0; off /= 2)
-    k = max(k, __shfl_down_sync(0xffffffffu, k, off));
-  if (threadIdx.x % 32 == 0) sm[threadIdx.x / 32] = k;
+    key = max(key, __shfl_down_sync(0xffffffffu, key, off));
+  if (threadIdx.x % 32 == 0) wmax[threadIdx.x / 32] = key;
   __syncthreads();
   if (threadIdx.x == 0) {
-    unsigned m = sm[0];
+    unsigned m = wmax[0];
 #pragma unroll
-    for (int w = 1; w < kThreads / 32; ++w) m = max(m, sm[w]);
+    for (int w = 1; w < kAttThreads / 32; ++w) m = max(m, wmax[w]);
     atomicMax(mx + blockIdx.y, m);
   }
 }
 
-// out = src * mask(x); grid (pixel blocks, batch)
+// Pass 2: out = src * (att < max * scale) in f32, cast once. src, out
+// [batch, c, hw], att [batch, hw]; grid (blocks over one example's units,
+// batch), so that a thread forms its example's threshold once, taken in
+// reverse order. Units are 16-byte vectors (nvec = c * hw / kPer != 0: hw
+// a multiple of the vector; src, out and att 16-byte aligned), kApplyVecs
+// a thread with their loads issued first (an index past the example's
+// last vector loads that one again and is not stored), else single
+// elements.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    feature_dropout_apply_kernel(const T* __restrict__ src,
-                                 const T* __restrict__ x, T* __restrict__ out,
-                                 const unsigned* __restrict__ mx,
-                                 const long long* __restrict__ seed, int c,
-                                 long long hw, float inv_c) {
-  const long long p = blockIdx.x * static_cast<long long>(kThreads) +
-                      threadIdx.x;
-  if (p >= hw) return;
+    fdrop_apply_kernel(const T* __restrict__ src,
+                       const float* __restrict__ att,
+                       const unsigned* __restrict__ mx,
+                       const long long* __restrict__ seed,
+                       T* __restrict__ out, uint32_t hw, uint32_t n_ex,
+                       uint32_t nvec) {
+  // blocks in reverse: in the forward, the rows of x that pass 1 read
+  // last are the likeliest still in L2
+  const uint32_t bx = gridDim.x - 1 - blockIdx.x;
+  const uint32_t by = gridDim.y - 1 - blockIdx.y;
+  constexpr uint32_t kPer = 16 / sizeof(T);
   const Stream rng(seed);
   const float scale = __fadd_rn(__fmul_rn(rng.uniform(0u), 0.2f), 0.7f);
-  const float thr = __fmul_rn(from_order_key(mx[blockIdx.y]), scale);
-  const long long off = static_cast<long long>(blockIdx.y) * c * hw;
-  const float keep = channel_mean(x + off, c, hw, p, inv_c) < thr ? 1.f : 0.f;
-  for (int k = 0; k < c; ++k) {
-    const long long i = off + k * hw + p;
-    out[i] = uaps::from_f32<T>(__fmul_rn(uaps::to_f32(src[i]), keep));
+  const float thr = __fmul_rn(from_order_key(mx[by]), scale);
+  const float* ab = att + by * hw;
+  const uint32_t off = by * n_ex;
+  if (nvec != 0) {
+    const uint4* sv = reinterpret_cast<const uint4*>(src + off);
+    uint4* ov = reinterpret_cast<uint4*>(out + off);
+    const uint32_t row = hw / kPer;   // vectors a channel
+    const uint32_t v0 = bx * kThreads * kApplyVecs + threadIdx.x;
+    uint4 u[kApplyVecs];
+    float4 a[kApplyVecs][kPer / 4];
+#pragma unroll
+    for (int k = 0; k < kApplyVecs; ++k) {
+      const uint32_t v = min(v0 + k * kThreads, nvec - 1);
+      u[k] = __ldg(sv + v);
+      const float4* av = reinterpret_cast<const float4*>(ab) +
+                         (v % row) * (kPer / 4);
+#pragma unroll
+      for (int j = 0; j < static_cast<int>(kPer / 4); ++j)
+        a[k][j] = __ldg(av + j);
+    }
+#pragma unroll
+    for (int k = 0; k < kApplyVecs; ++k) {
+      float m[kPer];
+#pragma unroll
+      for (int j = 0; j < static_cast<int>(kPer / 4); ++j) {
+        m[4 * j] = a[k][j].x < thr ? 1.f : 0.f;
+        m[4 * j + 1] = a[k][j].y < thr ? 1.f : 0.f;
+        m[4 * j + 2] = a[k][j].z < thr ? 1.f : 0.f;
+        m[4 * j + 3] = a[k][j].w < thr ? 1.f : 0.f;
+      }
+      const uint32_t v = v0 + k * kThreads;
+      const uint4 r = scale_vec(u[k], m);
+      if (v < nvec) ov[v] = r;
+    }
+  } else {
+    const uint32_t i = bx * kThreads + threadIdx.x;
+    if (i < n_ex)
+      out[off + i] = uaps::from_f32<T>(
+          __fmul_rn(uaps::to_f32(src[off + i]), ab[i % hw] < thr ? 1.f : 0.f));
   }
-}
-
-unsigned blocks_for(long long n) {
-  const long long want = (n + kThreads - 1) / kThreads;
-  return static_cast<unsigned>(want < (1 << 30) ? want : (1 << 30));
 }
 
 // The vector path where x and out are both 16-byte aligned (out, a fresh
@@ -445,29 +595,63 @@ cudaError_t noise(const void* x, void* out, const long long* seed, int batch,
   return cudaGetLastError();
 }
 
+// Pass 1 with mx zeroed first; the vector path where hw is a multiple of
+// the vector and x is 16-byte aligned, else one pixel a unit. A block takes
+// up to kAttGroups groups at once (the power of two at or above the count
+// sets the block's width in units).
 template <typename T>
-cudaError_t fdrop_max(const void* x, unsigned* mx, int batch, int c,
-                      long long hw, float inv_c, cudaStream_t s) {
+cudaError_t fdrop_att(const void* x, float* att, unsigned* mx, int batch,
+                      int c, uint32_t hw, float inv_c, cudaStream_t s) {
+  constexpr uint32_t kPer = 16 / sizeof(T);
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
+  if (xa % sizeof(T) != 0) return cudaErrorInvalidValue;
   cudaError_t err = cudaMemsetAsync(mx, 0, sizeof(unsigned) * batch, s);
   if (err != cudaSuccess) return err;
-  const dim3 grid(blocks_for(hw), batch);
-  feature_dropout_max_kernel<T><<<grid, kThreads, 0, s>>>(
-      static_cast<const T*>(x), mx, c, hw, inv_c);
+  const uint32_t nvec = (hw % kPer == 0 && xa % 16 == 0) ? hw / kPer : 0;
+  const int groups = (c + kGroup - 1) / kGroup;
+  const int gy = groups < kAttGroups ? groups : kAttGroups;
+  int span = 1;
+  while (span < gy) span *= 2;
+  const int vx = kAttThreads / span;
+  const uint32_t units = nvec ? nvec : hw;
+  const dim3 grid((units + vx - 1) / vx, batch);
+  fdrop_att_kernel<T><<<grid, kAttThreads, 0, s>>>(
+      static_cast<const T*>(x), att, mx, c, hw, nvec, gy, vx, inv_c);
   return cudaGetLastError();
 }
 
+// Pass 2; the vector path where hw is a multiple of the vector and src,
+// out and att are 16-byte aligned, else one element a thread.
 template <typename T>
-cudaError_t fdrop_apply(const void* src, const void* x, void* out,
-                        const unsigned* mx, const long long* seed, int batch,
-                        int c, long long hw, float inv_c, cudaStream_t s) {
-  const dim3 grid(blocks_for(hw), batch);
-  feature_dropout_apply_kernel<T><<<grid, kThreads, 0, s>>>(
-      static_cast<const T*>(src), static_cast<const T*>(x),
-      static_cast<T*>(out), mx, seed, c, hw, inv_c);
+cudaError_t fdrop_apply(const void* src, const float* att,
+                        const unsigned* mx, const long long* seed, void* out,
+                        int batch, int c, uint32_t hw, cudaStream_t s) {
+  constexpr uint32_t kPer = 16 / sizeof(T);
+  const uintptr_t sa = reinterpret_cast<uintptr_t>(src);
+  const uintptr_t oa = reinterpret_cast<uintptr_t>(out);
+  const uintptr_t aa = reinterpret_cast<uintptr_t>(att);
+  if (sa % sizeof(T) != 0 || oa % sizeof(T) != 0 || aa % 4 != 0)
+    return cudaErrorInvalidValue;
+  const uint32_t n_ex = static_cast<uint32_t>(c) * hw;
+  const uint32_t nvec =
+      (hw % kPer == 0 && sa % 16 == 0 && oa % 16 == 0 && aa % 16 == 0)
+          ? n_ex / kPer
+          : 0;
+  const uint32_t per_block = nvec ? kThreads * kApplyVecs : kThreads;
+  const dim3 grid(((nvec ? nvec : n_ex) + per_block - 1) / per_block, batch);
+  fdrop_apply_kernel<T><<<grid, kThreads, 0, s>>>(
+      static_cast<const T*>(src), att, mx, seed, static_cast<T*>(out), hw,
+      n_ex, nvec);
   return cudaGetLastError();
 }
 
 bool bad_dtype(int dtype) { return dtype != uaps::kF32 && dtype != uaps::kBF16; }
+
+bool bad_fdrop(int batch, int c, long long hw, int dtype) {
+  return batch < 1 || batch > 65535 || c < 1 || hw < 1 ||
+         static_cast<long long>(batch) * c * hw > 0xffffffffLL ||
+         bad_dtype(dtype);
+}
 
 }  // namespace
 
@@ -504,34 +688,41 @@ extern "C" int uaps_feature_noise(const void* x, void* out, const void* seed,
           : noise<__nv_bfloat16>(x, out, sd, batch, n, span, r, s));
 }
 
-// x: [batch, c, hw] contiguous; mx: [batch] keys of the max attention.
-extern "C" int uaps_feature_dropout_max(const void* x, void* mx, int batch,
-                                        int c, long long hw, float inv_c,
-                                        int dtype, void* stream) {
-  if (batch < 1 || batch > 65535 || c < 1 || hw < 1 || bad_dtype(dtype))
+// Feature dropout's pass 1. x: [batch, c, hw] contiguous, fewer than 2^32
+// elements; att: [batch, hw] f32; mx: [batch] order keys of each example's
+// max attention.
+extern "C" int uaps_feature_dropout_att(const void* x, void* att, void* mx,
+                                        int batch, int c, long long hw,
+                                        float inv_c, int dtype,
+                                        void* stream) {
+  if (bad_fdrop(batch, c, hw, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
+  float* a = static_cast<float*>(att);
   unsigned* m = static_cast<unsigned*>(mx);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint32_t n = static_cast<uint32_t>(hw);
   return static_cast<int>(
       dtype == uaps::kF32
-          ? fdrop_max<float>(x, m, batch, c, hw, inv_c, s)
-          : fdrop_max<__nv_bfloat16>(x, m, batch, c, hw, inv_c, s));
+          ? fdrop_att<float>(x, a, m, batch, c, n, inv_c, s)
+          : fdrop_att<__nv_bfloat16>(x, a, m, batch, c, n, inv_c, s));
 }
 
-// out = src * mask(x); src, x, out: [batch, c, hw] contiguous, one dtype.
-extern "C" int uaps_feature_dropout_apply(const void* src, const void* x,
-                                          void* out, const void* mx,
-                                          const void* seed, int batch, int c,
-                                          long long hw, float inv_c,
-                                          int dtype, void* stream) {
-  if (batch < 1 || batch > 65535 || c < 1 || hw < 1 || bad_dtype(dtype))
+// Pass 2: out = src * mask(att, mx, seed); src, out: [batch, c, hw]
+// contiguous, one dtype; att, mx: pass 1's.
+extern "C" int uaps_feature_dropout_apply(const void* src, const void* att,
+                                          const void* mx, const void* seed,
+                                          void* out, int batch, int c,
+                                          long long hw, int dtype,
+                                          void* stream) {
+  if (bad_fdrop(batch, c, hw, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
+  const float* a = static_cast<const float*>(att);
   const unsigned* m = static_cast<const unsigned*>(mx);
   const long long* sd = static_cast<const long long*>(seed);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint32_t n = static_cast<uint32_t>(hw);
   return static_cast<int>(
       dtype == uaps::kF32
-          ? fdrop_apply<float>(src, x, out, m, sd, batch, c, hw, inv_c, s)
-          : fdrop_apply<__nv_bfloat16>(src, x, out, m, sd, batch, c, hw,
-                                       inv_c, s));
+          ? fdrop_apply<float>(src, a, m, sd, out, batch, c, n, s)
+          : fdrop_apply<__nv_bfloat16>(src, a, m, sd, out, batch, c, n, s));
 }

@@ -25,8 +25,11 @@ draw and nothing is stored:
     the output is x * (1 + u) in f32, cast once;
   * feature dropout: one draw per call at i = 0 gives the scale
     uniform24 * 0.2 + 0.7 in [0.7, 0.9]; the attention is the channel mean
-    in f32 (channels summed in order 0..C-1, times f32(1 / C)), and a pixel
-    is kept where attention < (its example's largest attention) * scale.
+    in f32 in a fixed grouped order (`channel_mean`: groups of FDROP_GROUP
+    channels, each summed in channel order, the groups' sums added in
+    group order, times f32(1 / C)), and a pixel is kept where attention <
+    (its example's largest attention) * scale. The forward keeps the
+    attention and the maxima for the backward, which never reads x.
 The plain versions compute the same bits with torch int64 ops, so on the
 card a kernel equals its plain version bit for bit. The bit-stream is not
 JAX's (the TPU's in-core generator has no CPU counterpart); the CPU tests
@@ -53,12 +56,15 @@ from uaps_tpu_torch.kernels import _build
 
 dropout_launches = 0     # dropout kernel launches (reset by the caller)
 noise_launches = 0       # feature-noise kernel launches
-fdrop_launches = 0       # feature-dropout forwards (max pass + apply pass)
+fdrop_launches = 0       # feature-dropout forwards (attention + apply pass)
 fdrop_bwd_launches = 0   # feature-dropout backwards
 
 _M32 = 0xFFFFFFFF
 _KEY_SALT = 0x9E3779B9
 _FDROP_LO, _FDROP_SPAN = 0.7, 0.2
+# channels summed in order before the groups' sums are added in group order
+# (csrc/perturb.cu kGroup)
+FDROP_GROUP = 8
 
 
 # ----------------------------------------------------------------- generator
@@ -136,13 +142,26 @@ def feature_noise_apply(x: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
 
 
 def channel_mean(x: torch.Tensor) -> torch.Tensor:
-    """[B, H, W] f32 mean over axis 1 of NCHW x, summed in channel order
-    (the kernels' order, so the thresholds agree bit for bit)."""
-    s = torch.zeros((x.shape[0], *x.shape[2:]), dtype=torch.float32,
-                    device=x.device)
-    for k in range(x.shape[1]):
-        s = s + x[:, k].float()
-    return s * (1.0 / x.shape[1])
+    """[B, H, W] f32 mean over axis 1 of NCHW x in the kernels' order, so
+    that the thresholds agree bit for bit: s_k = the f32 sum of channels
+    FDROP_GROUP * k, ... in order (the last group may be short), then
+    ((s_0 + s_1) + s_2) + ..., times f32(1 / C). For C <= FDROP_GROUP this
+    is the sum in channel order."""
+    c = x.shape[1]
+    att = None
+    for k0 in range(0, c, FDROP_GROUP):
+        s = torch.zeros((x.shape[0], *x.shape[2:]), dtype=torch.float32,
+                        device=x.device)
+        for k in range(k0, min(k0 + FDROP_GROUP, c)):
+            s = s + x[:, k].float()
+        att = s if att is None else att + s
+    return att * (1.0 / c)
+
+
+def _fdrop_mask(att: torch.Tensor, mx: torch.Tensor, scale: torch.Tensor
+                ) -> torch.Tensor:
+    """f32 [B, 1, H, W]: att [B, H, W] < mx [B] * scale, per example."""
+    return (att < (mx * scale)[:, None, None]).float()[:, None]
 
 
 def feature_dropout_mask(x: torch.Tensor, scale: torch.Tensor
@@ -150,8 +169,7 @@ def feature_dropout_mask(x: torch.Tensor, scale: torch.Tensor
     """f32 [B, 1, H, W] keep mask: attention < per-example max * scale."""
     with torch.no_grad():
         att = channel_mean(x)
-        thr = att.reshape(x.shape[0], -1).amax(1) * scale
-        return (att < thr[:, None, None]).float()[:, None]
+        return _fdrop_mask(att, att.reshape(x.shape[0], -1).amax(1), scale)
 
 
 def feature_dropout_apply(x: torch.Tensor,
@@ -188,6 +206,17 @@ def feature_dropout_bwd_plain(x: torch.Tensor, g: torch.Tensor,
     return (g.float() * mask).to(g.dtype)
 
 
+def fdrop_apply_plain(src: torch.Tensor, att: torch.Tensor, mx: torch.Tensor,
+                      seed: torch.Tensor) -> torch.Tensor:
+    """The apply pass's plain version: src * mask in f32, cast once, the
+    mask from the attention [B, H, W], each example's max attention [B]
+    (f32) and the seed's scale; src is x (the forward) or g (the
+    backward)."""
+    with torch.no_grad():
+        mask = _fdrop_mask(att, mx, fdrop_scale(seed))
+    return (src.float() * mask).to(src.dtype)
+
+
 # ------------------------------------------------------------------ kernels
 @functools.cache
 def _fns():
@@ -198,13 +227,13 @@ def _fns():
     drop.argtypes = [vp, vp, vp, ll, ctypes.c_ulonglong, f32, i32, vp]
     noise = lib.uaps_feature_noise
     noise.argtypes = [vp, vp, vp, i32, ll, f32, f32, i32, vp]
-    fmax = lib.uaps_feature_dropout_max
-    fmax.argtypes = [vp, vp, i32, i32, ll, f32, i32, vp]
+    fatt = lib.uaps_feature_dropout_att
+    fatt.argtypes = [vp, vp, vp, i32, i32, ll, f32, i32, vp]
     fapply = lib.uaps_feature_dropout_apply
-    fapply.argtypes = [vp, vp, vp, vp, vp, i32, i32, ll, f32, i32, vp]
-    for fn in (drop, noise, fmax, fapply):
+    fapply.argtypes = [vp, vp, vp, vp, vp, i32, i32, ll, i32, vp]
+    for fn in (drop, noise, fatt, fapply):
         fn.restype = ctypes.c_int
-    return lib, drop, noise, fmax, fapply
+    return lib, drop, noise, fatt, fapply
 
 
 def _kernel_path(x: torch.Tensor, seed: torch.Tensor, what: str) -> bool:
@@ -266,46 +295,55 @@ def _fdrop_check(x: torch.Tensor, what: str) -> None:
 
 
 def _fdrop_fwd(x: torch.Tensor, seed: torch.Tensor
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out, the per-example max as the kernels encode it, or None on the
-    plain path)."""
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(out, the attention [B, H, W] f32, each example's max attention [B]:
+    f32 on the plain path, the kernels' order keys as int32 on the card)."""
     global fdrop_launches
     _fdrop_check(x, "feature_dropout")
     if not _kernel_path(x, seed, "feature_dropout"):
-        return feature_dropout_plain(x, seed), None
+        att = channel_mean(x)
+        mx = att.reshape(x.shape[0], -1).amax(1)
+        return fdrop_apply_plain(x, att, mx, seed), att, mx
     b, c, h, w = x.shape
+    att = torch.empty((b, h, w), dtype=torch.float32, device=x.device)
     mx = torch.empty(b, dtype=torch.int32, device=x.device)
     out = torch.empty_like(x)
-    lib, _, _, fmax, fapply = _fns()
+    lib, _, _, fatt, fapply = _fns()
     code = _build.DTYPE_CODES[x.dtype]
-    _build.call(lib, fmax, x.device, "feature_dropout max kernel launch",
-                x.data_ptr(), mx.data_ptr(), b, c, h * w, 1.0 / c, code)
+    _build.call(lib, fatt, x.device, "feature_dropout attention kernel "
+                "launch", x.data_ptr(), att.data_ptr(), mx.data_ptr(), b, c,
+                h * w, 1.0 / c, code)
     _build.call(lib, fapply, x.device, "feature_dropout kernel launch",
-                x.data_ptr(), x.data_ptr(), out.data_ptr(), mx.data_ptr(),
-                seed.data_ptr(), b, c, h * w, 1.0 / c, code)
+                x.data_ptr(), att.data_ptr(), mx.data_ptr(), seed.data_ptr(),
+                out.data_ptr(), b, c, h * w, code)
     fdrop_launches += 1
-    return out, mx
+    return out, att, mx
 
 
-def _fdrop_bwd(x: torch.Tensor, g: torch.Tensor, seed: torch.Tensor,
-               mx) -> torch.Tensor:
-    """g * mask(x), in g's dtype: the mask from x, the forward's maxima and
-    the seed's scale."""
+def _fdrop_bwd(g: torch.Tensor, seed: torch.Tensor, att: torch.Tensor,
+               mx: torch.Tensor) -> torch.Tensor:
+    """g * mask, in g's dtype: the mask from the forward's attention and
+    maxima (`_fdrop_fwd`'s) and the seed's scale."""
     global fdrop_bwd_launches
-    _fdrop_check(x, "feature_dropout_bwd")
-    if tuple(g.shape) != tuple(x.shape):
-        raise ValueError(f"feature_dropout_bwd: g {tuple(g.shape)}, x "
-                         f"{tuple(x.shape)}")
-    if not _kernel_path(x, seed, "feature_dropout_bwd"):
-        return feature_dropout_bwd_plain(x, g, seed)
-    g = g.to(x.dtype).contiguous()
-    b, c, h, w = x.shape
-    dx = torch.empty_like(x)
+    _fdrop_check(g, "feature_dropout_bwd")
+    b, c, h, w = g.shape
+    if tuple(att.shape) != (b, h, w) or tuple(mx.shape) != (b,):
+        raise ValueError(f"feature_dropout_bwd: g {tuple(g.shape)}, att "
+                         f"{tuple(att.shape)}, mx {tuple(mx.shape)}")
+    if not _kernel_path(g, seed, "feature_dropout_bwd"):
+        return fdrop_apply_plain(g, att, mx, seed)
+    if (att.dtype != torch.float32 or mx.dtype != torch.int32
+            or att.device != g.device or mx.device != g.device
+            or not att.is_contiguous()):
+        raise ValueError("feature_dropout_bwd: att and mx must be the "
+                         "kernel forward's (contiguous f32 and int32 on "
+                         f"{g.device}); got {att.dtype} on {att.device}, "
+                         f"{mx.dtype} on {mx.device}")
+    dx = torch.empty_like(g)
     lib, _, _, _, fapply = _fns()
-    _build.call(lib, fapply, x.device, "feature_dropout_bwd kernel launch",
-                g.data_ptr(), x.data_ptr(), dx.data_ptr(), mx.data_ptr(),
-                seed.data_ptr(), b, c, h * w, 1.0 / c,
-                _build.DTYPE_CODES[x.dtype])
+    _build.call(lib, fapply, g.device, "feature_dropout_bwd kernel launch",
+                g.data_ptr(), att.data_ptr(), mx.data_ptr(), seed.data_ptr(),
+                dx.data_ptr(), b, c, h * w, _build.DTYPE_CODES[g.dtype])
     fdrop_bwd_launches += 1
     return dx
 
@@ -339,14 +377,15 @@ class _Noise(torch.autograd.Function):
 class _FeatureDropout(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, seed):
-        out, mx = _fdrop_fwd(x, seed)
-        ctx.save_for_backward(x, seed, mx)
+        out, att, mx = _fdrop_fwd(x, seed)
+        ctx.save_for_backward(att, mx, seed)
+        ctx.dtype = x.dtype
         return out
 
     @staticmethod
     def backward(ctx, g):
-        x, seed, mx = ctx.saved_tensors
-        return _fdrop_bwd(x, g, seed, mx), None
+        att, mx, seed = ctx.saved_tensors
+        return _fdrop_bwd(g.to(ctx.dtype).contiguous(), seed, att, mx), None
 
 
 def fused_dropout(x: torch.Tensor, seed: torch.Tensor,
@@ -364,5 +403,5 @@ def fused_feature_noise(x: torch.Tensor, seed: torch.Tensor,
 def fused_feature_dropout(x: torch.Tensor,
                           seed: torch.Tensor) -> torch.Tensor:
     """Attention-thresholded spatial dropout of NCHW x; the backward is
-    g * mask with the mask recomputed."""
+    g * mask, the mask from the forward's attention and maxima."""
     return _FeatureDropout.apply(x, seed)
