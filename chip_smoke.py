@@ -39,7 +39,12 @@ Phases (any failure: exit 1 and no result line):
      one neu baseline step (B=16), f32 and bf16, the wgrad also at
      ODD_WGRAD (Cin 3 and 40, Cout 4 and 13, a 37 x 70 image) and the
      dgrad at ODD_CONV, where the bf16 tensor-core kernels pad and mask
-     (tolerances in Smoke.train_kernels);
+     (tolerances in Smoke.train_kernels); the CE+Dice forward also at
+     LOSS_ODD_SHAPES x LOSS_ODD_CLASSES x LOSS_ODD_LAYOUTS (its vector
+     path and its scalar path: a ragged H W, an offset view, NHWC
+     storage; C 2, 4, 7), each called twice and bit-equal; its ticket
+     back at 0 after the calls and two CUDA-graph replays of it
+     bit-equal;
   7. training: the supervised baseline as `python -m uaps_tpu_torch.train
      --preset neu --method baseline --dtype bfloat16 --dropout_backend xla
      --dataset synthetic` builds it (unet, full width, 256 x 256, batch
@@ -55,8 +60,9 @@ Phases (any failure: exit 1 and no result line):
      of 2 kernel-path steps, whose kernel names must show every weight-
      gradient pass, every conv3x3_nchw forward and dgrad and every
      fused-block forward and dgrad on the tensor cores and none of them on
-     the CUDA cores (bf16_route; the same route proof in phases 11, 14 and
-     18);
+     the CUDA cores, and each CE+Dice forward as one ce_dice_fwd_kernel
+     (no ce_dice_finalize_kernel: 1 a baseline step, 8 a UAPS step)
+     (bf16_route; the same route proof in phases 11, 14 and 18);
   9. UAPS kernels: every perturbation kernel (dropout at each level's rate
      and at 0.5, feature noise, feature dropout) forward and backward at
      the 5 skip shapes of a neu UAPS step (B=16), f32 and bf16, equal to
@@ -77,7 +83,8 @@ Phases (any failure: exit 1 and no result line):
      uncertainty forward and backward on 4 x [16, 256, 256, 4] f32 NHWC
      views: var and dlogits within rtol = atol = 1e-5, pseudo-labels equal
      on >= 99.99% of pixels, differing only where the two classes' mixes
-     agree to 2e-6;
+     agree to 2e-6; the forward also at 2 and 4 decoders over phase 6's
+     odd CE+Dice cases, under the same gates;
  10. UAPS training: the faithful step as `python -m uaps_tpu_torch.train
      --preset neu --method uaps --dtype bfloat16 --dataset synthetic`
      builds it (unet_uaps, 16 + 16 images, 256 x 256, fused dropout on): 3
@@ -331,23 +338,36 @@ FDROP_ODD = [(1, 13, ODD_HW), (1, 40, ODD_HW), (3, 13, (16, 24)),
 # ... and where the tensor-core forwards pad their K (Cin 3, 40; the dgrad's
 # Cout) and N (Cout 4, 13; 72: two groups of 64), checked in phases 2 and 6
 ODD_CONV = [(3, 4), (3, 13), (40, 4), (40, 13), (13, 72)]
+# the odd cases of the CE+Dice and uncertainty forwards (phases 6 and 9):
+# (B, H, W) where H W is a multiple of 4 (the vector path) and where it is
+# not (the scalar path), each at the kosdd2, neu and dagm class counts and
+# in three layouts: the NHWC view of NCHW storage, that view one element
+# past its storage's start (and the labels likewise), and contiguous NHWC
+# storage; the uncertainty forward at 2 and 4 decoders
+LOSS_ODD_SHAPES = [(3, 32, 48), (3, 37, 53)]
+LOSS_ODD_CLASSES = (2, 4, 7)
+LOSS_ODD_LAYOUTS = ("nchw", "offset", "nhwc")
+UNC_ODD_DECODERS = (2, 4)
 # the feature-dropout kernels the route proof counts: the attention pass
 # and the apply pass (forward and backward), and the max kernel they
 # replaced, which must not run
 FDROP_ROUTE = ("fdrop_att_kernel", "fdrop_apply_kernel",
                "feature_dropout_max_kernel")
+# the CE+Dice forward's one kernel, and the second pass it replaced, which
+# must not run
+CE_DICE_ROUTE = ("ce_dice_fwd_kernel", "ce_dice_finalize_kernel")
 # the profiler's kernel names that the route proof counts: the tensor-core
 # (bf16) weight-gradient pass, chain plain dgrad, conv3x3_nchw forward
 # (and its dgrad), fused-block forward, NHWC forward (and its dgrad) and
 # fused-block dgrad with the BN prologue, then the CUDA-core ones (f32),
-# then FDROP_ROUTE. No name contains another.
+# then FDROP_ROUTE and CE_DICE_ROUTE. No name contains another.
 ROUTE_KERNELS = ("wgrad_mma_kernel", "dgrad_mma_kernel",
                  "conv_fwd_mma_kernel", "block_fwd_mma_kernel",
                  "nhwc_fwd_mma_kernel", "bnl_bwd_mma_kernel",
                  "wgrad_partial_kernel",
                  "block_conv_dgrad_kernel", "conv3x3_fwd_kernel",
                  "block_conv_fwd_kernel", "conv3x3_nhwc_fwd_kernel",
-                 *FDROP_ROUTE)
+                 *FDROP_ROUTE, *CE_DICE_ROUTE)
 # the launch counters whose every call runs one weight-gradient pass
 WGRAD_PASSES = ("conv3x3_nchw_wgrad", "conv3x3_nchw_wgrad_fullh",
                 "chain_conv_plain_bwd", "chain_conv_bnl_bwd",
@@ -478,7 +498,8 @@ def bf16_route(per_step, steps):
     prologue (the chain bnl and conv3x3_bnl backwards) on the tensor cores;
     no CUDA-core kernel; every feature-dropout forward as the attention
     and apply passes, every backward as the apply pass, and the replaced
-    max kernel never."""
+    max kernel never; every CE+Dice forward as one ce_dice_fwd_kernel, and
+    the replaced finalize pass never."""
     plain = per_step["chain_conv_plain_bwd"]
     return {"wgrad_mma_kernel": steps * sum(per_step[k]
                                             for k in WGRAD_PASSES),
@@ -497,7 +518,9 @@ def bf16_route(per_step, steps):
             "fdrop_att_kernel": steps * per_step["feature_dropout"],
             "fdrop_apply_kernel": steps * (per_step["feature_dropout"]
                                            + per_step["feature_dropout_bwd"]),
-            "feature_dropout_max_kernel": 0}
+            "feature_dropout_max_kernel": 0,
+            "ce_dice_fwd_kernel": steps * per_step["ce_dice_fwd"],
+            "ce_dice_finalize_kernel": 0}
 
 
 def mma_registers(text):
@@ -531,6 +554,45 @@ def mma_registers(text):
                        f"{spill or 0} B spilled")
             name = None
     return out
+
+
+# the per-pixel loss kernels whose registers phase 1 prints: (kernel, its
+# template arguments on the neu step: C = 4; D = 4, C = 4)
+LOSS_KERNELS = (("ce_dice_fwd_kernel", "4"), ("uncertainty_fwd_kernel", "4,4"))
+
+
+def family_registers(text, fam, main_args):
+    """One line from nvcc -Xptxas=-v output for the kernel template `fam`:
+    the registers and spill bytes of its instantiation `main_args` (e.g.
+    "4,4"), and the range over every instantiation, with those that
+    spill."""
+    import re
+    rows, name, spill = [], None, 0
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1) if fam in m.group(1) else None
+            spill = 0
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            args = ",".join(re.findall(r"Li(\d+)E", name))
+            rows.append((args, int(m.group(1)), spill))
+            name = None
+    if not rows:
+        return f"{fam}: not in this log"
+    main = [r for r in rows if r[0] == main_args]
+    head = (f"{fam}<{main_args}>: {main[0][1]} registers, {main[0][2]} B "
+            "spilled" if main else f"{fam}<{main_args}>: not found")
+    regs = [r[1] for r in rows]
+    spills = [f"<{a}> {s} B" for a, _, s in rows if s]
+    return (f"{head}; {len(rows)} instantiations, {min(regs)}-{max(regs)} "
+            f"registers, spilling: {spills or 'none'}")
 
 
 def ptxas_summary(text):
@@ -659,6 +721,11 @@ class Smoke:
             log(f"-- nvcc {name}: {ptxas_summary(text)}")
             for line in mma_registers(text):
                 log(f"   tensor cores: {line}")
+            for fam, args in LOSS_KERNELS:
+                if fam.split("_fwd")[0] in name:
+                    line = family_registers(text, fam, args)
+                    self.report.setdefault("registers", {})[fam] = line
+                    log(f"   {line}")
         log(f"built {_build.sources()} in "
             f"{self.report['build_seconds']:.1f} s")
         smi = subprocess.run(
@@ -1205,6 +1272,27 @@ class Smoke:
         labels[0, 0, :5] = NUM_CLASSES + 3
         return nchw.permute(0, 2, 3, 1), labels
 
+    def _odd_logits(self, g, b, h, w, c, layout, scale=2.0):
+        """f32 logits [b, h, w, c] in one of LOSS_ODD_LAYOUTS."""
+        torch = self.torch
+        if layout == "nhwc":
+            return torch.randn((b, h, w, c), generator=g,
+                               device=self.dev) * scale
+        n = b * c * h * w
+        base = torch.randn(n + 1, generator=g, device=self.dev) * scale
+        flat = base[1:] if layout == "offset" else base[:n]
+        return flat.view(b, c, h, w).permute(0, 2, 3, 1)
+
+    def _odd_labels(self, g, b, h, w, c, offset):
+        """int32 labels [b, h, w] in [0, c), six out of range, contiguous
+        and (with `offset`) one element past their storage's start."""
+        torch = self.torch
+        lab = torch.randint(0, c, (b * h * w + 1,), generator=g,
+                            device=self.dev, dtype=torch.int32)
+        lab[1:6] = c + 3
+        lab[7] = -1
+        return (lab[1:] if offset else lab[:-1]).view(b, h, w)
+
     def _ce_q(self, stats):
         """q and gce of the backward for cotangents (0.5, 0.5)."""
         from uaps_tpu_torch.kernels import ce_dice as kce
@@ -1317,17 +1405,54 @@ class Smoke:
                 record("max_pool_2x2_nchw_bwd", f"pool bwd {mod} {c}x{hw}x"
                        f"{hw} {dname} exact", err, ok)
 
+        def ce_fwd(label, lg, labels):
+            """The stats against the plain version, and a second call
+            bit-equal to the first (the fixed-order reduction)."""
+            stats = kce.ce_dice_stats(lg, labels)
+            again = kce.ce_dice_stats(lg, labels)
+            self.sync()
+            ref = kce.ce_dice_stats_plain(lg, labels)
+            self.sync()
+            err = float((stats - ref).abs().max())
+            same = bool(torch.equal(stats, again))
+            ok = (stats.shape == (4, lg.shape[-1]) and same
+                  and bool(torch.isfinite(stats).all())
+                  and torch.allclose(stats, ref, rtol=1e-5, atol=1e-3))
+            record("ce_dice_fwd", f"ce_dice stats {label} f32", err, ok,
+                   f" (nll sum {float(ref[3, 0]):.6e}; a second call "
+                   f"{'bit-equal' if same else 'DIFFERS'})")
+            return stats, ref
+
         lg, labels = self._ce_case(SEED + 170)
-        stats = kce.ce_dice_stats(lg, labels)
-        self.sync()
-        ref = kce.ce_dice_stats_plain(lg, labels)
-        self.sync()
-        err = float((stats - ref).abs().max())
-        ok = (stats.shape == (4, NUM_CLASSES)
-              and bool(torch.isfinite(stats).all())
-              and torch.allclose(stats, ref, rtol=1e-5, atol=1e-3))
-        record("ce_dice_fwd", f"ce_dice stats {list(lg.shape)} f32", err, ok,
-               f" (nll sum {float(ref[3, 0]):.6e})")
+        stats, ref = ce_fwd(list(lg.shape), lg, labels)
+        if self.dev.type == "cuda":
+            # the last block left the ticket at 0, and a CUDA graph replays
+            # the one launch unchanged
+            ticket = int(kce._SCRATCH[self.dev][-1])
+            graph = torch.cuda.CUDAGraph()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                kce.ce_dice_stats(lg, labels)
+            torch.cuda.current_stream().wait_stream(side)
+            with torch.cuda.graph(graph):
+                replayed = kce.ce_dice_stats(lg, labels)
+            graph.replay()
+            graph.replay()
+            self.sync()
+            ok = (ticket == 0 and int(kce._SCRATCH[self.dev][-1]) == 0
+                  and bool(torch.equal(replayed, stats)))
+            record("ce_dice_fwd", "ce_dice stats: the ticket at 0 after the "
+                   "calls, two CUDA-graph replays bit-equal", 0.0, ok,
+                   f" (ticket {ticket})")
+        g = self.gen(SEED + 175)
+        for b, h, wd in LOSS_ODD_SHAPES:
+            for c in LOSS_ODD_CLASSES:
+                for layout in LOSS_ODD_LAYOUTS:
+                    ce_fwd(f"[{b},{h},{wd},{c}] {layout}",
+                           self._odd_logits(g, b, h, wd, c, layout),
+                           self._odd_labels(g, b, h, wd, c,
+                                            layout == "offset"))
         q, gce = self._ce_q(ref)
         d = kce.ce_dice_bwd(lg, labels, q, gce)
         self.sync()
@@ -1875,30 +2000,43 @@ class Smoke:
                   kpt._fdrop_bwd(gy, sd, att, mx), ref)
         self._perturb_distributions(bad)
 
+        def unc_fwd(label, logits, w):
+            var, ps = kun.uncertainty_fwd(logits, w)
+            self.sync()
+            rvar, rps = kun.uncertainty_fwd_plain(logits, w)
+            err = float((var - rvar).abs().max())
+            errs["uncertainty_fwd"] = max(errs["uncertainty_fwd"], err)
+            agree = float((ps == rps).float().mean())
+            x64 = torch.stack([lg.double() for lg in logits])
+            mix = torch.einsum("d,dbhwc->bhwc", w.double(),
+                               torch.softmax(x64, -1))
+            diff = ps != rps
+            gap = float((mix.gather(-1, ps.long()[..., None])
+                         - mix.gather(-1, rps.long()[..., None]))[diff]
+                        .abs().max()) if bool(diff.any()) else 0.0
+            ok = (var.shape == rvar.shape and ps.dtype == torch.int32
+                  and ps.is_contiguous()
+                  and torch.allclose(var, rvar, rtol=1e-5, atol=1e-5)
+                  and agree >= 0.9999 and gap <= 2e-6)
+            log(f"uncertainty fwd {label} f32: var max_abs_err {err:.3e} "
+                f"(rtol = atol = 1e-5); pseudo agree {agree:.7f} (min "
+                f"0.9999), {int(diff.sum())} differ, largest mix gap there "
+                f"{gap:.2e} (max 2e-6) {'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                bad.append(f"uncertainty fwd {label}")
+
+        g = self.gen(SEED + 310)
+        for b, h, wd in LOSS_ODD_SHAPES:
+            for d in UNC_ODD_DECODERS:
+                for c in LOSS_ODD_CLASSES:
+                    for layout in LOSS_ODD_LAYOUTS:
+                        w = torch.empty(d, device=self.dev).exponential_(
+                            generator=g)
+                        unc_fwd(f"{d} x [{b},{h},{wd},{c}] {layout}",
+                                [self._odd_logits(g, b, h, wd, c, layout, 3.0)
+                                 for _ in range(d)], w / w.sum())
         logits, w, gv = self._unc_case(SEED + 300)
-        var, ps = kun.uncertainty_fwd(logits, w)
-        self.sync()
-        rvar, rps = kun.uncertainty_fwd_plain(logits, w)
-        err = float((var - rvar).abs().max())
-        errs["uncertainty_fwd"] = err
-        agree = float((ps == rps).float().mean())
-        x64 = torch.stack([lg.double() for lg in logits])
-        mix = torch.einsum("d,dbhwc->bhwc", w.double(),
-                           torch.softmax(x64, -1))
-        diff = ps != rps
-        gap = float((mix.gather(-1, ps.long()[..., None])
-                     - mix.gather(-1, rps.long()[..., None]))[diff]
-                    .abs().max()) if bool(diff.any()) else 0.0
-        ok = (var.shape == rvar.shape and ps.dtype == torch.int32
-              and ps.is_contiguous()
-              and torch.allclose(var, rvar, rtol=1e-5, atol=1e-5)
-              and agree >= 0.9999 and gap <= 2e-6)
-        log(f"uncertainty fwd {N_DEC} x {list(logits[0].shape)} f32: var "
-            f"max_abs_err {err:.3e} (rtol = atol = 1e-5); pseudo agree "
-            f"{agree:.7f} (min 0.9999), {int(diff.sum())} differ, largest "
-            f"mix gap there {gap:.2e} (max 2e-6) {'ok' if ok else 'MISMATCH'}")
-        if not ok:
-            bad.append("uncertainty fwd")
+        unc_fwd(f"{N_DEC} x {list(logits[0].shape)}", logits, w)
         dx = kun.uncertainty_bwd(logits, gv)
         self.sync()
         rdx = kun.uncertainty_bwd_plain(logits, gv)
@@ -2457,7 +2595,8 @@ class Smoke:
                          "block_conv_dgrad_kernel": 0,
                          "conv3x3_fwd_kernel": 0, "block_conv_fwd_kernel": 0,
                          "conv3x3_nhwc_fwd_kernel": 0,
-                         **dict.fromkeys(FDROP_ROUTE, 0)},
+                         **dict.fromkeys(FDROP_ROUTE, 0),
+                         **dict.fromkeys(CE_DICE_ROUTE, 0)},
                 "f32": {"wgrad_mma_kernel": 0, "dgrad_mma_kernel": 0,
                         "conv_fwd_mma_kernel": 0, "block_fwd_mma_kernel": 0,
                         "nhwc_fwd_mma_kernel": 0, "bnl_bwd_mma_kernel": 0,
@@ -2465,7 +2604,8 @@ class Smoke:
                         "block_conv_dgrad_kernel": 2,
                         "conv3x3_fwd_kernel": 1, "block_conv_fwd_kernel": 1,
                         "conv3x3_nhwc_fwd_kernel": 0,
-                        **dict.fromkeys(FDROP_ROUTE, 0)}}
+                        **dict.fromkeys(FDROP_ROUTE, 0),
+                        **dict.fromkeys(CE_DICE_ROUTE, 0)}}
         for dname, dtype in (("f32", torch.float32),
                              ("bf16", torch.bfloat16)):
             x, w, f, s, gy, ds1, ds2, sd = self._chain_case(

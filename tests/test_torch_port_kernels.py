@@ -252,6 +252,22 @@ def test_ce_dice_matches_pallas():
     assert (kce.fwd_launches, kce.bwd_launches) == before
 
 
+def test_ce_dice_scratch_made_once():
+    """The CE+Dice forward's scratch (its blocks' partials and the ticket
+    that finds the last block) is made zeroed once a device, then handed
+    back as it is: the kernel leaves the ticket at 0, so no call clears
+    it."""
+    dev = torch.device("cpu")
+    kce._SCRATCH.pop(dev, None)
+    try:
+        buf = kce._scratch(dev, 33)
+        assert buf.dtype == torch.int32 and buf.shape == (33,)
+        assert not buf.any()
+        assert kce._scratch(dev, 33) is buf
+    finally:
+        kce._SCRATCH.pop(dev, None)
+
+
 def test_forward_only_and_device_guards():
     """The kernels are differentiable now (the forward-only guard is gone);
     a device with no kernel and malformed shapes raise."""

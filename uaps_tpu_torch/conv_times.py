@@ -51,7 +51,18 @@ bf16 times in ms:
     each summed over its 2 launches a level (`fdrop_fwd_per_step`,
     `fdrop_bwd_per_step`), timed as dropout, through ROOT's own API (since
     the attention pass the backward takes the forward's attention and
-    maxima, before it x and the maxima).
+    maxima, before it x and the maxima);
+  * the CE+Dice forward (`ce_dice_stats`) and backward (`ce_dice_bwd`) on
+    f32 logits [16, 256, 256, 4] (the NHWC view of the head's NCHW
+    output) and int32 labels, one call each (`ce_dice_fwd`,
+    `ce_dice_bwd`) and per UAPS step (8 launches each:
+    `ce_dice_fwd_per_step`, `ce_dice_bwd_per_step`); the uncertainty
+    forward (`uncertainty_fwd`) and backward (`uncertainty_bwd`) on 4 such
+    logits, and the pseudo-label kernel (`fused_pseudo_label`,
+    `pseudo_label`) on the same logits, all timed as dropout; the two
+    forwards also after a read flush that leaves the L2 clean
+    (`ce_dice_fwd_clean`, `uncertainty_fwd_clean`), and the two events
+    with no call between them (`events_only`).
 Each conv time is the median over 5 rounds of CUDA events around 20
 back-to-back calls queued behind a ~2.5 ms spin, so that the host's enqueue
 is not counted (chip_smoke.py `Smoke.time_ms`). Two separate runs may land
@@ -100,6 +111,12 @@ LEVELS = [(16, 256), (32, 128), (64, 64), (128, 32), (256, 16)]
 DROPOUT_PER_LEVEL = 8
 NOISE_PER_LEVEL = 4
 FDROP_PER_LEVEL = 2
+# the loss logits of a neu step: [B, H, W, C] f32; CE+Dice launches a UAPS
+# step each way (4 decoders x the labelled and the pseudo-labelled batch);
+# the decoders the uncertainty and pseudo-label kernels mix
+LOSS_SHAPE = (BATCH, 256, 256, 4)
+CE_DICE_PER_STEP = 8
+N_DEC = 4
 # integer lanes an H100 SM issues a clock (4 partitions of 16 INT32 units;
 # the CUDA programming guide's throughput table for compute capability 9.0)
 INT_LANES_PER_SM = 64
@@ -123,15 +140,24 @@ def time_ms(torch, fn, iters=20, rounds=5, warmup=3):
     return statistics.median(times)
 
 
-def cold_ms(torch, fn, calls=100, warmup=3):
+def cold_ms(torch, fn, calls=100, warmup=3, clean=False):
     """Median device time of one fn() call, each timed alone with CUDA
-    events after a 256 MiB write has flushed the 50 MB L2."""
+    events after a 256 MiB write has flushed the 50 MB L2, then a ~0.5 ms
+    spin that touches no memory, so that the device is still busy while
+    the host queues the call (chip_smoke.py `Smoke.time_ms(cold=True)`).
+    The write leaves the L2 full of dirty lines, which the call then
+    writes back as it evicts them; with `clean`, a 256 MiB read flushes it
+    instead and leaves it clean."""
     for _ in range(warmup):
         fn()
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     times = []
     for _ in range(calls):
-        flush.zero_()   # still running when the events are queued
+        if clean:
+            flush.sum(dtype=torch.int32)
+        else:
+            flush.zero_()
+        torch.cuda._sleep(1_000_000)   # cycles, ~0.5 ms
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -414,6 +440,40 @@ def main(root: str) -> dict:
         out["fdrop_fwd"][label], out["fdrop_bwd"][label] = fwd_ms, bwd_ms
         out["fdrop_fwd_per_step"] += FDROP_PER_LEVEL * fwd_ms
         out["fdrop_bwd_per_step"] += FDROP_PER_LEVEL * bwd_ms
+    from uaps_tpu_torch.kernels import ce_dice as kce
+    from uaps_tpu_torch.kernels import pseudo_label as kpl
+    from uaps_tpu_torch.kernels import uncertainty as kun
+    _build.build(["ce_dice", "uncertainty", "pseudo_label"])
+    b, h, wd, c = LOSS_SHAPE
+    g = torch.Generator(device=dev).manual_seed(1540)
+    lg = (torch.randn((b, c, h, wd), generator=g, device=dev)
+          * 2).permute(0, 2, 3, 1)
+    labels = torch.randint(0, c, (b, h, wd), generator=g, device=dev,
+                           dtype=torch.int32)
+    q, gce = kce.bwd_coefs(kce.ce_dice_stats(lg, labels), 0.5, 0.5,
+                           labels.numel())
+    out["ce_dice_fwd"] = cold_ms(torch, lambda: kce.ce_dice_stats(lg, labels))
+    out["ce_dice_bwd"] = cold_ms(torch,
+                                 lambda: kce.ce_dice_bwd(lg, labels, q, gce))
+    out["ce_dice_fwd_per_step"] = CE_DICE_PER_STEP * out["ce_dice_fwd"]
+    out["ce_dice_bwd_per_step"] = CE_DICE_PER_STEP * out["ce_dice_bwd"]
+    logits = [(torch.randn((b, c, h, wd), generator=g, device=dev)
+               * 3).permute(0, 2, 3, 1) for _ in range(N_DEC)]
+    w = torch.empty(N_DEC, device=dev).exponential_(generator=g)
+    w = w / w.sum()
+    gv = torch.randn((N_DEC, b, h, wd), generator=g, device=dev)
+    out["uncertainty_fwd"] = cold_ms(
+        torch, lambda: kun.uncertainty_fwd(logits, w))
+    out["uncertainty_bwd"] = cold_ms(
+        torch, lambda: kun.uncertainty_bwd(logits, gv))
+    out["pseudo_label"] = cold_ms(
+        torch, lambda: kpl.fused_pseudo_label(logits, w))
+    # what the dirty L2 and the two events cost those times
+    out["ce_dice_fwd_clean"] = cold_ms(
+        torch, lambda: kce.ce_dice_stats(lg, labels), clean=True)
+    out["uncertainty_fwd_clean"] = cold_ms(
+        torch, lambda: kun.uncertainty_fwd(logits, w), clean=True)
+    out["events_only"] = cold_ms(torch, lambda: None)
     return out
 
 

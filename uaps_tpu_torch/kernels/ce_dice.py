@@ -21,8 +21,11 @@ labels are int32 [B, H, W], contiguous (the data pipeline's dtype); the
 plain versions take any integer dtype.
 
 Dispatch: a CPU tensor goes to the plain versions (`ce_dice_stats_plain`,
-`ce_dice_bwd_plain`); a CUDA tensor launches the kernels or raises. Launch
-counts: `fwd_launches`, `bwd_launches`.
+`ce_dice_bwd_plain`); a CUDA tensor launches the kernels or raises. The
+forward is one launch: its blocks' partials and the ticket that finds the
+last block live in one scratch buffer a device (`_scratch`), allocated
+once, so calls on one device must be ordered, as calls on one stream are.
+Launch counts: `fwd_launches`, `bwd_launches`.
 """
 from __future__ import annotations
 
@@ -90,8 +93,22 @@ def _fns():
                     + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                     + [ctypes.c_void_p])
     bwd.restype = ctypes.c_int
-    lib.uaps_ce_dice_max_partials.restype = ctypes.c_int
-    return lib, fwd, bwd, lib.uaps_ce_dice_max_partials()
+    lib.uaps_ce_dice_scratch_words.restype = ctypes.c_int
+    return lib, fwd, bwd, lib.uaps_ce_dice_scratch_words()
+
+
+_SCRATCH = {}   # the forward's scratch buffer, by device
+
+
+def _scratch(device: torch.device, words: int) -> torch.Tensor:
+    """The forward's scratch on `device`: `words` int32 words, zeroed when
+    first made and left zeroed by every call (the kernel's ticket wraps to
+    0), so it is made once a device."""
+    buf = _SCRATCH.get(device)
+    if buf is None:
+        buf = _SCRATCH[device] = torch.zeros(words, dtype=torch.int32,
+                                             device=device)
+    return buf
 
 
 def _check(logits: torch.Tensor, labels: torch.Tensor, what: str) -> None:
@@ -125,13 +142,12 @@ def ce_dice_stats(logits: torch.Tensor, labels: torch.Tensor
         return ce_dice_stats_plain(logits, labels)
     _check(logits, labels, "ce_dice_stats")
     b, h, w, c = logits.shape
-    lib, fwd, _, max_partials = _fns()
-    part = torch.empty(max_partials * 4 * c, dtype=torch.float32,
-                       device=logits.device)
+    lib, fwd, _, words = _fns()
+    scratch = _scratch(logits.device, words)
     stats = torch.empty((4, c), dtype=torch.float32, device=logits.device)
     _build.call(lib, fwd, logits.device, "ce_dice_stats kernel launch",
                 logits.data_ptr(), *logits.stride(), labels.data_ptr(),
-                part.data_ptr(), stats.data_ptr(), b, h, w, c)
+                scratch.data_ptr(), stats.data_ptr(), b, h, w, c)
     fwd_launches += 1
     return stats
 
