@@ -182,7 +182,29 @@ Phases (any failure: exit 1 and no result line):
      conv3x3_small forward and backward at [16, 256, 256, 16] -> 16, bf16,
      and the route by dtype from the profiler's kernel names: 3 NHWC
      forwards and dgrads launch nhwc_fwd_mma_kernel (the tensor cores) in
-     bf16 and conv3x3_nhwc_fwd_kernel (the CUDA cores) in f32.
+     bf16 and conv3x3_nhwc_fwd_kernel (the CUDA cores) in f32;
+ 19. the steps as CUDA graphs (uaps_tpu_torch/dispatch.py GraphedSteps, K
+     = 4 steps a graph): the phase-10 UAPS step and the phase-7 baseline
+     step, each sampling its batches on the card from pools of 64 + 256
+     synthetic images (data/device_pool.py): the first dispatch (4 eager
+     steps on a side stream, then the capture) launches 2 x 4 x
+     UAPS_STEP_LAUNCHES / STEP_LAUNCHES through the wrappers; from one
+     state (weights, Adam, generator, pool position) 4 eager steps and a
+     replay within phase 10's gates (each step's loss terms within 1e-2
+     relative, >= 95% of the Adam deltas within lr/2; the largest
+     parameter difference printed); the replay's Dirichlet weights equal
+     the eager steps', differ from each other and from the next replay's,
+     and an eager step between replays draws what the next replay's first
+     step draws from the same generator state; a profiled replay (after
+     the lead-in) holds 4 x the step's launches of every kernel family
+     (bf16_route and GRAPH_FAMILIES), as do 4 eager steps and 4 eager
+     steps with a float-lr, non-capturable Adam; at lr 0 a replay leaves
+     every parameter equal (the BN buffers move); the CE+Dice ticket at 0;
+     graph, eager and non-capturable eager dispatches in alternating
+     rounds (ms a step), device busy and idle share of each, a replay on
+     the device's clock, peak memory; then Trainer.run with the default
+     RunConfig (K = 4 on the card) and device pools, 2 epochs of 8 UAPS
+     steps, with finite metrics.
 It then prints {"kernels": [...]} (launches from phase 7 for the baseline
 kernels, from phase 10 for the UAPS kernels, from phase 13 for the
 fused-block kernels, from phase 16a for the pseudo-label kernel and from
@@ -389,6 +411,22 @@ ROUTE_CALLS = 3
 # windows a route proof may take (Smoke._profiled)
 ROUTE_LEAD_IN = 64
 LEAD_IN_TRIES = 3
+# phase 19: the steps as CUDA graphs (uaps_tpu_torch/dispatch.py) sampling
+# from device pools of GRAPH_POOLS (labelled, unlabelled) synthetic images,
+# GRAPH_VAL_POOL validation images for the Trainer's run of GRAPH_TRAINER
+# (epochs, iterations an epoch); the graph's kernels that its route proof
+# counts beyond ROUTE_KERNELS, each with its launch counter (one kernel a
+# launch)
+GRAPH_POOLS = (64, 256)
+GRAPH_VAL_POOL = 32
+GRAPH_TRAINER = (2, 8)
+GRAPH_FAMILIES = {"max_pool_2x2_fwd_kernel": "max_pool_2x2_nchw",
+                  "max_pool_2x2_bwd_kernel": "max_pool_2x2_nchw_bwd",
+                  "ce_dice_bwd_kernel": "ce_dice_bwd",
+                  "dropout_kernel": "fused_dropout",
+                  "noise_kernel": "feature_noise",
+                  "uncertainty_fwd_kernel": "uncertainty_fwd",
+                  "uncertainty_bwd_kernel": "uncertainty_bwd"}
 # the least time the card could take: published H100 SXM peaks
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
@@ -482,6 +520,17 @@ def lead_in_kernel(name):
     """Whether a profiler entry is a kernel of Smoke._lead_in: its int16
     adds and its spin (ATen's spin_kernel)."""
     return ("add" in name and "short" in name) or "spin_kernel" in name
+
+
+def device_work(events, cuda):
+    """The profiler's entries of work on the card (kernels, copies, memsets)
+    past the lead-in: not the GPU-side spans of user annotations
+    (record_function ranges such as Optimizer.step), which overlap the
+    kernels they enclose and which torch's own table leaves out of its
+    totals."""
+    return [e for e in events if e.device_type == cuda
+            and not getattr(e, "is_user_annotation", False)
+            and not lead_in_kernel(e.key)]
 
 
 def route_of(entries):
@@ -1212,8 +1261,8 @@ class Smoke:
                 log(f"profiler unavailable: {exc}")
                 return
             # the kernels' own rows (operator rows repeat their kernels' time)
-            busy_ms = sum(e.self_device_time_total for e in events
-                          if e.device_type == cuda) / 3 / 1e3
+            busy_ms = sum(e.self_device_time_total
+                          for e in device_work(events, cuda)) / 3 / 1e3
             fwd = t[f"e2e_{lab}"]["summary"]["forward"]["median"]
             t[f"device_busy_ms_per_forward_{lab}"] = busy_ms
             t[f"device_idle_share_{lab}"] = 1.0 - busy_ms / fwd
@@ -1768,8 +1817,7 @@ class Smoke:
             if per_step is not None:
                 raise
             return
-        device = sorted((e for e in events if e.device_type == cuda
-                         and not lead_in_kernel(e.key)),
+        device = sorted(device_work(events, cuda),
                         key=lambda e: -e.self_device_time_total)
         if per_step is not None:
             got = route_of([(e.key, e.count) for e in device])
@@ -3557,6 +3605,373 @@ class Smoke:
         assert ok
 
 
+    # ------------------------------------------------------------ phase 19
+    def graph_training(self):
+        """The UAPS and baseline steps as CUDA graphs of K steps sampling
+        from device pools (see phase 19 in the module docstring), then the
+        Trainer with its defaults and device pools."""
+        from uaps_tpu_torch.data import SyntheticDefects
+        cfg = self._uaps_config()
+        t0 = time.perf_counter()
+        data = SyntheticDefects(cfg.data, seed=SEED,
+                                labeled_pool=GRAPH_POOLS[0],
+                                unlabeled_pool=GRAPH_POOLS[1],
+                                val_pool=GRAPH_VAL_POOL)
+        log(f"graph data: pools of {GRAPH_POOLS[0]} labelled + "
+            f"{GRAPH_POOLS[1]} unlabelled and {GRAPH_VAL_POOL} val images "
+            f"in {time.perf_counter() - t0:.1f} s")
+        self.report["graph"] = {}
+        bad = []
+        for key, label, c, method, per_step in (
+                ("uaps", "UAPS", cfg, "uaps", UAPS_STEP_LAUNCHES),
+                ("baseline", "baseline", self._train_config(), "baseline",
+                 STEP_LAUNCHES)):
+            if not self._graph_case(key, label, c, method, data, per_step):
+                bad.append(key)
+        self._graph_trainer(data)
+        assert not bad, f"phase 19 failed for {bad}"
+
+    def _graph_case(self, key, label, cfg, method_name, data, per_step):
+        """One method's step as a graph of K steps, against K eager steps
+        from the same state; returns whether every check passed (the
+        numbers go to report["graph"][key])."""
+        from uaps_tpu_torch import dispatch
+        from uaps_tpu_torch.data.device_pool import PoolSampler
+        from uaps_tpu_torch.kernels import ce_dice as kce
+        from uaps_tpu_torch.methods import base, get_method
+        from uaps_tpu_torch.methods import uaps as puaps
+        torch = self.torch
+        k = dispatch.AUTO_STEPS_CUDA
+        lr = cfg.optim.base_lr
+        method = get_method(method_name)
+        state, model = method.init_state(
+            cfg, self.dev, torch.Generator().manual_seed(SEED))
+        step = method.make_train_step(cfg, model)
+        sampler = PoolSampler(data, cfg.data.batch_size, SEED, self.dev)
+        sampler.start_epoch(1)
+        res = self.report["graph"][key] = {}
+        checks = {}
+        # every Dirichlet draw of the step, kept: those made while the
+        # graph was captured are its static outputs
+        draws, draw = [], puaps.dirichlet_weights
+
+        def recorded(generator, n, device):
+            w = draw(generator, n, device)
+            draws.append(w)
+            return w
+
+        def eager_steps():
+            return dispatch.run_steps(step, state, lambda i: sampler.sample(),
+                                      k)
+
+        puaps.dirichlet_weights = recorded
+        try:
+            graphed = dispatch.GraphedSteps(step, k, self.dev, sampler)
+            self.sync()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counters()
+            t0 = time.perf_counter()
+            state, warm = graphed(state)   # K eager steps, then the capture
+            self.sync()
+            res["first_dispatch_s"] = time.perf_counter() - t0
+            res["capture_s"] = graphed.capture_seconds
+            launched = counters()
+            reset_counters()   # the capture ticked them, no replay does
+            want = {n: 2 * k * v for n, v in per_step.items()}
+            checks["warm-up and capture through every wrapper"] = \
+                launched == want
+            captured = draws[k:2 * k]
+            log(f"{label} graph of {k} steps: first dispatch (warm-up, "
+                f"capture) {res['first_dispatch_s']:.2f} s, capture "
+                f"{res['capture_s']:.2f} s; warm-up losses "
+                f"{[round(float(v), 4) for v in warm['loss']]}; launch "
+                f"counts of the warm-up and capture "
+                f"{'ok' if launched == want else 'MISMATCH'}")
+
+            # graph against eager: the same state, generator and batches
+            snap = self._snapshot(model, state, sampler)
+            n0 = len(draws)
+            state, em = eager_steps()
+            eager_draws = [w.clone() for w in draws[n0:]]
+            eager_p = {n: p.detach().clone()
+                       for n, p in model.named_parameters()}
+            self._restore(snap, model, state, sampler)
+            state, gm = graphed(state)
+            self.sync()
+            graph_p = {n: p.detach().clone()
+                       for n, p in model.named_parameters()}
+            terms = ("loss", "sup_loss", "ps_loss", "uncertainty_loss") \
+                if key == "uaps" else ("loss", "ce_loss", "dice_loss")
+            cmp = self._graph_vs_eager(em, gm, snap[0], eager_p, graph_p,
+                                       lr, terms, label)
+            res["graph_vs_eager"] = cmp
+            checks["graph vs eager (phase 10's gates)"] = cmp["ok"]
+            checks["finite metrics"] = all(
+                bool(torch.isfinite(v).all()) for m in (warm, em, gm)
+                for v in m.values())
+
+            if captured:
+                g1 = torch.stack([w.clone() for w in captured])
+                e1 = torch.stack(eager_draws)
+                distinct = all(not torch.equal(g1[i], g1[j])
+                               for i in range(k) for j in range(i))
+                state, _ = graphed(state)
+                g2 = torch.stack([w.clone() for w in captured])
+                # an eager step between replays continues the stream: from
+                # the same generator state it draws what a replay's first
+                # step draws
+                gen = state.generator.get_state()
+                n0 = len(draws)
+                state, _ = step(state, sampler.sample())
+                w_eager = draws[n0].clone()
+                state.generator.set_state(gen)
+                state, _ = graphed(state)
+                self.sync()
+                res["draws"] = {"replay_1": g1.tolist(),
+                                "eager_same_state": e1.tolist(),
+                                "replay_2": g2.tolist(),
+                                "eager_step": w_eager.tolist(),
+                                "replay_from_its_state": captured[0].tolist()}
+                checks["the replay draws the eager steps' weights"] = \
+                    torch.equal(g1, e1)
+                checks["the K weights of a replay differ"] = distinct
+                checks["two replays differ"] = all(
+                    not torch.equal(g1[i], g2[i]) for i in range(k))
+                checks["an eager step continues the stream"] = torch.equal(
+                    w_eager, captured[0])
+                log(f"{label} mixing weights: replay 1 {g1.tolist()}; "
+                    f"replay 2 {g2.tolist()}; eager from replay 1's state "
+                    f"max diff {float((g1 - e1).abs().max()):.3e}")
+        finally:
+            puaps.dirichlet_weights = draw
+
+        # the eager steps with the optimizer of the port before the graph
+        # (a float lr, capturable=False), for scale: what capturable Adam
+        # costs an eager step
+        pre = base.TrainState(state.step, torch.optim.Adam(
+            model.parameters(), lr=lr, betas=(cfg.optim.b1, cfg.optim.b2),
+            eps=cfg.optim.eps), state.generator, state.counter.clone())
+
+        def eager_pre():
+            return dispatch.run_steps(step, pre, lambda i: sampler.sample(),
+                                      k)
+
+        # the route and device busy: one profiled replay, K eager steps and
+        # K eager steps with that optimizer (after the lead-in)
+        paths = {"graph": lambda: graphed(state), "eager": eager_steps,
+                 "eager_adam_not_capturable": eager_pre}
+        eager_pre()   # its Adam moments
+        busy = {}
+        for path, fn in paths.items():
+            ok, got, _, busy[path] = self._graph_route(
+                fn, per_step, k, f"{label} {path} dispatch",
+                f"graph_{key}_{path}")
+            checks[f"route of the {path} dispatch"] = ok
+            res.setdefault("route", {})[path] = got
+
+        # the lr reaches the graph: at lr 0 a replay moves no parameter
+        base.set_lr(state, 0.0)
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        bn = {n: b.clone() for n, b in model.named_buffers()}
+        state, _ = graphed(state)
+        self.sync()
+        frozen = all(torch.equal(p, before[n])
+                     for n, p in model.named_parameters())
+        bn_moved = any(not torch.equal(b, bn[n])
+                       for n, b in model.named_buffers())
+        base.set_lr(state, lr)
+        checks["lr 0 reaches the graph (params equal, BN moved)"] = \
+            frozen and bn_moved
+        tickets = {str(d): int(buf[-1]) for d, buf in kce._SCRATCH.items()}
+        checks["the CE+Dice ticket at 0"] = all(v == 0 for v in
+                                                tickets.values())
+        res["ce_dice_tickets"] = tickets
+
+        # times: graph and eager dispatches in alternating rounds
+        t = self.report["times"]
+        rounds = self._dispatch_rounds(paths, k)
+        t[f"graph_{key}_step_ms"] = rounds
+        # a replay's time on the device's clock (CUDA events), unprofiled
+        res["replay_event_ms"] = self.time_ms(lambda: graphed(state),
+                                              iters=3, rounds=3,
+                                              warmup=1) / k
+        res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        res["peak_reserved_gib"] = (torch.cuda.max_memory_reserved()
+                                    / 2 ** 30)
+        for path, b in busy.items():
+            med = rounds[path]["median"]
+            t[f"graph_{key}_{path}_device_busy_ms"] = b
+            t[f"graph_{key}_{path}_idle_share"] = 1.0 - b / med
+        res["checks"] = checks
+        card = self.report.get("nvidia_smi", "")
+        log(f"{label} step as a graph of {k} ({card}): " + "; ".join(
+                f"{path} {rounds[path]['median']:.3f} ms a step "
+                f"[{rounds[path]['min']:.3f}, {rounds[path]['max']:.3f}], "
+                f"device busy {t[f'graph_{key}_{path}_device_busy_ms']:.3f} "
+                f"ms, idle share {t[f'graph_{key}_{path}_idle_share']:.3f}"
+                for path in paths)
+            + f"; a replay on the device's clock (CUDA events) "
+            f"{res['replay_event_ms']:.3f} ms a step"
+            + f"; peak memory {res['peak_mem_gib']:.3f} GiB allocated, "
+            f"{res['peak_reserved_gib']:.3f} GiB reserved")
+        for name, ok in checks.items():
+            log(f"  {label} graph check: {name}: {'ok' if ok else 'FAILED'}")
+        return all(checks.values())
+
+    def _snapshot(self, model, state, sampler):
+        """Copies of what a step changes: the model's parameters and
+        buffers, Adam's state, the generator, the step and the sampler's
+        position."""
+        opt = {p: {n: v.clone() for n, v in st.items()}
+               for p, st in state.optimizer.state.items()}
+        return ({n: v.detach().clone() for n, v in model.state_dict().items()},
+                opt, state.generator.get_state(), state.step,
+                sampler._pos.clone())
+
+    def _restore(self, snap, model, state, sampler):
+        """Put a _snapshot back in place (into the same tensors, which a
+        captured graph reads)."""
+        sd, opt, gen, step, pos = snap
+        with self.torch.no_grad():
+            for n, v in model.state_dict().items():
+                v.copy_(sd[n])
+            for p, st in state.optimizer.state.items():
+                for n, v in st.items():
+                    v.copy_(opt[p][n])
+            sampler._pos.copy_(pos)
+        state.generator.set_state(gen)
+        state.step = step
+
+    def _graph_vs_eager(self, em, gm, init, eager_p, graph_p, lr, terms,
+                        label):
+        """Phase 10's gates between K eager steps and a replay from the same
+        state: each step's loss terms within 1e-2 relative, and >= 95% of
+        the parameters' deltas after K steps within lr / 2 (the BN-fed conv
+        biases, whose gradient is rounding, left out)."""
+        torch = self.torch
+        rels = {n: float(((gm[n] - em[n]).abs() / em[n].abs()).max())
+                for n in terms}
+        agree = total = 0
+        largest, where = 0.0, None
+        for n, pe in eager_p.items():
+            diff = (graph_p[n].float() - pe.float()).abs()
+            if float(diff.max()) > largest:
+                largest, where = float(diff.max()), n
+            if n.endswith(("conv_conv.0.bias", "conv_conv.4.bias")):
+                continue
+            dk = graph_p[n].float() - init[n].float()
+            dp = pe.float() - init[n].float()
+            agree += int(((dk - dp).abs() <= lr / 2).sum())
+            total += dk.numel()
+        share = agree / total
+        ok = max(rels.values()) <= 1e-2 and share >= 0.95
+        log(f"{label} graph vs eager from one state, {len(em['loss'])} "
+            f"steps: " + "; ".join(f"{n} rel {r:.2e}" for n, r in
+                                   rels.items())
+            + f" (tol 1e-2); param deltas within lr/2: {share:.5f} (min "
+            f"0.95); largest param difference {largest:.3e} ({where}) "
+            f"{'ok' if ok else 'MISMATCH'}")
+        return {"rel": rels, "delta_agree_share": share,
+                "largest_param_diff": largest, "largest_at": where,
+                "eager": {n: em[n].tolist() for n in terms},
+                "graph": {n: gm[n].tolist() for n in terms}, "ok": ok}
+
+    def _graph_route(self, fn, per_step, k, label, key):
+        """Profile fn() (k steps) after the lead-in: whether its kernels
+        are k x per_step of every family (bf16_route's and
+        GRAPH_FAMILIES'), the counts, the wanted counts and the device busy
+        ms a step; the 20 largest device entries a step go to
+        times[key + "_device_top_ms"], the operator table to
+        chip_smoke_profile_<key>.txt."""
+        cuda = self.torch.autograd.DeviceType.CUDA
+        prof = self._profiled(fn)
+        events = prof.key_averages()
+        device = sorted(device_work(events, cuda),
+                        key=lambda e: -e.self_device_time_total)
+        top = [[e.key, e.self_device_time_total / k / 1e3, e.count / k]
+               for e in device[:20]]
+        self.report["times"][f"{key}_device_top_ms"] = top
+        with open(os.path.join(OUT_DIR, f"chip_smoke_profile_{key}.txt"),
+                  "w") as f:
+            f.write(events.table(sort_by="cuda_time_total", row_limit=40))
+        entries = [(e.key, e.count) for e in device]
+        got = route_of(entries)
+        got.update({fam: sum(n for name, n in entries if fam in name)
+                    for fam in GRAPH_FAMILIES})
+        want = bf16_route(per_step, k)
+        want.update({fam: k * per_step[c]
+                     for fam, c in GRAPH_FAMILIES.items()})
+        busy = sum(e.self_device_time_total for e in device) / k / 1e3
+        log(f"route of a {label} ({k} steps, profiler): {json.dumps(got)} "
+            f"{'ok' if got == want else 'MISMATCH'} (want "
+            f"{json.dumps(want)}); device busy {busy:.3f} ms a step; by "
+            f"device time a step:\n" + "\n".join(
+                f"  {ms:9.3f} ms x{n:6.1f}  {name[:100]}"
+                for name, ms, n in top[:12]))
+        return got == want, got, want, busy
+
+    def _dispatch_rounds(self, paths, k, rounds=5, reps=3):
+        """Dispatches of k steps of each of `paths` ({label: fn}) in
+        alternating rounds, as step_rounds: per round and path the median
+        of `reps` dispatches (host clock, a sync after each), divided by k;
+        the median, min and max over the rounds, ms a step."""
+        labs = list(paths)
+        got = {lab: [] for lab in labs}
+        for r in range(rounds):
+            j = r % len(labs)
+            for lab in labs[j:] + labs[:j]:
+                ms = []
+                for _ in range(reps):
+                    t0 = time.perf_counter()
+                    paths[lab]()
+                    self.sync()
+                    ms.append((time.perf_counter() - t0) * 1e3 / k)
+                got[lab].append(statistics.median(ms))
+        return {lab: {"rounds": v, "median": statistics.median(v),
+                      "min": min(v), "max": max(v)} for lab, v in got.items()}
+
+    def _graph_trainer(self, data):
+        """Trainer.run with the default RunConfig (steps_per_dispatch 0: K
+        = 4 on the card) and device_pools on `data`: GRAPH_TRAINER epochs
+        and iterations, every dispatch a replay but the first, finite
+        metrics in its JSONL."""
+        import shutil
+        import numpy as np
+        from uaps_tpu_torch.train import Trainer
+        cfg = self._uaps_config()
+        out = os.path.join(ROOT, "runs", "chip_smoke_trainer")
+        shutil.rmtree(out, ignore_errors=True)
+        epochs, iters = GRAPH_TRAINER
+        assert cfg.run.steps_per_dispatch == 0 and not cfg.run.profile_steps
+        cfg.run = dataclasses.replace(cfg.run, epochs=epochs,
+                                      iter_per_epoch=iters, seed=SEED,
+                                      device_pools=True, out_dir=out)
+        t0 = time.perf_counter()
+        tr = Trainer(cfg, device=self.dev, data=data)
+        assert (tr.k_dispatch == 4 and tr.graphed is not None
+                and tr.pools is not None and tr._val_pool is not None), \
+            (tr.k_dispatch, tr.graphed, tr.pools, tr._val_pool)
+        best = tr.run()
+        self.sync()
+        dt = time.perf_counter() - t0
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        shutil.rmtree(out, ignore_errors=True)
+        self.report["graph"]["trainer"] = {"records": recs, "best": best,
+                                           "seconds": dt}
+        log(f"Trainer.run, {epochs} epochs of {iters} UAPS steps, K = "
+            f"{tr.k_dispatch}, device pools, in {dt:.1f} s: " + "; ".join(
+                f"epoch {r['step']} loss {r['loss']:.4f} val_mdice "
+                f"{r['val_mdice']:.4f} {r['imgs_per_sec']:.1f} img/s"
+                for r in recs))
+        assert len(recs) == epochs, recs
+        assert all(np.isfinite(v) for r in recs for n, v in r.items()
+                   if n in ("loss", "sup_loss", "ps_loss", "uncertainty_loss",
+                            "train_mdice", "val_loss", "val_mdice", "lr")), \
+            recs
+        assert tr.state.step == int(tr.state.counter) == epochs * iters, (
+            tr.state.step, int(tr.state.counter))
+
 # the kernels line: (launch counter, CUDA source, the TPU kernel replaced)
 KERNELS = [
     ("conv3x3_nchw", "conv3x3_nchw", "uaps_tpu/pallas/conv3x3_nchw.py:289"),
@@ -3672,6 +4087,8 @@ def main() -> int:
                 s.other_conv_kernels)
         s.phase("18 the fullh + flat-BN UAPS step, the bn_stats blocks, "
                 "the NHWC conv", s.fullh_flat_training)
+        s.phase("19 the UAPS and baseline steps as CUDA graphs, the "
+                "Trainer", s.graph_training)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(s.report, f, indent=1, default=str)

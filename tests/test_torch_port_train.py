@@ -317,19 +317,231 @@ def test_unported_run_knobs_raise(knob, value):
     """Each RunConfig knob that the JAX Trainer reads and the port does not
     yet raises NotImplementedError at a non-default value, naming the
     ROADMAP Queue A item that ports it, before the Trainer builds anything;
-    the defaults, and the JAX-only prng_impl and use_shard_map, pass."""
+    the defaults, the JAX-only prng_impl and use_shard_map, and the knobs
+    ported since (steps_per_dispatch, device_pools, profile_steps) pass."""
     from uaps_tpu_torch import train
     from uaps_tpu_torch.utils.config import Config, RunConfig
-    items = {"steps_per_dispatch": "The step as a CUDA graph",
-             "device_pools": "The step as a CUDA graph"}
     if knob is None:
         train.check_run_config(RunConfig(prng_impl="rbg",
                                          use_shard_map=True))
         return
     run = dataclasses.replace(RunConfig(), **{knob: value})
-    item = items.get(knob, "The rest of the Trainer and CLIs")
+    if knob in ("steps_per_dispatch", "device_pools", "profile_steps"):
+        assert knob not in train.UNPORTED_RUN_KNOBS
+        train.check_run_config(run)
+        return
     with pytest.raises(NotImplementedError,
-                       match=rf"RunConfig\.{knob}=.*Queue A, '{item}'"):
+                       match=rf"RunConfig\.{knob}=.*Queue A, 'The rest of "
+                             r"the Trainer and CLIs'"):
         train.check_run_config(run)
     with pytest.raises(NotImplementedError, match=knob):
         train.Trainer(Config(run=run), device="cpu", data=object())
+
+
+def test_steps_per_dispatch_rule():
+    """K: 0 means 4 on a CUDA device and 1 on the CPU (JAX: 4 on a single
+    TPU); profile_steps forces 1; a set K holds on either device."""
+    from uaps_tpu_torch.dispatch import steps_per_dispatch
+    from uaps_tpu_torch.utils.config import RunConfig
+    assert steps_per_dispatch(RunConfig(), "cuda") == 4
+    assert steps_per_dispatch(RunConfig(), "cpu") == 1
+    assert steps_per_dispatch(RunConfig(steps_per_dispatch=3), "cpu") == 3
+    assert steps_per_dispatch(RunConfig(steps_per_dispatch=3,
+                                        profile_steps=(0, 1)), "cuda") == 1
+
+
+def test_tensor_lr_adam_matches_float_lr():
+    """make_optimizer's Adam (a 0-d lr tensor, filled in place by set_lr)
+    against torch's Adam with a float lr on the same gradients: the same
+    parameters bit for bit after 3 steps, and after 2 more once both lrs are
+    set to 1e-4, which takes effect on the next step."""
+    from uaps_tpu_torch.utils.config import OptimConfig
+    rng = np.random.default_rng(3)
+    init = [rng.standard_normal(s).astype(np.float32)
+            for s in ((7, 5), (13,), (3, 3, 4, 2))]
+    grads = [[rng.standard_normal(a.shape).astype(np.float32)
+              for a in init] for _ in range(5)]
+    cfg = OptimConfig()
+    pa = [torch.tensor(a, requires_grad=True) for a in init]
+    pb = [torch.tensor(a, requires_grad=True) for a in init]
+    state = base.TrainState(0, base.make_optimizer(pa, cfg, "cpu"), None,
+                            torch.zeros((), dtype=torch.int64))
+    ref = torch.optim.Adam(pb, lr=cfg.base_lr, betas=(cfg.b1, cfg.b2),
+                           eps=cfg.eps)
+    lr = state.optimizer.param_groups[0]["lr"]
+    assert torch.is_tensor(lr) and lr.shape == ()
+    assert base.get_lr(state) == cfg.base_lr
+    before = None
+    for i, gs in enumerate(grads):
+        if i == 3:
+            base.set_lr(state, 1e-4)
+            for group in ref.param_groups:
+                group["lr"] = 1e-4
+            assert state.optimizer.param_groups[0]["lr"] is lr
+            assert base.get_lr(state) == 1e-4
+            before = [p.detach().clone() for p in pa]
+        for p, q, g in zip(pa, pb, gs):
+            p.grad, q.grad = torch.from_numpy(g), torch.from_numpy(g).clone()
+        state.optimizer.step()
+        ref.step()
+        for p, q in zip(pa, pb):
+            assert torch.equal(p, q), i
+    # Adam's update is about lr a step: the two steps at 1e-4 moved the
+    # parameters by at most ~2e-4
+    moved = max(float((p - b).abs().max()) for p, b in zip(pa, before))
+    assert 1e-5 < moved < 2.2e-4
+
+
+def _pool_cfg(tmp_path, method="uaps", **run_kw):
+    """The synthetic preset at 32 x 32, batch 2, one auxiliary decoder, 2
+    epochs of 3 steps, with device pools (tests/test_device_pools.py's
+    run, narrower)."""
+    from uaps_tpu_torch.utils.config import preset
+    cfg = preset("synthetic", method=method)
+    cfg.data = dataclasses.replace(cfg.data, image_size=(32, 32),
+                                   batch_size=2)
+    cfg.model = dataclasses.replace(cfg.model, n_aux=1)
+    cfg.run = dataclasses.replace(cfg.run, epochs=2, iter_per_epoch=3,
+                                  seed=11, device_pools=True,
+                                  out_dir=str(tmp_path), **run_kw)
+    return cfg
+
+
+def _pool_data(cfg, **kw):
+    from uaps_tpu_torch.data import SyntheticDefects
+    kw = {"labeled_pool": 8, "unlabeled_pool": 16, "val_pool": 4, **kw}
+    return SyntheticDefects(cfg.data, seed=cfg.run.seed, **kw)
+
+
+def test_device_pool_trainer_runs_and_learns(tmp_path):
+    """Trainer with device pools on the CPU: batches sampled from the
+    resident pools, the val sweep over the resident val pool, finite
+    metrics and val mDice; two steps a dispatch (the K-step function, then
+    one remainder step an epoch) train exactly as one a dispatch."""
+    from uaps_tpu_torch import train
+    runs = []
+    for k in (2, 1):
+        cfg = _pool_cfg(tmp_path / str(k), steps_per_dispatch=k)
+        t = train.Trainer(cfg, device="cpu", data=_pool_data(cfg))
+        assert t.pools is not None and t._val_pool is not None
+        assert t.k_dispatch == k and t.graphed is None
+        best = t.run()
+        assert np.isfinite(best) and best >= 0
+        assert t.state.step == int(t.state.counter) == 6
+        runs.append(({n: v.clone() for n, v in t.model.state_dict().items()},
+                     (tmp_path / str(k) / "metrics.jsonl").read_text()))
+    (sd2, log2), (sd1, log1) = runs
+    for n, v in sd1.items():
+        assert torch.equal(sd2[n], v), n
+    import json
+    for a, b in zip(log2.splitlines(), log1.splitlines()):
+        a, b = json.loads(a), json.loads(b)
+        for key in ("loss", "sup_loss", "ps_loss", "val_mdice", "val_loss"):
+            assert a[key] == b[key], key
+
+
+def test_pool_val_sweep_matches_host_path(tmp_path):
+    """The sweep over the resident val pool (sequential slices, the plain
+    mean over batches) equals Trainer.validate's host path."""
+    from uaps_tpu_torch import train
+    cfg = _pool_cfg(tmp_path, "baseline")
+    t = train.Trainer(cfg, device="cpu", data=_pool_data(cfg, val_pool=6))
+    dev = t.validate()
+    pool, t._val_pool = t._val_pool, None
+    host = t.validate()
+    assert pool is not None and dev.keys() == host.keys()
+    for k in host:
+        assert dev[k] == host[k], k
+
+
+def test_pool_batches_deterministic_per_epoch():
+    """The sampled indices are a function of (seed, epoch, step) alone: a
+    sampler started at an epoch repeats that epoch's batches whatever ran
+    before it, another epoch or seed draws others; every index lies in its
+    pool, and over 4000 draws each of 8 indices comes up 500 +- 100
+    times."""
+    from uaps_tpu_torch.data.device_pool import PoolSampler
+    from uaps_tpu_torch.utils.config import DataConfig
+    from uaps_tpu_torch.data import SyntheticDefects
+    cfg = DataConfig(image_size=(8, 8), batch_size=4)
+    data = SyntheticDefects(cfg, seed=0, labeled_pool=8, unlabeled_pool=5)
+
+    def epoch(sampler, e, steps=3):
+        sampler.start_epoch(e)
+        return torch.stack([sampler.indices() for _ in range(steps)])
+
+    a, b = PoolSampler(data, 4, 11, "cpu"), PoolSampler(data, 4, 11, "cpu")
+    first = epoch(a, 2)
+    epoch(b, 1)
+    epoch(b, 5)
+    assert torch.equal(epoch(b, 2), first)
+    assert not torch.equal(epoch(a, 3), first)
+    assert not torch.equal(epoch(PoolSampler(data, 4, 12, "cpu"), 2), first)
+    many = epoch(a, 7, steps=1000)
+    assert int(many[:, :4].min()) >= 0 and int(many[:, :4].max()) == 7
+    assert int(many[:, 4:].min()) >= 0 and int(many[:, 4:].max()) == 4
+    counts = torch.bincount(many[:, :4].flatten(), minlength=8)
+    assert int(counts.min()) >= 400 and int(counts.max()) <= 600, counts
+    batch = a.sample()
+    assert batch["image"].shape == (4, 8, 8, 3)
+    assert batch["label"].dtype == torch.int32
+    assert set(batch) == {"image", "label", "uimage"}
+
+
+def test_cli_steps_per_dispatch_from_host_stream(tmp_path, caplog):
+    """`python -m uaps_tpu_torch.train --steps_per_dispatch 2
+    --device_pools` on the CPU with the CLI's synthetic data (no fixed
+    pools: a warning, and the host stream): 3 baseline steps as one
+    2-step dispatch of stacked host batches and one remainder step, with
+    the same metrics as 3 single steps."""
+    import json
+    from uaps_tpu_torch import train
+    argv = ["--preset", "synthetic", "--method", "baseline", "--device",
+            "cpu", "--epochs", "1", "--iter_per_epoch", "3", "--batch_size",
+            "2", "--dropout_backend", "xla"]
+    recs = []
+    for k in ("2", "1"):
+        out = tmp_path / k
+        with caplog.at_level("WARNING", logger="uaps"):
+            train.main(argv + ["--steps_per_dispatch", k, "--device_pools",
+                               "--out_dir", str(out)])
+        (line,) = (out / "metrics.jsonl").read_text().splitlines()
+        recs.append(json.loads(line))
+    assert "device_pools requested but disabled" in caplog.text
+    for key in ("loss", "ce_loss", "dice_loss", "train_mdice", "val_loss"):
+        assert recs[0][key] == recs[1][key], key
+
+
+def test_device_pools_disabled_without_pools(tmp_path, caplog):
+    """device_pools on data without fixed pools: a warning naming the
+    reason, and the Trainer keeps the host stream (as JAX does); a val
+    pool that is no batch multiple: a warning, and the host val path,
+    which sweeps the remainder batch too."""
+    from uaps_tpu_torch import train
+    from uaps_tpu_torch.data import SyntheticDefects
+    cfg = _pool_cfg(tmp_path, "baseline")
+    with caplog.at_level("WARNING", logger="uaps"):
+        t = train.Trainer(cfg, device="cpu",
+                          data=SyntheticDefects(cfg.data, seed=1))
+        odd = train.Trainer(cfg, device="cpu",
+                            data=_pool_data(cfg, val_pool=3))
+    assert t.pools is None and t._val_pool is None
+    assert "device_pools requested but disabled" in caplog.text
+    assert "no fixed _pool/_upool" in caplog.text
+    assert odd.pools is not None and odd._val_pool is None
+    assert "val pool size 3 not a multiple of batch_size 2" in caplog.text
+
+
+def test_profile_steps_writes_trace(tmp_path):
+    """profile_steps=(0, 1) forces one step a dispatch and writes a
+    torch.profiler trace of epoch 1's first two steps to out_dir/profile."""
+    import json
+    from uaps_tpu_torch import train
+    cfg = _pool_cfg(tmp_path, "baseline", steps_per_dispatch=4,
+                    profile_steps=(0, 1))
+    cfg.run = dataclasses.replace(cfg.run, epochs=1, device_pools=False)
+    t = train.Trainer(cfg, device="cpu", data=_pool_data(cfg))
+    assert t.k_dispatch == 1
+    t.run()
+    trace = json.loads((tmp_path / "profile" / "trace.json").read_text())
+    assert trace["traceEvents"]

@@ -51,6 +51,7 @@ from _torch_port_util import (Counts, check_params, jax_sd, neu_config,
 from uaps_tpu.methods import base as jbase
 from uaps_tpu.methods import uaps as juaps
 from uaps_tpu.models.unet import MultiDecoderUNet as JaxMultiDecoderUNet
+from uaps_tpu_torch import dispatch
 from uaps_tpu_torch.kernels import ce_dice as kce
 from uaps_tpu_torch.kernels import conv3x3_nchw as kconv
 from uaps_tpu_torch.kernels import perturb as kpt
@@ -629,6 +630,22 @@ def uaps_runs():
                               for k, v in model.state_dict().items()}))
             out["port"][start] = runs
             assert state.step == start + STEPS
+            # the K-step function of a dispatch (uaps_tpu_torch/dispatch.py:
+            # the function a CUDA graph captures), on the first K batches
+            for k in (2, STEPS):
+                model = _port_model(n_aux, v0, torch.float64)
+                state = base.init_model_state(pcfg, model)
+                state.step = start
+                stacked = {name: torch.from_numpy(np.stack(
+                    [b[name] for b in batches[:k]])) for name in batches[0]}
+                state, m = dispatch.run_steps(
+                    get_method("uaps").make_train_step(pcfg, model), state,
+                    lambda i: {name: v[i] for name, v in stacked.items()}, k)
+                out.setdefault("port_k", {})[start, k] = (
+                    {name: v.numpy() for name, v in m.items()},
+                    {name: v.detach().clone().numpy()
+                     for name, v in model.state_dict().items()},
+                    state.step, int(state.counter))
     return out
 
 
@@ -666,6 +683,66 @@ def test_uaps_steps_match_jax(uaps_runs, start, n_steps):
             psd[k], sj, rtol=1e-4,
             atol=1e-5 if n_steps == 1 or k.endswith("var") else 2 * lr,
             err_msg=k)
+
+
+@pytest.mark.parametrize("start", ["step 0", "past the ramp"])
+@pytest.mark.parametrize("k", [2, STEPS])
+def test_k_step_function_matches_jax(uaps_runs, start, k):
+    """dispatch.run_steps, K UAPS steps in one call with [K] metrics (what
+    a CUDA graph of a dispatch captures): every step's metrics against
+    JAX's sequential steps, then the params and BN stats after K steps, at
+    test_uaps_steps_match_jax's tolerances for more than one step; equal
+    bit for bit to the port's sequential steps; the host step count and
+    the device counter advanced by K."""
+    cfg = uaps_runs["cfg"]
+    s0 = (0 if start == "step 0" else
+          int(cfg.method.ramp_iters * cfg.method.consistency_rampup))
+    lr = cfg.optim.base_lr
+    metrics, psd, step, counter = uaps_runs["port_k"][s0, k]
+    jruns, pruns = uaps_runs["jax"][s0], uaps_runs["port"][s0]
+    assert step == counter == s0 + k
+    assert set(metrics) == set(jruns[0][0])
+    for name, v in metrics.items():
+        assert v.shape == (k,), name
+        for i in range(k):
+            np.testing.assert_allclose(v[i], jruns[i][0][name], rtol=1e-4,
+                                       err_msg=f"step {i + 1} {name}")
+            assert v[i] == np.float32(pruns[i][0][name]), (name, i)
+    _, jsd = jruns[k - 1]
+    jparams = {n: v for n, v in jsd.items() if "running" not in n}
+    check_params(jparams, psd, uaps_runs["jax_grads"][s0][0], k, lr,
+                 2e-5 if s0 == 0 else 5e-5)
+    for n, sj in running(jsd).items():
+        np.testing.assert_allclose(
+            psd[n], sj, rtol=1e-4,
+            atol=1e-5 if n.endswith("var") else 2 * lr, err_msg=n)
+    for n, v in pruns[k - 1][1].items():
+        np.testing.assert_array_equal(psd[n], v, err_msg=n)
+
+
+def test_device_ramp_weight_matches_jax():
+    """base.ramp_weight on the state's device counter (a 0-d int64 tensor)
+    against JAX's ramp_weight on its int32 step, either side of ramp_iters
+    boundaries and past the ramp: a 0-d f32 tensor on the counter's
+    device; TrainState.tick advances the counter and the host count."""
+    from uaps_tpu.methods.base import ramp_weight as jramp
+    state = base.TrainState(0, None, None,
+                            torch.zeros((), dtype=torch.int64))
+    for step in (0, 1, 79, 80, 81, 159, 160, 8000, 15999, 16000, 20000):
+        state.step = step
+        got = base.ramp_weight(0.1, state.counter, 80, 200.0)
+        assert got.shape == () and got.dtype == torch.float32
+        assert got.device == state.counter.device
+        np.testing.assert_allclose(
+            float(got), float(jramp(0.1, jnp.asarray(step, jnp.int32), 80,
+                                    200.0)), rtol=1e-6, err_msg=str(step))
+    state.step = 79
+    state.tick()
+    assert state.step == int(state.counter) == 80
+    state.advance(3)
+    assert (state.step, int(state.counter)) == (83, 80)
+    assert float(base.ramp_weight(0.1, state.counter, 80, 0)) == \
+        pytest.approx(0.1)
 
 
 @pytest.fixture(scope="module")

@@ -29,8 +29,9 @@ Layout:
   models/     unet (U-Net family), factory (net_factory)
   methods/    base (model, optimizer, losses, eval step), baseline
   ops/        losses, metrics
-  data/       synthetic (SyntheticDefects)
+  data/       synthetic (SyntheticDefects), device_pool (resident pools)
   utils/      config, cli, weights, logging_utils
   serve.py    InferenceEngine     server.py   AsyncBatcher + HTTP
   train.py    Trainer + training CLI
+  dispatch.py K steps a dispatch: one CUDA graph on the GPU
 """

@@ -60,6 +60,8 @@ from uaps_tpu_torch.kernels.conv3x3_nchw import (_acc_dtype,
                                                  kernel_path, wgrad_strips)
 from uaps_tpu_torch.kernels.perturb import _M32, _mul32
 
+# launch counts: a CUDA graph's capture ticks them, its replays do not
+# (kernels/__init__.py)
 plain_launches = 0       # chain_conv_plain forwards (reset by the caller)
 bnl_launches = 0         # chain_conv_bnl forwards
 plain_bwd_launches = 0   # chain_conv_plain backwards

@@ -32,6 +32,8 @@ from uaps_tpu_torch.kernels.conv3x3_nchw import (conv3x3_nchw_plain,
                                                  conv3x3_nchw_wgrad_plain,
                                                  kernel_path, wgrad_strips)
 
+# launch counts: a CUDA graph's capture ticks them, its replays do not
+# (kernels/__init__.py)
 nhwc_launches = 0        # forward kernel launches, dgrad included
 nhwc_wgrad_launches = 0  # weight-gradient kernel launches
 

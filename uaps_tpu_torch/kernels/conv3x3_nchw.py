@@ -56,6 +56,8 @@ import torch.nn.functional as F
 
 from uaps_tpu_torch.kernels import _build
 
+# launch counts: a CUDA graph's capture ticks them, its replays do not
+# (kernels/__init__.py)
 launches = 0         # forward kernel launches (reset by the caller)
 dgrad_launches = 0   # forward kernel launches made as dgrad
 wgrad_launches = 0   # weight-gradient kernel launches

@@ -26,6 +26,8 @@ import torch
 from uaps_tpu_torch.kernels import block_conv as bc
 from uaps_tpu_torch.kernels.conv3x3_nchw import conv3x3_nchw_plain
 
+# launch counts: a CUDA graph's capture ticks them, its replays do not
+# (kernels/__init__.py)
 fwd_launches = 0   # conv3x3_bnl forwards (reset by the caller)
 bwd_launches = 0   # conv3x3_bnl backwards
 

@@ -54,6 +54,8 @@ import torch
 
 from uaps_tpu_torch.kernels import _build
 
+# launch counts: a CUDA graph's capture ticks them, its replays do not
+# (kernels/__init__.py)
 dropout_launches = 0     # dropout kernel launches (reset by the caller)
 noise_launches = 0       # feature-noise kernel launches
 fdrop_launches = 0       # feature-dropout forwards (attention + apply pass)

@@ -23,6 +23,8 @@ import torch.nn.functional as F
 
 from uaps_tpu_torch.kernels import _build
 
+# launch counts: a CUDA graph's capture ticks them, its replays do not
+# (kernels/__init__.py)
 launches = 0      # forward kernel launches (reset by the caller)
 bwd_launches = 0  # backward kernel launches
 

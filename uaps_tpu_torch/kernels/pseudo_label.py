@@ -27,6 +27,8 @@ import torch
 from uaps_tpu_torch.kernels import _build
 
 MAX_CLASSES = 8
+# launch counts: a CUDA graph's capture ticks them, its replays do not
+# (kernels/__init__.py)
 launches = 0  # kernel launches (reset by the caller)
 
 

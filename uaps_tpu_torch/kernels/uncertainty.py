@@ -35,6 +35,8 @@ from uaps_tpu_torch.kernels import _build
 
 TINY = 1e-30   # log clamp of the mean prediction, as in JAX
 MAX_CLASSES = 8
+# launch counts: a CUDA graph's capture ticks them, its replays do not
+# (kernels/__init__.py)
 fwd_launches = 0  # forward kernel launches (reset by the caller)
 bwd_launches = 0  # backward kernel launches
 

@@ -12,7 +12,6 @@ step updates in place; `TrainState` carries the rest.
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -84,23 +83,63 @@ def build_model(cfg, device, generator: Optional[torch.Generator] = None
     return model.to(dev).eval()
 
 
-@dataclasses.dataclass
 class TrainState:
     """What evolves in training besides the model's parameters and BN
     buffers: the step count, the optimizer (with its moments and learning
     rate) and the generator of every random draw: dropout and perturbation
-    seeds, the Dirichlet mix (JAX's state.key)."""
-    step: int
-    optimizer: torch.optim.Optimizer
-    generator: torch.Generator
+    seeds, the Dirichlet mix (JAX's state.key).
+
+    The step count lives twice. `counter` is a 0-d int64 tensor on the
+    model's device: the step reads it (the ramp weights) and advances it in
+    place, so a step holds no host value and a CUDA graph of it stays right
+    on every replay. `step` is its host copy, which `tick` advances beside
+    the counter and `advance` alone (a replay of K captured steps advances
+    the host copy by K, a capture by nothing); setting `step` writes both.
+    """
+
+    def __init__(self, step: int, optimizer: torch.optim.Optimizer,
+                 generator: torch.Generator, counter: torch.Tensor):
+        self.optimizer = optimizer
+        self.generator = generator
+        self.counter = counter
+        self.step = step
+
+    @property
+    def step(self) -> int:
+        return self._step
+
+    @step.setter
+    def step(self, value: int) -> None:
+        self._step = int(value)
+        self.counter.fill_(self._step)
+
+    def tick(self) -> None:
+        """One step done: the counter on the device, and its host copy."""
+        self.counter.add_(1)
+        self._step += 1
+
+    def advance(self, n: int) -> None:
+        """Move the host copy by n steps (the device counter moves itself)."""
+        self._step += n
 
 
-def make_optimizer(params, optim_cfg) -> torch.optim.Optimizer:
-    """Adam with the config's lr, betas and eps; the lr stays settable
-    (JAX: optax.inject_hyperparams(optax.adam))."""
-    return torch.optim.Adam(params, lr=optim_cfg.base_lr,
+def make_optimizer(params, optim_cfg, device) -> torch.optim.Optimizer:
+    """Adam with the config's lr, betas and eps (JAX:
+    optax.inject_hyperparams(optax.adam)). The lr is a 0-d tensor on
+    `device` that `set_lr` fills in place, so a change reaches a captured
+    step. On CUDA the update is capturable (its step counts stay on the
+    device, its bias corrections are f32 there, and so is the lr). On the
+    CPU, where torch refuses that, it is the same update with
+    capturable=False, whose step size torch takes in double from an f64
+    lr: the float-lr update, bit for bit."""
+    dev = torch.device(device)
+    lr = torch.tensor(optim_cfg.base_lr, device=dev,
+                      dtype=torch.float32 if dev.type == "cuda"
+                      else torch.float64)
+    return torch.optim.Adam(params, lr=lr,
                             betas=(optim_cfg.b1, optim_cfg.b2),
-                            eps=optim_cfg.eps)
+                            eps=optim_cfg.eps,
+                            capturable=dev.type == "cuda")
 
 
 def get_lr(state: TrainState) -> float:
@@ -108,8 +147,9 @@ def get_lr(state: TrainState) -> float:
 
 
 def set_lr(state: TrainState, lr: float) -> TrainState:
+    """Fill the lr tensor in place (every group shares it)."""
     for group in state.optimizer.param_groups:
-        group["lr"] = lr
+        group["lr"].fill_(lr)
     return state
 
 
@@ -141,13 +181,17 @@ class PlateauScheduler:
 
 
 def init_model_state(cfg, model: nn.Module) -> TrainState:
-    """Step 0, Adam over the model's parameters, and a dropout generator on
-    the model's device seeded with cfg.run.seed."""
-    gen = torch.Generator(device=next(model.parameters()).device)
+    """Step 0 (the counter on the model's device), Adam over the model's
+    parameters, and a dropout generator on the model's device seeded with
+    cfg.run.seed."""
+    dev = next(model.parameters()).device
+    gen = torch.Generator(device=dev)
     gen.manual_seed(cfg.run.seed)
     return TrainState(step=0,
-                      optimizer=make_optimizer(model.parameters(), cfg.optim),
-                      generator=gen)
+                      optimizer=make_optimizer(model.parameters(), cfg.optim,
+                                               dev),
+                      generator=gen,
+                      counter=torch.zeros((), dtype=torch.int64, device=dev))
 
 
 def apply_train(model: nn.Module, x: torch.Tensor,
@@ -171,11 +215,14 @@ def supervised_ce_dice(logits: torch.Tensor, labels: torch.Tensor,
             softmax_dice_loss(logits, labels))
 
 
-def ramp_weight(cmax: float, step: int, ramp_iters: int,
+def ramp_weight(cmax: float, step, ramp_iters: int,
                 rampup_length: float) -> torch.Tensor:
-    """cmax * sigmoid_rampup(step // ramp_iters, rampup), a 0-d f32
-    tensor on the CPU."""
-    return cmax * sigmoid_rampup(step // ramp_iters, rampup_length)
+    """cmax * sigmoid_rampup(step // ramp_iters, rampup) with integer floor
+    division, as JAX computes it: a 0-d f32 tensor on the device of `step`
+    (the state's counter; a host int gives a CPU tensor)."""
+    epoch = torch.div(torch.as_tensor(step), ramp_iters,
+                      rounding_mode="floor")
+    return cmax * sigmoid_rampup(epoch, rampup_length)
 
 
 def make_eval_step(cfg, model: nn.Module) -> Callable:

@@ -25,7 +25,8 @@ def init_state(cfg, device="cuda",
 def make_train_step(cfg, model: nn.Module):
     """(state, batch) -> (state, metrics); batch holds device tensors
     "image" [B, H, W, C] f32 and "label" [B, H, W] int32. The metrics stay
-    on the device."""
+    on the device, and the step makes no host sync (a CUDA graph can
+    capture it)."""
     n_classes = cfg.data.num_classes
     backend = cfg.model.conv_backend
 
@@ -39,7 +40,7 @@ def make_train_step(cfg, model: nn.Module):
         state.optimizer.step()
         with torch.no_grad():
             m = segmentation_metrics(logits, batch["label"], n_classes)
-        state.step += 1
+        state.tick()
         return state, {"loss": loss.detach(), "ce_loss": ce.detach(),
                        "dice_loss": dice.detach(), "train_miou": m["miou"],
                        "train_mdice": m["mdice"]}

@@ -51,11 +51,21 @@ def init_state(cfg, device="cuda",
     return base.init_model_state(cfg, model), model
 
 
+def dirichlet_weights(generator: torch.Generator, n: int,
+                      device) -> torch.Tensor:
+    """One draw of Dirichlet(1, ..., 1) over n decoders from `generator`:
+    n Exp(1) draws, normalised."""
+    e = torch.empty(n, device=device).exponential_(generator=generator)
+    return e / e.sum()
+
+
 def make_train_step(cfg, model: nn.Module):
     """(state, batch) -> (state, metrics); batch holds device tensors
     "image" and "uimage" [B, H, W, C] f32, "label" [B, H, W] int32 and
-    optionally "mix_w" [1 + n_aux] f32. The metrics stay on the device
-    (the ramp weights on the CPU)."""
+    optionally "mix_w" [1 + n_aux] f32. The metrics stay on the device.
+    The step reads no host value and makes no host sync (the ramp weights
+    come from the state's device counter), so K of them can be captured as
+    one CUDA graph (uaps_tpu_torch/dispatch.py)."""
     mcfg = cfg.method
     n_classes = cfg.data.num_classes
     n_dec = 1 + cfg.model.n_aux
@@ -78,9 +88,7 @@ def make_train_step(cfg, model: nn.Module):
         if "mix_w" in batch:
             return batch["mix_w"]
         if mcfg.dynamic_mixing:
-            e = torch.empty(n_dec, device=device).exponential_(
-                generator=state.generator)
-            return e / e.sum()
+            return dirichlet_weights(state.generator, n_dec, device)
         return torch.full((n_dec,), 1.0 / n_dec, device=device)
 
     def train_step(state: base.TrainState, batch
@@ -117,9 +125,9 @@ def make_train_step(cfg, model: nn.Module):
             ps_terms.append(ps)
         ps_loss = sum(ps_terms) / n_dec
 
-        w1 = base.ramp_weight(mcfg.consistency1, state.step,
+        w1 = base.ramp_weight(mcfg.consistency1, state.counter,
                               mcfg.ramp_iters, mcfg.consistency_rampup)
-        w2 = base.ramp_weight(mcfg.consistency2, state.step,
+        w2 = base.ramp_weight(mcfg.consistency2, state.counter,
                               mcfg.ramp_iters, mcfg.consistency_rampup)
         loss = sup + w1 * ps_loss
         loss = loss + (l_uncert if mcfg.unramped_uncertainty
@@ -134,7 +142,7 @@ def make_train_step(cfg, model: nn.Module):
         state.optimizer.step()
         with torch.no_grad():
             m = segmentation_metrics(outs[0], labels, n_classes)
-        state.step += 1
+        state.tick()
         return state, {
             "loss": loss.detach(), "sup_loss": sup.detach(),
             "ce_loss": (sum(ces) / n_dec).detach(),

@@ -2,21 +2,35 @@
 
     python -m uaps_tpu_torch.train --preset neu --method uaps \
         --dtype bfloat16 --dataset synthetic \
-        [--epochs 2 --iter_per_epoch 20] [--device cuda]
+        [--epochs 2 --iter_per_epoch 20] [--device cuda] \
+        [--steps_per_dispatch K] [--device_pools]
 
 The loop is the JAX one on one device: `iter_per_epoch` train steps, the
 epoch's metric means (the step metrics stay on the device until then), a
 validation sweep of the main decoder, the plateau scheduler on val mDice, a
 keep-best `best_model.pth` (the reference's training dict) and one line of
 metrics JSONL per epoch under `--out_dir`. The step runs on `cuda` unless
-`--device cpu` is given. Not ported yet: `--resume` and device-resident
-pools (ROADMAP.md Queue A, "The rest of the Trainer and CLIs"), more than
-one device ("Multi-GPU"), and the `RunConfig` knobs of
-`UNPORTED_RUN_KNOBS`, which raise when set (`check_run_config`).
+`--device cpu` is given.
+
+K steps go in one dispatch (`RunConfig.steps_per_dispatch`; 0, the default,
+means 4 on CUDA and 1 on the CPU; `profile_steps` forces 1): on CUDA one
+CUDA graph of K steps, captured on the first full dispatch and replayed
+(uaps_tpu_torch/dispatch.py), on the CPU the same K-step function run
+eagerly; the remainder of an epoch (`iter_per_epoch % K`) runs single
+steps. `RunConfig.device_pools` samples every batch on the device from the
+data's fixed pools (data/device_pool.py) and sweeps a fixed validation
+pool there; data without fixed pools is trained from the host stream, with
+a warning, as in JAX. `profile_steps=(start, stop)` writes a torch.profiler
+trace of epoch 1's steps start..stop to `out_dir/profile`.
+
+Not ported yet: `--resume` (ROADMAP.md Queue A, "The rest of the Trainer
+and CLIs"), more than one device ("Multi-GPU"), and the `RunConfig` knobs
+of `UNPORTED_RUN_KNOBS`, which raise when set (`check_run_config`).
 """
 from __future__ import annotations
 
 import argparse
+import logging
 import os
 import queue
 import threading
@@ -26,7 +40,9 @@ from typing import Dict, Iterator
 import numpy as np
 import torch
 
+from uaps_tpu_torch import dispatch
 from uaps_tpu_torch.data import DefectDataset, SyntheticDefects
+from uaps_tpu_torch.data import device_pool
 from uaps_tpu_torch.methods import base, get_method
 from uaps_tpu_torch.utils.cli import parse_args
 from uaps_tpu_torch.utils.config import RunConfig
@@ -37,11 +53,8 @@ from uaps_tpu_torch.utils.weights import save_pth
 # the ROADMAP.md Queue A item that ports each (prng_impl and use_shard_map
 # are JAX's alone and stay accepted)
 UNPORTED_RUN_KNOBS = {
-    "steps_per_dispatch": "The step as a CUDA graph",
-    "device_pools": "The step as a CUDA graph",
     "save_every": "The rest of the Trainer and CLIs",
     "keep_checkpoints": "The rest of the Trainer and CLIs",
-    "profile_steps": "The rest of the Trainer and CLIs",
     "debug_nans": "The rest of the Trainer and CLIs",
 }
 
@@ -79,16 +92,12 @@ def _prefetch(it: Iterator, size: int = 4) -> Iterator:
         yield q.get()
 
 
-_BATCH_DTYPES = {"image": np.float32, "uimage": np.float32,
-                 "label": np.int32, "mix_w": np.float32}
-
-
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str,
                                                             torch.Tensor]:
     """The step's arrays of a host batch on `device`: image and uimage f32,
     label int32, and mix_w f32 where the batch has it."""
     return {k: torch.from_numpy(np.ascontiguousarray(batch[k], dt)).to(
-        device) for k, dt in _BATCH_DTYPES.items() if k in batch}
+        device) for k, dt in dispatch.BATCH_DTYPES.items() if k in batch}
 
 
 class Trainer:
@@ -107,9 +116,31 @@ class Trainer:
         self.scheduler = base.PlateauScheduler(cfg.optim)
         self.best_dice = -1.0
         self.epochs_since_best = 0
+        self.k_dispatch = dispatch.steps_per_dispatch(cfg.run, self.device)
+        # device-resident pools, where the data has fixed ones (JAX
+        # train.py:140-176)
+        self.pools = None
+        self._val_pool = None
+        if cfg.run.device_pools and not device_pool.has_pools(self.data):
+            logging.getLogger("uaps").warning(
+                "device_pools requested but disabled: the dataset has no "
+                "fixed _pool/_upool arrays; training from the host stream")
+        elif cfg.run.device_pools:
+            b = cfg.data.batch_size
+            self.pools = device_pool.PoolSampler(self.data, b, cfg.run.seed,
+                                                 self.device)
+            self._val_pool = device_pool.put_val_pool(self.data, b,
+                                                      self.device)
+        self.graphed = None
+        if self.k_dispatch > 1 and self.device.type == "cuda":
+            self.graphed = dispatch.GraphedSteps(
+                self.train_step, self.k_dispatch, self.device, self.pools)
 
     def validate(self) -> Dict[str, float]:
         """Mean over the validation batches of the eval step's metrics."""
+        if self._val_pool is not None:
+            return device_pool.pool_eval(self.eval_step, *self._val_pool,
+                                         self.cfg.data.batch_size)
         sums: Dict[str, float] = {}
         n = 0
         for batch in self.data.val_iter():
@@ -119,28 +150,85 @@ class Trainer:
             n += 1
         return {k: v / max(n, 1) for k, v in sums.items()}
 
+    def _dispatch(self, stream):
+        """K steps in one dispatch: the CUDA graph, or on the CPU the K-step
+        function; metrics [K] on the device."""
+        k = self.k_dispatch
+        host = None if self.pools else [next(stream) for _ in range(k)]
+        if self.graphed is not None:
+            return self.graphed(self.state, host)
+        if self.pools:
+            def next_batch(i):
+                return self.pools.sample()
+        else:
+            stacked = {name: torch.from_numpy(a).to(self.device) for name, a
+                       in dispatch.stack_batches(host).items()}
+
+            def next_batch(i):
+                return {name: v[i] for name, v in stacked.items()}
+        return dispatch.run_steps(self.train_step, self.state, next_batch, k)
+
+    def _profiler(self):
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+        prof.start()
+        return prof
+
+    def _stop_profiler(self, prof) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        out = os.path.join(self.cfg.run.out_dir, "profile")
+        os.makedirs(out, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(out, "trace.json"))
+        self.logger.info(f"profile of steps {self.cfg.run.profile_steps} "
+                         f"written to {out}")
+
     def run(self) -> float:
         cfg = self.cfg
-        stream = _prefetch(self.data.train_iter())
+        n_iter = cfg.run.iter_per_epoch
+        stream = None if self.pools else _prefetch(self.data.train_iter())
         self.logger.info(
             f"method={cfg.method.name} model={cfg.model.name} "
             f"device={self.device} batch={cfg.data.batch_size} "
-            f"image={cfg.data.image_size}")
+            f"image={cfg.data.image_size} "
+            f"steps_per_dispatch={self.k_dispatch} "
+            f"device_pools={self.pools is not None}")
+        prof = None
         for epoch in range(1, cfg.run.epochs + 1):
             t0 = time.time()
             epoch_metrics = []
-            for _ in range(cfg.run.iter_per_epoch):
-                batch = to_device(next(stream), self.device)
+            if self.pools:
+                self.pools.start_epoch(epoch)
+            it = 0
+            while it < n_iter:
+                if self.k_dispatch > 1 and n_iter - it >= self.k_dispatch:
+                    self.state, metrics = self._dispatch(stream)
+                    epoch_metrics.append(metrics)     # [K] arrays
+                    it += self.k_dispatch
+                    continue
+                batch = (self.pools.sample() if self.pools
+                         else to_device(next(stream), self.device))
+                if (cfg.run.profile_steps and epoch == 1
+                        and it == cfg.run.profile_steps[0]):
+                    prof = self._profiler()
                 self.state, metrics = self.train_step(self.state, batch)
                 epoch_metrics.append(metrics)
+                if prof is not None and (it == cfg.run.profile_steps[1]
+                                         or it == n_iter - 1):
+                    self._stop_profiler(prof)
+                    prof = None
+                it += 1
             # one device -> host copy per epoch
-            stacked = {k: torch.stack([m[k] for m in epoch_metrics]).cpu()
+            stacked = {k: torch.cat([m[k].reshape(-1)
+                                     for m in epoch_metrics]).cpu()
                        for k in epoch_metrics[0]}
             means = {k: float(np.nanmean(v.double().numpy()))
                      for k, v in stacked.items()}
             dt = time.time() - t0
-            means["imgs_per_sec"] = (cfg.run.iter_per_epoch
-                                     * cfg.data.batch_size / dt)
+            means["imgs_per_sec"] = n_iter * cfg.data.batch_size / dt
             means["lr"] = base.get_lr(self.state)
             if cfg.run.halt_on_nan and not np.isfinite(means["loss"]):
                 raise FloatingPointError(

@@ -48,6 +48,12 @@ def parse_args(argv=None):
     p.add_argument("--early_stop_patience", type=int, default=None)
     p.add_argument("--dropout_backend", default=None,
                    choices=["auto", "xla", "pallas"])
+    p.add_argument("--steps_per_dispatch", type=int, default=None,
+                   help="K > 1 runs K steps per dispatch (one CUDA graph "
+                        "on the GPU); 0: 4 on the GPU, 1 on the CPU")
+    p.add_argument("--device_pools", action="store_true",
+                   help="sample batches on the device from the data's "
+                        "fixed pools (data/device_pool.py)")
     args, _ = p.parse_known_args(argv)
 
     if args.preset in ("synthetic", "neu"):
@@ -82,6 +88,8 @@ def parse_args(argv=None):
         run=rep(cfg.run, epochs=args.epochs,
                 iter_per_epoch=args.iter_per_epoch, seed=args.seed,
                 out_dir=args.out_dir,
-                early_stop_patience=args.early_stop_patience),
+                early_stop_patience=args.early_stop_patience,
+                steps_per_dispatch=args.steps_per_dispatch,
+                device_pools=args.device_pools or None),
     )
     return cfg, args
