@@ -204,7 +204,28 @@ Phases (any failure: exit 1 and no result line):
      rounds (ms a step), device busy and idle share of each, a replay on
      the device's clock, peak memory; then Trainer.run with the default
      RunConfig (K = 4 on the card) and device pools, 2 epochs of 8 UAPS
-     steps, with finite metrics.
+     steps, with finite metrics;
+ 20. the cct, mt, uamt, dct and ucc steps as `python -m
+     uaps_tpu_torch.train --preset neu --method M --dtype bfloat16
+     --dataset synthetic` builds them (16 + 16 images at 256 x 256 from
+     phase 19's pools, default backends, seeded weights; uamt's teacher
+     takes T = 8 noised copies as one [128, 256, 256, 3] forward), each:
+     (a) one step on the kernel route and one on the plain route
+     (conv_backend="xla") from the same weights, teacher, batch, hooks
+     (the teacher's noise, dct's k = 1, ucc's mixed streams) and generator
+     seed, past the ramp (w1 = 0.1; uamt's at UAMT_PAIR_CONSISTENCY, so
+     that its entropy mask keeps more than a few pixels) and mt's gate,
+     within phase 10's gates on METHOD_TERMS; (b) the kernel step's
+     launches, printed: the kernels launched must be METHOD_KERNELS[M],
+     each at least once; (c) 4
+     steps as one dispatch.GraphedSteps graph against 4 eager steps from
+     one state (weights, teacher, Adam, the generators, pool position):
+     metrics, params, BN stats and the teacher bit-equal; a profiled
+     replay holds 4 x (b)'s launches of every kernel family (bf16_route,
+     GRAPH_FAMILIES); graph and eager dispatches in alternating rounds (ms
+     a step), a replay on CUDA events, device busy and idle share, peak
+     memory; (d) Trainer.run with its defaults and device pools, 1 epoch
+     of 8 steps, finite metrics and state.step == counter.
 It then prints {"kernels": [...]} (launches from phase 7 for the baseline
 kernels, from phase 10 for the UAPS kernels, from phase 13 for the
 fused-block kernels, from phase 16a for the pseudo-label kernel and from
@@ -427,6 +448,34 @@ GRAPH_FAMILIES = {"max_pool_2x2_fwd_kernel": "max_pool_2x2_nchw",
                   "noise_kernel": "feature_noise",
                   "uncertainty_fwd_kernel": "uncertainty_fwd",
                   "uncertainty_bwd_kernel": "uncertainty_bwd"}
+# phase 20: the other methods' steps, each with the kernels its model reaches
+# (the plain U-Net's; cct's 4-decoder net adds the perturbation kernels,
+# ucc's feature-noise head adds feature noise), the loss terms its kernel
+# route is held to the plain route on, and the Trainer's run (epochs,
+# iterations an epoch)
+METHOD_STEPS = ("cct", "mt", "uamt", "dct", "ucc")
+UNET_KERNELS = ("conv3x3_nchw", "conv3x3_nchw_dgrad", "conv3x3_nchw_wgrad",
+                "max_pool_2x2_nchw", "max_pool_2x2_nchw_bwd", "ce_dice_fwd",
+                "ce_dice_bwd", "fused_dropout")
+METHOD_KERNELS = {"cct": UNET_KERNELS + ("feature_noise", "feature_dropout",
+                                         "feature_dropout_bwd"),
+                  "mt": UNET_KERNELS, "uamt": UNET_KERNELS,
+                  "dct": UNET_KERNELS,
+                  "ucc": UNET_KERNELS + ("feature_noise",)}
+CONSISTENCY_TERMS = ("loss", "ce_loss", "dice_loss", "consistency_loss")
+METHOD_TERMS = {"cct": CONSISTENCY_TERMS, "mt": CONSISTENCY_TERMS,
+                "uamt": CONSISTENCY_TERMS + ("mean_uncertainty",),
+                "dct": CONSISTENCY_TERMS,
+                "ucc": ("loss", "sup_loss", "ps_loss", "ce_loss",
+                        "dice_loss")}
+METHOD_TRAINER = (1, 8)
+# uamt's pair at consistency1 = 0.4 (w = 0.4 past the ramp): at the preset's
+# 0.1 the entropy threshold ln 2 = 0.69 lies far below a random-weight
+# teacher's entropy (mean_uncertainty 1.34 of at most ln 4 = 1.39 nats),
+# so its mask keeps a few pixels, and the consistency over them moved by
+# 1.5% between the routes on the H100 where some straddled the threshold;
+# (0.75 + 2.5 * 0.4) ln 2 = 1.21 keeps a few percent (mask_share, printed)
+UAMT_PAIR_CONSISTENCY = 0.4
 # the least time the card could take: published H100 SXM peaks
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
@@ -3702,8 +3751,8 @@ class Smoke:
                        for n, p in model.named_parameters()}
             terms = ("loss", "sup_loss", "ps_loss", "uncertainty_loss") \
                 if key == "uaps" else ("loss", "ce_loss", "dice_loss")
-            cmp = self._graph_vs_eager(em, gm, snap[0], eager_p, graph_p,
-                                       lr, terms, label)
+            cmp = self._graph_vs_eager(em, gm, snap[0][0], eager_p,
+                                       graph_p, lr, terms, label)
             res["graph_vs_eager"] = cmp
             checks["graph vs eager (phase 10's gates)"] = cmp["ok"]
             checks["finite metrics"] = all(
@@ -3820,26 +3869,37 @@ class Smoke:
 
     def _snapshot(self, model, state, sampler):
         """Copies of what a step changes: the model's parameters and
-        buffers, Adam's state, the generator, the step and the sampler's
-        position."""
+        buffers (and the teacher's, where the state has one), Adam's state,
+        the generators (the state's, and the sampler's where it draws
+        strong views), the step and the sampler's position."""
         opt = {p: {n: v.clone() for n, v in st.items()}
                for p, st in state.optimizer.state.items()}
-        return ({n: v.detach().clone() for n, v in model.state_dict().items()},
+        mods = [model] + ([state.ema_model] if state.ema_model is not None
+                          else [])
+        return ([{n: v.detach().clone() for n, v in m.state_dict().items()}
+                 for m in mods],
                 opt, state.generator.get_state(), state.step,
-                sampler._pos.clone())
+                sampler._pos.clone(),
+                sampler.generator.get_state() if sampler.generator is not None
+                else None)
 
     def _restore(self, snap, model, state, sampler):
         """Put a _snapshot back in place (into the same tensors, which a
         captured graph reads)."""
-        sd, opt, gen, step, pos = snap
+        sds, opt, gen, step, pos, sgen = snap
+        mods = [model] + ([state.ema_model] if state.ema_model is not None
+                          else [])
         with self.torch.no_grad():
-            for n, v in model.state_dict().items():
-                v.copy_(sd[n])
+            for m, sd in zip(mods, sds):
+                for n, v in m.state_dict().items():
+                    v.copy_(sd[n])
             for p, st in state.optimizer.state.items():
                 for n, v in st.items():
                     v.copy_(opt[p][n])
             sampler._pos.copy_(pos)
         state.generator.set_state(gen)
+        if sgen is not None:
+            sampler.generator.set_state(sgen)
         state.step = step
 
     def _graph_vs_eager(self, em, gm, init, eager_p, graph_p, lr, terms,
@@ -3930,18 +3990,21 @@ class Smoke:
         return {lab: {"rounds": v, "median": statistics.median(v),
                       "min": min(v), "max": max(v)} for lab, v in got.items()}
 
-    def _graph_trainer(self, data):
+    def _graph_trainer(self, data, cfg=None, sizes=GRAPH_TRAINER,
+                       report=None):
         """Trainer.run with the default RunConfig (steps_per_dispatch 0: K
-        = 4 on the card) and device_pools on `data`: GRAPH_TRAINER epochs
-        and iterations, every dispatch a replay but the first, finite
-        metrics in its JSONL."""
+        = 4 on the card) and device_pools on `data`: `sizes` (epochs,
+        iterations an epoch) of the UAPS step or of `cfg`'s, every dispatch
+        a replay but the first, finite metrics in its JSONL (stored in
+        `report`, by default report["graph"]["trainer"])."""
         import shutil
         import numpy as np
         from uaps_tpu_torch.train import Trainer
-        cfg = self._uaps_config()
+        cfg = cfg if cfg is not None else self._uaps_config()
+        report = report if report is not None else self.report["graph"]
         out = os.path.join(ROOT, "runs", "chip_smoke_trainer")
         shutil.rmtree(out, ignore_errors=True)
-        epochs, iters = GRAPH_TRAINER
+        epochs, iters = sizes
         assert cfg.run.steps_per_dispatch == 0 and not cfg.run.profile_steps
         cfg.run = dataclasses.replace(cfg.run, epochs=epochs,
                                       iter_per_epoch=iters, seed=SEED,
@@ -3957,9 +4020,9 @@ class Smoke:
         with open(os.path.join(out, "metrics.jsonl")) as f:
             recs = [json.loads(line) for line in f]
         shutil.rmtree(out, ignore_errors=True)
-        self.report["graph"]["trainer"] = {"records": recs, "best": best,
-                                           "seconds": dt}
-        log(f"Trainer.run, {epochs} epochs of {iters} UAPS steps, K = "
+        report["trainer"] = {"records": recs, "best": best, "seconds": dt}
+        log(f"Trainer.run, {epochs} epochs of {iters} {cfg.method.name} "
+            f"steps, K = "
             f"{tr.k_dispatch}, device pools, in {dt:.1f} s: " + "; ".join(
                 f"epoch {r['step']} loss {r['loss']:.4f} val_mdice "
                 f"{r['val_mdice']:.4f} {r['imgs_per_sec']:.1f} img/s"
@@ -3967,10 +4030,265 @@ class Smoke:
         assert len(recs) == epochs, recs
         assert all(np.isfinite(v) for r in recs for n, v in r.items()
                    if n in ("loss", "sup_loss", "ps_loss", "uncertainty_loss",
+                            "consistency_loss", "mean_uncertainty",
                             "train_mdice", "val_loss", "val_mdice", "lr")), \
             recs
         assert tr.state.step == int(tr.state.counter) == epochs * iters, (
             tr.state.step, int(tr.state.counter))
+
+    # ------------------------------------------------------------ phase 20
+    def _method_config(self, name, **model_kw):
+        """Method `name` as `python -m uaps_tpu_torch.train --preset neu
+        --method NAME --dtype bfloat16 --dataset synthetic` builds it, with
+        `model_kw` on top (and BATCH, HW where a rehearsal shrinks them)."""
+        from uaps_tpu_torch.utils.cli import parse_args
+        cfg, _ = parse_args(["--preset", "neu", "--method", name, "--dtype",
+                             "bfloat16", "--dataset", "synthetic"])
+        cfg.model = dataclasses.replace(cfg.model, **model_kw)
+        if (cfg.data.batch_size, cfg.data.image_size) != (BATCH, (HW, HW)):
+            cfg.data = dataclasses.replace(cfg.data, batch_size=BATCH,
+                                           image_size=(HW, HW))
+        return cfg
+
+    def method_training(self):
+        """The cct, mt, uamt, dct and ucc steps at full width (see phase 20
+        in the module docstring)."""
+        import gc
+        from uaps_tpu_torch.data import SyntheticDefects
+        torch = self.torch
+        cfg = self._method_config("mt")
+        t0 = time.perf_counter()
+        data = SyntheticDefects(cfg.data, seed=SEED,
+                                labeled_pool=GRAPH_POOLS[0],
+                                unlabeled_pool=GRAPH_POOLS[1],
+                                val_pool=GRAPH_VAL_POOL)
+        log(f"method data: pools of {GRAPH_POOLS[0]} labelled + "
+            f"{GRAPH_POOLS[1]} unlabelled and {GRAPH_VAL_POOL} val images "
+            f"in {time.perf_counter() - t0:.1f} s")
+        self.report["methods"] = {}
+        bad = []
+        for name in METHOD_STEPS:
+            t0 = time.perf_counter()
+            if not self._method_case(name, data):
+                bad.append(name)
+            gc.collect()
+            torch.cuda.empty_cache()
+            dt = time.perf_counter() - t0
+            self.report["methods"][name]["seconds"] = dt
+            log(f"{name}: {dt:.1f} s")
+        assert not bad, f"phase 20 failed for {bad}"
+
+    def _method_hooks(self, name, cfg, batch):
+        """JAX's batch hooks for `name`, drawn from a seeded generator, so
+        that the kernel and the plain route see the same draws: the
+        teacher's noise (mt, uamt), the rotation (dct, k = 1) and the four
+        mixed streams (ucc, every sample gated in at p = 0.5)."""
+        from uaps_tpu_torch.ops.cutmix import (generate_crossmix_data,
+                                               generate_mix_data)
+        torch = self.torch
+        g = self.gen(SEED + 20)
+        u = batch["uimage"]
+        hooks = {}
+
+        def noise(shape):
+            return torch.clamp(0.1 * torch.randn(shape, generator=g,
+                                                 device=self.dev), -0.2, 0.2)
+
+        if name in ("mt", "uamt"):
+            hooks["tnoise"] = noise(u.shape)
+        if name == "uamt":
+            t = cfg.method.uamt_num_samples
+            hooks["tnoise_T"] = noise((t * u.shape[0], *u.shape[1:]))
+        if name == "dct":
+            hooks["rot_k"] = torch.tensor(1, device=self.dev)
+        if name == "ucc":
+            img, lab = generate_mix_data(g, batch["image"], batch["label"],
+                                         p=0.5)
+            wk, st = generate_crossmix_data(g, img, u,
+                                            batch["uimage_strong"], p=0.5)
+            hooks.update(mix_img_l=img, mix_lab_l=lab, mix_wk=wk, mix_st=st)
+        return hooks
+
+    def _method_pair(self, name, batch):
+        """(a) and (b): one step of `name` on the kernel route and one on
+        the plain route (conv_backend="xla") from the same weights, teacher,
+        batch, hooks and generator seed, past the ramp (and past mt's
+        gate), held to phase 10's gates; returns the kernel step's
+        launches."""
+        from uaps_tpu_torch.methods import get_method
+        torch = self.torch
+        cfgs = [self._method_config(name),
+                self._method_config(name, conv_backend="xla")]
+        if name == "uamt":
+            for c in cfgs:
+                c.method = dataclasses.replace(
+                    c.method, consistency1=UAMT_PAIR_CONSISTENCY)
+        cfg = cfgs[0]
+        method = get_method(name)
+        mcfg = cfg.method
+        ramp = mcfg.ramp_iters if name == "uamt" else 150
+        past = int(ramp * mcfg.consistency_rampup)
+        assert past >= mcfg.consistency_start_iter, past
+        batch = {**batch, **self._method_hooks(name, cfg, batch)}
+        out, init_sd = [], None
+        for c in cfgs:
+            state, model = method.init_state(
+                c, self.dev, torch.Generator().manual_seed(SEED))
+            if init_sd is None:
+                init_sd = {k: v.detach().clone()
+                           for k, v in model.state_dict().items()}
+            model.load_state_dict(init_sd)
+            if state.ema_model is not None:
+                state.ema_model.load_state_dict(init_sd)
+            state.step = past
+            self.sync()
+            before = counters()
+            _, m = method.make_train_step(c, model)(state, batch)
+            self.sync()
+            launched = {k: v - before[k] for k, v in counters().items()}
+            out.append((model, {k: float(v) for k, v in m.items()},
+                        launched))
+        (km, kmet, launched), (pm, pmet, plain_launched) = out
+        assert not any(plain_launched.values()), \
+            f"the plain path launched kernels: {plain_launched}"
+        assert abs(kmet["consistency_w1"] - mcfg.consistency1) < 1e-7, kmet
+        res = self.report["methods"][name]
+        if name == "uamt":
+            # the share of pixels the entropy mask keeps: the T-pass again
+            # on the kernel route's teacher, its own draws
+            from uaps_tpu_torch.methods.uamt import uncertainty_samples
+            t = mcfg.uamt_num_samples
+            rep = batch["uimage"].repeat(t, 1, 1, 1) + batch["tnoise_T"]
+            state = method.init_state(cfg, self.dev)[0]
+            with torch.no_grad():
+                ent = uncertainty_samples(state, rep, t)
+            thr = (0.75 + 2.5 * kmet["consistency_w1"]) * 0.6931471805599453
+            res["mask_share"] = float((ent < thr).float().mean())
+            log(f"uamt: the entropy mask keeps {res['mask_share']:.4f} of "
+                f"the pixels (threshold {thr:.4f}; T-pass batch "
+                f"{tuple(rep.shape)})")
+        res["kernel_vs_plain"] = self._compare_steps(
+            km, pm, kmet, pmet, init_sd, cfg.optim.base_lr,
+            terms=METHOD_TERMS[name], label=f"{name} kernel vs plain")
+        res["launches_a_step"] = launched
+        reached = {k for k, v in launched.items() if v}
+        log(f"{name} launches a step: " + json.dumps(
+            {k: v for k, v in launched.items() if v}))
+        assert reached == set(METHOD_KERNELS[name]), (
+            f"{name}: kernels launched {sorted(reached)}, its model reaches "
+            f"{sorted(METHOD_KERNELS[name])}")
+        return launched
+
+    def _method_case(self, name, data):
+        """Phase 20 for one method: (a) and (b) (_method_pair), (c) a graph
+        of K steps against K eager steps from one state, bit for bit, and
+        its times, (d) the Trainer; returns whether every check of (c)
+        passed (the rest raise)."""
+        from uaps_tpu_torch import dispatch
+        from uaps_tpu_torch.data.device_pool import PoolSampler
+        from uaps_tpu_torch.methods import get_method
+        torch = self.torch
+        res = self.report["methods"][name] = {}
+        cfg = self._method_config(name)
+        sampler = PoolSampler(data, BATCH, SEED, self.dev,
+                              strong=name == "ucc")
+        sampler.start_epoch(1)
+        per_step = self._method_pair(name, sampler.sample())
+
+        # (c) the graph against eager steps from one state
+        k = dispatch.AUTO_STEPS_CUDA
+        method = get_method(name)
+        state, model = method.init_state(
+            cfg, self.dev, torch.Generator().manual_seed(SEED))
+        step = method.make_train_step(cfg, model)
+        graphed = dispatch.GraphedSteps(step, k, self.dev, sampler)
+        self.sync()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, warm = graphed(state)   # K eager steps, then the capture
+        self.sync()
+        res["first_dispatch_s"] = time.perf_counter() - t0
+        res["capture_s"] = graphed.capture_seconds
+
+        def modules():
+            return [model] + ([state.ema_model] if state.ema_model
+                              is not None else [])
+
+        def copies():
+            return [{n: v.detach().clone() for n, v in m.state_dict().items()}
+                    for m in modules()]
+
+        def eager_steps():
+            return dispatch.run_steps(step, state, lambda i: sampler.sample(),
+                                      k)
+
+        snap = self._snapshot(model, state, sampler)
+        state, em = eager_steps()
+        eager = copies()
+        self._restore(snap, model, state, sampler)
+        state, gm = graphed(state)
+        self.sync()
+        graph = copies()
+        checks = {}
+        checks["metrics bit-equal"] = all(torch.equal(gm[n], em[n])
+                                          for n in em)
+        checks["params and BN stats bit-equal"] = all(
+            torch.equal(graph[0][n], v) for n, v in eager[0].items())
+        if len(eager) > 1:
+            checks["the teacher bit-equal"] = all(
+                torch.equal(graph[1][n], v) for n, v in eager[1].items())
+        checks["finite metrics"] = all(
+            bool(torch.isfinite(v).all()) for m in (warm, em, gm)
+            for v in m.values())
+        largest = max(float((graph[j][n].float() - v.float()).abs().max())
+                      for j in range(len(eager)) for n, v in eager[j].items())
+        res["graph_vs_eager"] = {
+            "largest_diff": largest,
+            "eager": {n: em[n].tolist() for n in METHOD_TERMS[name]},
+            "graph": {n: gm[n].tolist() for n in METHOD_TERMS[name]}}
+        log(f"{name} graph of {k} steps: first dispatch (warm-up, capture) "
+            f"{res['first_dispatch_s']:.2f} s, capture "
+            f"{res['capture_s']:.2f} s; against {k} eager steps from one "
+            f"state: losses {[round(float(v), 5) for v in gm['loss']]} and "
+            f"{[round(float(v), 5) for v in em['loss']]}, largest "
+            f"difference {largest:.3e}")
+
+        # the route and device busy of a replay, then the times
+        ok, got, _, busy = self._graph_route(
+            lambda: graphed(state), per_step, k, f"{name} graph dispatch",
+            f"method_{name}_graph")
+        checks["route of a replay (4 x the step's launches)"] = ok
+        res["route"] = got
+        rounds = self._dispatch_rounds({"graph": lambda: graphed(state),
+                                        "eager": eager_steps}, k, rounds=3,
+                                       reps=2)
+        res["replay_event_ms"] = self.time_ms(lambda: graphed(state),
+                                              iters=2, rounds=2,
+                                              warmup=1) / k
+        res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        t = self.report["times"]
+        t[f"method_{name}_step_ms"] = rounds
+        t[f"method_{name}_graph_device_busy_ms"] = busy
+        t[f"method_{name}_graph_idle_share"] = \
+            1.0 - busy / rounds["graph"]["median"]
+        res["checks"] = checks
+        card = self.report.get("nvidia_smi", "")
+        log(f"{name} step as a graph of {k} ({card}): graph "
+            f"{rounds['graph']['median']:.3f} ms a step "
+            f"[{rounds['graph']['min']:.3f}, {rounds['graph']['max']:.3f}], "
+            f"a replay on CUDA events {res['replay_event_ms']:.3f} ms a "
+            f"step, device busy {busy:.3f} ms, idle share "
+            f"{t[f'method_{name}_graph_idle_share']:.3f}; eager "
+            f"{rounds['eager']['median']:.3f} ms a step "
+            f"[{rounds['eager']['min']:.3f}, {rounds['eager']['max']:.3f}]; "
+            f"peak memory {res['peak_mem_gib']:.3f} GiB")
+        for check, passed in checks.items():
+            log(f"  {name} graph check: {check}: "
+                f"{'ok' if passed else 'FAILED'}")
+        del graphed, state, model, step
+        # (d) the Trainer with its defaults and device pools
+        self._graph_trainer(data, cfg, METHOD_TRAINER, res)
+        return all(checks.values())
 
 # the kernels line: (launch counter, CUDA source, the TPU kernel replaced)
 KERNELS = [
@@ -4089,6 +4407,8 @@ def main() -> int:
                 "the NHWC conv", s.fullh_flat_training)
         s.phase("19 the UAPS and baseline steps as CUDA graphs, the "
                 "Trainer", s.graph_training)
+        s.phase("20 the cct, mt, uamt, dct and ucc steps",
+                s.method_training)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(s.report, f, indent=1, default=str)

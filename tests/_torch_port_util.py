@@ -146,3 +146,154 @@ class Counts:
             self.n[name] = self.n.get(name, 0) + 1
             return fn(*a, **kw)
         return counted
+
+
+# ------------------------------------------- a method's steps, both packages
+def keep_dtypes(new, old):
+    """The JAX tree `new` with every float leaf at `old`'s dtype (x64 mode
+    lifts them to f64), so that one compile serves every step."""
+    return jax.tree.map(lambda n, o: n.astype(o.dtype)
+                        if jnp.issubdtype(o.dtype, jnp.floating) else n,
+                        new, old)
+
+
+def jax_method_runs(jmethod, cfg, jmodel, v0, batches, starts,
+                    teacher=False):
+    """JAX's steps of `jmethod` (one jit) on `batches`, from each step count
+    of `starts`, from the weights v0 (the teacher, with `teacher`, a copy
+    of them): ({start: [one record a step]}, {start: the step-1 gradient
+    from Adam's first moment}). A record holds the step's "metrics" and the
+    state after it as {torch name: numpy}: "sd" (params and BN stats),
+    "ema" (the teacher's, or None) and Adam's "mu" and "nu". Call under
+    jax.enable_x64(True) with an f64 model."""
+    from uaps_tpu.methods import base as jbase
+    tx = jbase.make_optimizer(cfg.optim)
+    step = jax.jit(jmethod.make_train_step(cfg, jmodel, tx))
+    runs, grads = {}, {}
+    extra = ({"ema_params": v0["params"],
+              "ema_batch_stats": v0["batch_stats"]} if teacher else {})
+    for start in starts:
+        state = jbase.TrainState(
+            step=jnp.asarray(start, jnp.int32), params=v0["params"],
+            batch_stats=v0["batch_stats"], opt_state=tx.init(v0["params"]),
+            key=jax.random.key(0), **extra)
+        runs[start] = []
+        for b in batches:
+            new, m = step(state, b)
+            state = keep_dtypes(new, state)
+            adam = state.opt_state.inner_state[0]
+            if not runs[start]:
+                grads[start] = jax_sd(jax.tree.map(
+                    lambda a: a / (1 - cfg.optim.b1), adam.mu))
+            runs[start].append({
+                "metrics": {k: float(v) for k, v in m.items()},
+                "sd": jax_sd(state.params, state.batch_stats),
+                "ema": (jax_sd(state.ema_params, state.ema_batch_stats)
+                        if teacher else None),
+                "mu": jax_sd(adam.mu), "nu": jax_sd(adam.nu)})
+    return runs, grads
+
+
+def _load(module, sd):
+    """Copy {torch name: numpy} into the module's tensors of those names."""
+    with torch.no_grad():
+        for k, t in module.state_dict().items():
+            if k in sd:
+                t.copy_(torch.from_numpy(np.asarray(sd[k])))
+
+
+def port_method_runs(pmethod, pcfg, make_model, batches, starts, jax_runs,
+                     teacher=False):
+    """The port's steps of `pmethod` on `batches` from each step count of
+    `starts`, a fresh `make_model()` each time (and, with `teacher`, the
+    mean teacher as its copy), with the kernel shape gates opened, so that
+    the level-0/1 convs and pools go through the kernel modules (their
+    plain versions on the CPU) as at 256 px on the GPU: {start: [one
+    record a step, as jax_method_runs's]}.
+
+    Every step after the first starts from JAX's state after the step
+    before (`jax_runs`: params, BN stats, the teacher, Adam's moments),
+    once the port's own state after that step is recorded (and compared by
+    check_method_steps). Run on from its own state, the port drifted from
+    JAX at step 2 beyond check_params' tolerances in places (cct past the
+    ramp, ucc from step 0): the f32 logits heads of both packages leave
+    gradient noise that decides Adam's step-1 update of the elements whose
+    gradient is near Adam's eps, and the parameters that differ so move
+    some LeakyReLU input of step 2 across its kink at 2 x 16 x 128."""
+    from uaps_tpu_torch.methods import base
+    from uaps_tpu_torch.models import unet as tunet
+
+    def sd(m):
+        return {k: v.detach().clone().numpy()
+                for k, v in m.state_dict().items()}
+
+    runs = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tunet, "conv_kernel_ok", lambda *a: True)
+        mp.setattr(tunet, "pool_pallas_ok", lambda x: True)
+        for start in starts:
+            model = make_model()
+            state = base.init_model_state(pcfg, model)
+            if teacher:
+                state.ema_model = base.make_teacher(model)
+            state.step = start
+            step = pmethod.make_train_step(pcfg, model)
+            named = dict(model.named_parameters())
+            runs[start] = []
+            for i, b in enumerate(batches):
+                if i:
+                    prev = jax_runs[start][i - 1]
+                    _load(model, prev["sd"])
+                    if teacher:
+                        _load(state.ema_model, prev["ema"])
+                    with torch.no_grad():
+                        for k, p in named.items():
+                            st = state.optimizer.state[p]
+                            st["exp_avg"].copy_(torch.from_numpy(
+                                prev["mu"][k]))
+                            st["exp_avg_sq"].copy_(torch.from_numpy(
+                                prev["nu"][k]))
+                state, m = step(state, {k: torch.from_numpy(v)
+                                        for k, v in b.items()})
+                adam = {k: state.optimizer.state[p]
+                        for k, p in named.items()}
+                runs[start].append({
+                    "metrics": {k: float(v) for k, v in m.items()},
+                    "sd": sd(model),
+                    "ema": sd(state.ema_model) if teacher else None,
+                    "mu": {k: a["exp_avg"].numpy().copy()
+                           for k, a in adam.items()},
+                    "nu": {k: a["exp_avg_sq"].numpy().copy()
+                           for k, a in adam.items()}})
+            assert state.step == int(state.counter) == start + len(batches)
+    return runs
+
+
+def check_method_steps(jruns, pruns, jgrad, lr):
+    """After each step (the port's from JAX's state before it, from the
+    second on: port_method_runs), every metric at rtol 1e-5, then the
+    params (check_params at atol 2e-6), the BN running stats (rtol 1e-4,
+    atol 1e-5) and Adam's moments (rtol 1e-4, atol 1e-5 of each moment's
+    largest element: f32 gradients summed in another order), of the
+    student and, where the runs hold one, of the
+    teacher."""
+    for i, (jr, pr) in enumerate(zip(jruns, pruns)):
+        where = f"step {i + 1}"
+        assert set(pr["metrics"]) == set(jr["metrics"])
+        for k, v in jr["metrics"].items():
+            np.testing.assert_allclose(pr["metrics"][k], v, rtol=1e-5,
+                                       err_msg=f"{where} {k}")
+        for j, p in ((jr["sd"], pr["sd"]), (jr["ema"], pr["ema"])):
+            if j is None:
+                continue
+            check_params({k: v for k, v in j.items() if "running" not in k},
+                         p, jgrad, 1, lr, 2e-6)
+            for k, sj in running(j).items():
+                np.testing.assert_allclose(p[k], sj, rtol=1e-4, atol=1e-5,
+                                           err_msg=f"{where} {k}")
+        for moment in ("mu", "nu"):
+            top = max(np.abs(v).max() for v in jr[moment].values())
+            for k, v in jr[moment].items():
+                np.testing.assert_allclose(
+                    pr[moment][k], v, rtol=1e-4, atol=1e-5 * top,
+                    err_msg=f"{where} {moment} {k}")

@@ -7,6 +7,12 @@ unlabelled indices, uniform with replacement, then `index_select`. No step
 copies anything from the host, so K sampled steps can be captured as one
 CUDA graph (uaps_tpu_torch/dispatch.py) and replayed.
 
+With `strong` (the `ucc` method's batches) a step also carries the strong
+view of its unlabelled images, uimage + 0.1 N(0, 1) (JAX's
+`weak_strong`), drawn on the card from the sampler's own generator (seeded
+with seed + STRONG_SALT), which a CUDA graph registers and so replays with
+new draws.
+
 The indices are a pure function of (seed, epoch, step in the epoch), so a
 resumed run draws the same batches: the epoch key is the kernels' counter
 generator (`kernels/perturb.py` `random_bits`) at (seed + POOL_SALT,
@@ -31,6 +37,7 @@ import torch
 from uaps_tpu_torch.kernels.perturb import random_bits
 
 POOL_SALT = 424242   # JAX: jax.random.key(cfg.run.seed + 424242)
+STRONG_SALT = 434343  # the strong views' generator: seed + STRONG_SALT
 
 
 def has_pools(data) -> bool:
@@ -44,7 +51,8 @@ class PoolSampler:
     batches sampled from them: `start_epoch(epoch)`, then `sample()` once a
     step."""
 
-    def __init__(self, data, batch_size: int, seed: int, device):
+    def __init__(self, data, batch_size: int, seed: int, device,
+                 strong: bool = False):
         dev = torch.device(device)
 
         def put(a, dtype):
@@ -62,6 +70,10 @@ class PoolSampler:
         self._size = torch.tensor([len(self.image)] * batch_size
                                   + [len(self.uimage)] * batch_size,
                                   dtype=torch.int64, device=dev)
+        self.generator = None
+        if strong:
+            self.generator = torch.Generator(device=dev)
+            self.generator.manual_seed(seed + STRONG_SALT)
 
     def start_epoch(self, epoch: int) -> None:
         self._epoch.fill_(epoch)
@@ -77,12 +89,18 @@ class PoolSampler:
         return (bits * self._size) >> 32
 
     def sample(self) -> Dict[str, torch.Tensor]:
-        """The step's batch: "image", "label" and "uimage" on the device."""
+        """The step's batch: "image", "label" and "uimage" on the device,
+        and "uimage_strong" with `strong`."""
         idx = self.indices()
         il, iu = idx[:self.batch_size], idx[self.batch_size:]
-        return {"image": self.image.index_select(0, il),
-                "label": self.label.index_select(0, il),
-                "uimage": self.uimage.index_select(0, iu)}
+        batch = {"image": self.image.index_select(0, il),
+                 "label": self.label.index_select(0, il),
+                 "uimage": self.uimage.index_select(0, iu)}
+        if self.generator is not None:
+            u = batch["uimage"]
+            batch["uimage_strong"] = u + 0.1 * torch.randn(
+                u.shape, generator=self.generator, device=u.device)
+        return batch
 
 
 def put_val_pool(data, batch_size: int, device):

@@ -14,8 +14,9 @@ graph and replays it, so that the host enqueues K steps with one launch:
   * capture: then `torch.cuda.graph` records the same K steps, with the
     state's generator registered, so that every replay advances its Philox
     offset and draws new dropout masks, perturbation seeds and mixing
-    weights (an unregistered generator would replay the same draws). An
-    eager step between replays continues the same stream. The capture runs
+    weights (an unregistered generator would replay the same draws); so is
+    the sampler's, where it draws UCC's strong views. An eager step
+    between replays continues the same stream. The capture runs
     no step: the host step count it advanced is set back, and the kernel
     launch counters it ticked are not reset here (they count calls of the
     wrappers; a replay ticks none);
@@ -36,7 +37,8 @@ import torch
 
 # the step's arrays of a host batch, and their dtypes on the device
 BATCH_DTYPES = {"image": np.float32, "uimage": np.float32,
-                "label": np.int32, "mix_w": np.float32}
+                "uimage_strong": np.float32, "label": np.int32,
+                "mix_w": np.float32}
 # K on a CUDA device when RunConfig.steps_per_dispatch is 0 (JAX: 4 on a
 # single TPU)
 AUTO_STEPS_CUDA = 4
@@ -142,6 +144,8 @@ class GraphedSteps:
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(state.generator)
+        if getattr(self.sampler, "generator", None) is not None:
+            graph.register_generator_state(self.sampler.generator)
         steps = state.step
         # backward allocates the captured steps' .grad in the graph's pool
         state.optimizer.zero_grad(set_to_none=True)

@@ -1,13 +1,16 @@
 """Training methods of the port, one module per method, as in
 `uaps_tpu/methods`: `init_state(cfg, device) -> (TrainState, model)`,
 `make_train_step(cfg, model) -> (state, batch) -> (state, metrics)`, and
-`base.make_eval_step` for validation. `baseline` and `uaps` are ported."""
+`base.make_eval_step` for validation. Every method but `cps` is ported:
+`baseline`, `uaps`, `cct`, `mt`, `uamt` (with the mean teacher in
+`TrainState.ema_model`), `dct` and `ucc`; each step holds no host value,
+so a CUDA graph can capture it (uaps_tpu_torch/dispatch.py)."""
 import importlib
 
 from uaps_tpu_torch.methods.base import build_model, resolve_device
 
 METHODS = ("uaps", "baseline", "mt", "uamt", "cps", "cct", "dct", "ucc")
-_PORTED = ("baseline", "uaps")
+_PORTED = ("baseline", "uaps", "cct", "mt", "uamt", "dct", "ucc")
 
 
 def get_method(name: str):

@@ -2,9 +2,9 @@
 
 `build_model` (with the JAX enum validation), the train state, Adam with a
 settable learning rate and the host-side plateau scheduler, the train-mode
-forward, the supervised CE + Dice pair (the fused kernel where JAX's gate
-sends it there), the ramped consistency weight and the main-decoder eval
-step.
+forward, the mean teacher (its copy of the student and its EMA update), the
+supervised CE + Dice pair (the fused kernel where JAX's gate sends it
+there), the ramped consistency weight and the main-decoder eval step.
 
 Where JAX threads an immutable state pytree through a jitted step, the port
 keeps the parameters and BN running stats in the `nn.Module`, which the
@@ -12,6 +12,7 @@ step updates in place; `TrainState` carries the rest.
 """
 from __future__ import annotations
 
+import copy
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -95,13 +96,20 @@ class TrainState:
     on every replay. `step` is its host copy, which `tick` advances beside
     the counter and `advance` alone (a replay of K captured steps advances
     the host copy by K, a capture by nothing); setting `step` writes both.
+
+    `ema_model` is the mean teacher of `mt` and `uamt` (JAX's
+    `ema_params` and `ema_batch_stats`): a module on the model's device
+    with the EMA parameters and the teacher's own BN running stats, which
+    only its own forwards move. None for the other methods.
     """
 
     def __init__(self, step: int, optimizer: torch.optim.Optimizer,
-                 generator: torch.Generator, counter: torch.Tensor):
+                 generator: torch.Generator, counter: torch.Tensor,
+                 ema_model: Optional[nn.Module] = None):
         self.optimizer = optimizer
         self.generator = generator
         self.counter = counter
+        self.ema_model = ema_model
         self.step = step
 
     @property
@@ -192,6 +200,37 @@ def init_model_state(cfg, model: nn.Module) -> TrainState:
                                                dev),
                       generator=gen,
                       counter=torch.zeros((), dtype=torch.int64, device=dev))
+
+
+def init_state(cfg, device="cuda",
+               generator: Optional[torch.Generator] = None
+               ) -> Tuple[TrainState, nn.Module]:
+    """The config's model on `device` and its TrainState: the `init_state`
+    of every method without a teacher."""
+    model = build_model(cfg, device, generator)
+    return init_model_state(cfg, model), model
+
+
+def make_teacher(model: nn.Module) -> nn.Module:
+    """The mean teacher at init: a copy of the student, the same weights and
+    the same BN running stats, outside autograd (JAX mt.py:28-37)."""
+    teacher = copy.deepcopy(model)
+    teacher.requires_grad_(False)
+    return teacher
+
+
+def ema_update(model: nn.Module, teacher: nn.Module, decay: float,
+               counter: torch.Tensor) -> None:
+    """The teacher's parameters <- alpha * teacher + (1 - alpha) * student,
+    alpha = min(1 - 1 / (step + 1), decay) in f32 from the device counter
+    (JAX mt.py ema_update): alpha is 0 at step 0, where the teacher becomes
+    the student. Buffers are left alone, as JAX leaves ema_batch_stats."""
+    alpha = torch.clamp(1.0 - 1.0 / (counter.to(torch.float32) + 1.0),
+                        max=decay)
+    ema, params = list(teacher.parameters()), list(model.parameters())
+    with torch.no_grad():
+        torch._foreach_mul_(ema, alpha)
+        torch._foreach_add_(ema, torch._foreach_mul(params, 1.0 - alpha))
 
 
 def apply_train(model: nn.Module, x: torch.Tensor,

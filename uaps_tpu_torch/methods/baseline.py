@@ -6,7 +6,7 @@ Adam, and the metrics of the step's logits.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 import torch.nn as nn
@@ -15,11 +15,7 @@ from uaps_tpu_torch.methods import base
 from uaps_tpu_torch.ops import segmentation_metrics
 
 
-def init_state(cfg, device="cuda",
-               generator: Optional[torch.Generator] = None
-               ) -> Tuple[base.TrainState, nn.Module]:
-    model = base.build_model(cfg, device, generator)
-    return base.init_model_state(cfg, model), model
+init_state = base.init_state
 
 
 def make_train_step(cfg, model: nn.Module):

@@ -32,7 +32,7 @@ The routes of the uncertainty maps and the pseudo-label are JAX's
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 import torch.nn as nn
@@ -44,11 +44,7 @@ from uaps_tpu_torch.ops import (kl_divergence_map, segmentation_metrics,
                                 symmetric_mse_loss)
 
 
-def init_state(cfg, device="cuda",
-               generator: Optional[torch.Generator] = None
-               ) -> Tuple[base.TrainState, nn.Module]:
-    model = base.build_model(cfg, device, generator)
-    return base.init_model_state(cfg, model), model
+init_state = base.init_state
 
 
 def dirichlet_weights(generator: torch.Generator, n: int,

@@ -1,12 +1,12 @@
 """Model factory: the port's counterpart of `uaps_tpu/models/factory.py`.
 
-Registers the U-Net family (`unet`, `unet_uaps`,
-`unet_cct`, `unet_ucc`, `unet_ccps`) with the JAX factory's keyword
-arguments, and initialises the weights as flax does (lecun_normal conv
-kernels, zero biases, BN scale 1 / bias 0, running mean 0 / var 1) from an
-explicit `torch.Generator`. The deep-supervision nets and the ResNet
-BaseNets come later (ROADMAP.md Queue A, "The other methods" and
-"Remainder").
+Registers the U-Net family (`unet`: baseline, mt, uamt, dct; `unet_uaps`;
+`unet_cct`: cct; `unet_ucc`: ucc; `unet_ccps`) with the JAX factory's
+keyword arguments, and initialises the weights as flax does (lecun_normal
+conv kernels, zero biases, BN scale 1 / bias 0, running mean 0 / var 1)
+from an explicit `torch.Generator`. The deep-supervision nets of `cps`
+and the ResNet BaseNets come later (ROADMAP.md Queue A, "The other
+methods" and "Remainder").
 """
 from __future__ import annotations
 

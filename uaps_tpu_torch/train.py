@@ -1,11 +1,13 @@
 """Training CLI and single-device Trainer: the port's `uaps_tpu/train.py`.
 
-    python -m uaps_tpu_torch.train --preset neu --method uaps \
+    python -m uaps_tpu_torch.train --preset neu --method M \
         --dtype bfloat16 --dataset synthetic \
         [--epochs 2 --iter_per_epoch 20] [--device cuda] \
         [--steps_per_dispatch K] [--device_pools]
 
-The loop is the JAX one on one device: `iter_per_epoch` train steps, the
+M is `uaps`, `baseline`, `cct`, `mt`, `uamt`, `dct` or `ucc` (`ucc` trains
+on the weak / strong stream, `train_iter_weak_strong`). The loop is the JAX
+one on one device: `iter_per_epoch` train steps, the
 epoch's metric means (the step metrics stay on the device until then), a
 validation sweep of the main decoder, the plateau scheduler on val mDice, a
 keep-best `best_model.pth` (the reference's training dict) and one line of
@@ -23,9 +25,10 @@ pool there; data without fixed pools is trained from the host stream, with
 a warning, as in JAX. `profile_steps=(start, stop)` writes a torch.profiler
 trace of epoch 1's steps start..stop to `out_dir/profile`.
 
-Not ported yet: `--resume` (ROADMAP.md Queue A, "The rest of the Trainer
-and CLIs"), more than one device ("Multi-GPU"), and the `RunConfig` knobs
-of `UNPORTED_RUN_KNOBS`, which raise when set (`check_run_config`).
+Not ported yet: the `cps` method (ROADMAP.md Queue A, "The other
+methods"), `--resume` ("The rest of the Trainer and CLIs"), more than one
+device ("Multi-GPU"), and the `RunConfig` knobs of `UNPORTED_RUN_KNOBS`,
+which raise when set (`check_run_config`).
 """
 from __future__ import annotations
 
@@ -92,10 +95,18 @@ def _prefetch(it: Iterator, size: int = 4) -> Iterator:
         yield q.get()
 
 
+def train_stream(data, weak_strong: bool) -> Iterator[Dict]:
+    """The host batches, built in a prefetch thread; with `weak_strong`
+    (`ucc`'s) they carry the strong view (JAX train.py `_train_stream`)."""
+    if weak_strong:
+        return _prefetch(data.train_iter_weak_strong())
+    return _prefetch(data.train_iter())
+
+
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str,
                                                             torch.Tensor]:
-    """The step's arrays of a host batch on `device`: image and uimage f32,
-    label int32, and mix_w f32 where the batch has it."""
+    """The step's arrays of a host batch on `device`: image, uimage and
+    uimage_strong f32, label int32, and mix_w f32, those the batch has."""
     return {k: torch.from_numpy(np.ascontiguousarray(batch[k], dt)).to(
         device) for k, dt in dispatch.BATCH_DTYPES.items() if k in batch}
 
@@ -117,6 +128,7 @@ class Trainer:
         self.best_dice = -1.0
         self.epochs_since_best = 0
         self.k_dispatch = dispatch.steps_per_dispatch(cfg.run, self.device)
+        self.weak_strong = cfg.method.name == "ucc"
         # device-resident pools, where the data has fixed ones (JAX
         # train.py:140-176)
         self.pools = None
@@ -127,8 +139,9 @@ class Trainer:
                 "fixed _pool/_upool arrays; training from the host stream")
         elif cfg.run.device_pools:
             b = cfg.data.batch_size
-            self.pools = device_pool.PoolSampler(self.data, b, cfg.run.seed,
-                                                 self.device)
+            self.pools = device_pool.PoolSampler(
+                self.data, b, cfg.run.seed, self.device,
+                strong=self.weak_strong)
             self._val_pool = device_pool.put_val_pool(self.data, b,
                                                       self.device)
         self.graphed = None
@@ -189,7 +202,8 @@ class Trainer:
     def run(self) -> float:
         cfg = self.cfg
         n_iter = cfg.run.iter_per_epoch
-        stream = None if self.pools else _prefetch(self.data.train_iter())
+        stream = None if self.pools else train_stream(self.data,
+                                                      self.weak_strong)
         self.logger.info(
             f"method={cfg.method.name} model={cfg.model.name} "
             f"device={self.device} batch={cfg.data.batch_size} "
