@@ -204,28 +204,48 @@ Phases (any failure: exit 1 and no result line):
      rounds (ms a step), device busy and idle share of each, a replay on
      the device's clock, peak memory; then Trainer.run with the default
      RunConfig (K = 4 on the card) and device pools, 2 epochs of 8 UAPS
-     steps, with finite metrics;
- 20. the cct, mt, uamt, dct and ucc steps as `python -m
+     steps, with finite metrics; then the other paths' steps (GRAPH_PATHS:
+     the chain, fused, unfused, fullh + flat-BN steps of phases 13, 16a and
+     18 on phase 19's pools, the dagm, mtiles and kosdd2 presets of phase
+     16b on pools of GRAPH_PATH_POOLS at their geometry), each as a graph
+     of 4 steps: the first dispatch launches 2 x 4 x its per-step launches
+     through the wrappers, from one state a replay and 4 eager steps give
+     bit-equal metrics, parameters and BN stats, a profiled replay holds 4
+     x its launches of every kernel family, and graph and eager
+     dispatches are timed in alternating rounds (device busy, idle share,
+     peak memory);
+ 20. the cct, mt, uamt, dct, ucc and cps steps as `python -m
      uaps_tpu_torch.train --preset neu --method M --dtype bfloat16
      --dataset synthetic` builds them (16 + 16 images at 256 x 256 from
      phase 19's pools, default backends, seeded weights; uamt's teacher
-     takes T = 8 noised copies as one [128, 256, 256, 3] forward), each:
+     takes T = 8 noised copies as one [128, 256, 256, 3] forward; cps's
+     two unet_f nets, net 2 in state.second with its own Adam), each:
      (a) one step on the kernel route and one on the plain route
      (conv_backend="xla") from the same weights, teacher, batch, hooks
      (the teacher's noise, dct's k = 1, ucc's mixed streams) and generator
      seed, past the ramp (w1 = 0.1; uamt's at UAMT_PAIR_CONSISTENCY, so
      that its entropy mask keeps more than a few pixels) and mt's gate,
-     within phase 10's gates on METHOD_TERMS; (b) the kernel step's
-     launches, printed: the kernels launched must be METHOD_KERNELS[M],
-     each at least once; (c) 4
+     within phase 10's gates on METHOD_TERMS (each of cps's nets); (b)
+     the kernel step's launches, printed: the kernels launched must be
+     METHOD_KERNELS[M], each at least once (cps's exactly
+     CPS_STEP_LAUNCHES); the PyTorch convs of an eager step on inputs of
+     128 px or more, from the profiler's operator shapes, must all be
+     logits heads (no ConvBlock conv at 256 or 128 px on cuDNN); (c) 4
      steps as one dispatch.GraphedSteps graph against 4 eager steps from
-     one state (weights, teacher, Adam, the generators, pool position):
-     metrics, params, BN stats and the teacher bit-equal; a profiled
-     replay holds 4 x (b)'s launches of every kernel family (bf16_route,
-     GRAPH_FAMILIES); graph and eager dispatches in alternating rounds (ms
-     a step), a replay on CUDA events, device busy and idle share, peak
-     memory; (d) Trainer.run with its defaults and device pools, 1 epoch
-     of 8 steps, finite metrics and state.step == counter.
+     one state (weights, teacher, net 2, every Adam, the generators, pool
+     position): the first dispatch's launches 2 x 4 x (b)'s, metrics,
+     params, BN stats, the teacher and net 2 bit-equal (for
+     DETERMINISTIC_CUDNN's methods with cuDNN's deterministic algorithms,
+     after two eager steps from one state with its default ones print the
+     gradients that differ);
+     a profiled replay holds 4 x (b)'s launches of every kernel family
+     (bf16_route, GRAPH_FAMILIES); graph and eager dispatches in
+     alternating rounds (ms a step), a replay on CUDA events, device busy
+     and idle share, peak memory, and for DETERMINISTIC_CUDNN's methods
+     the same graph with cuDNN's default algorithms, timed alone; (d)
+     Trainer.run with its defaults and device pools, 1 epoch
+     of 8 steps, finite metrics (cps's val2_mdice too) and state.step ==
+     counter.
 It then prints {"kernels": [...]} (launches from phase 7 for the baseline
 kernels, from phase 10 for the UAPS kernels, from phase 13 for the
 fused-block kernels, from phase 16a for the pseudo-label kernel and from
@@ -447,13 +467,35 @@ GRAPH_FAMILIES = {"max_pool_2x2_fwd_kernel": "max_pool_2x2_nchw",
                   "dropout_kernel": "fused_dropout",
                   "noise_kernel": "feature_noise",
                   "uncertainty_fwd_kernel": "uncertainty_fwd",
-                  "uncertainty_bwd_kernel": "uncertainty_bwd"}
+                  "uncertainty_bwd_kernel": "uncertainty_bwd",
+                  "pseudo_label_kernel": "pseudo_label"}
+# ... then the other paths' steps as graphs, each against its eager steps
+# bit for bit: (key, label, the Smoke method that makes its config and its
+# arguments, per-step launches); the neu paths sample from phase 19's
+# pools, the presets from pools of GRAPH_PATH_POOLS at their own geometry
+GRAPH_PATHS = (
+    ("chain", "chain", ("_uaps_config", {"conv_backend": "chain"}),
+     CHAIN_STEP_LAUNCHES),
+    ("fused", "fused", ("_uaps_config", {"conv_backend": "fused"}),
+     FUSED_STEP_LAUNCHES),
+    ("unfused", "unfused UAPS", ("_uaps_config", {}), UNFUSED_STEP_LAUNCHES),
+    ("fullh_flat", "fullh + flat-BN",
+     ("_uaps_config", {"conv_variant": "fullh", "bn_backend": "flat"}),
+     FULLH_STEP_LAUNCHES),
+    ("dagm", "dagm", ("_preset_config", "dagm"), UAPS_STEP_LAUNCHES),
+    ("mtiles", "mtiles", ("_preset_config", "mtiles"), UAPS_STEP_LAUNCHES),
+    ("kosdd2", "kosdd2", ("_preset_config", "kosdd2"), UAPS_STEP_LAUNCHES))
+GRAPH_PATH_POOLS = (16, 48)
+# the alternating rounds (rounds, dispatches a round and path) that time
+# the graph and eager dispatches of each of these paths and of phase 20's
+# methods
+GRAPH_ROUNDS = (2, 1)
 # phase 20: the other methods' steps, each with the kernels its model reaches
 # (the plain U-Net's; cct's 4-decoder net adds the perturbation kernels,
 # ucc's feature-noise head adds feature noise), the loss terms its kernel
 # route is held to the plain route on, and the Trainer's run (epochs,
 # iterations an epoch)
-METHOD_STEPS = ("cct", "mt", "uamt", "dct", "ucc")
+METHOD_STEPS = ("cct", "mt", "uamt", "dct", "ucc", "cps")
 UNET_KERNELS = ("conv3x3_nchw", "conv3x3_nchw_dgrad", "conv3x3_nchw_wgrad",
                 "max_pool_2x2_nchw", "max_pool_2x2_nchw_bwd", "ce_dice_fwd",
                 "ce_dice_bwd", "fused_dropout")
@@ -461,13 +503,34 @@ METHOD_KERNELS = {"cct": UNET_KERNELS + ("feature_noise", "feature_dropout",
                                          "feature_dropout_bwd"),
                   "mt": UNET_KERNELS, "uamt": UNET_KERNELS,
                   "dct": UNET_KERNELS,
-                  "ucc": UNET_KERNELS + ("feature_noise",)}
+                  "ucc": UNET_KERNELS + ("feature_noise",),
+                  "cps": ("conv3x3_nchw", "conv3x3_nchw_dgrad",
+                          "conv3x3_nchw_wgrad", "ce_dice_fwd", "ce_dice_bwd",
+                          "fused_dropout")}
+# cps's launches a step, read from the code: four forwards of unet_f (two a
+# net), each 8 kernel convs (the ConvBlocks at 256 and 128 px: in_conv,
+# down1, up3, up4, all at NHWC levels of JAX's net, where its Conv3x3 gate
+# takes the Pallas conv too), 7 of them with a dgrad (not the image's), and
+# 5 encoder dropouts; 2 + 4 CE+Dice; no CUDA pool (JAX's pools there are
+# XLA's) and the f32 heads on cuDNN (flax nn.Conv on XLA)
+CPS_STEP_LAUNCHES = {"conv3x3_nchw": 32, "conv3x3_nchw_dgrad": 28,
+                     "conv3x3_nchw_wgrad": 32, "ce_dice_fwd": 6,
+                     "ce_dice_bwd": 6, "fused_dropout": 40}
+# the methods whose graph-against-eager check (and the times taken with it)
+# runs with torch.backends.cudnn.deterministic: cuDNN's f32 weight
+# gradient of cps's logits heads (plain F.conv2d, as flax's nn.Conv) gave
+# two eager steps from one state gradients 4.5e-8 apart on the H100, so
+# that the nets part after a few Adam steps with it off; every other
+# weight gradient of the port is deterministic (ROADMAP Queue C)
+DETERMINISTIC_CUDNN = ("cps",)
 CONSISTENCY_TERMS = ("loss", "ce_loss", "dice_loss", "consistency_loss")
 METHOD_TERMS = {"cct": CONSISTENCY_TERMS, "mt": CONSISTENCY_TERMS,
                 "uamt": CONSISTENCY_TERMS + ("mean_uncertainty",),
                 "dct": CONSISTENCY_TERMS,
                 "ucc": ("loss", "sup_loss", "ps_loss", "ce_loss",
-                        "dice_loss")}
+                        "dice_loss"),
+                "cps": ("loss", "sup_loss", "labeled_cps_loss",
+                        "unlabeled_cps_loss")}
 METHOD_TRAINER = (1, 8)
 # uamt's pair at consistency1 = 0.4 (w = 0.4 past the ramp): at the preset's
 # 0.1 the entropy threshold ln 2 = 0.69 lies far below a random-weight
@@ -1709,8 +1772,10 @@ class Smoke:
         (cosine >= 0.98); and since Adam's first update is about
         lr * sign(g), >= 95% of the parameter deltas must agree within
         lr / 2. The biases of the convs that feed a train-mode BN have a
-        zero gradient up to rounding, so they are left out of both. Every
-        metric in `terms` is held to the loss's 1e-2 relative.
+        zero gradient up to rounding, so they are left out of both, as are
+        parameters the step never reads (no gradient on either path: the
+        deep-supervision heads dp1..3 of cps's nets). Every metric in
+        `terms` is held to the loss's 1e-2 relative.
         gate="loss" holds only the metrics to that, gate="none" nothing
         (the numbers are reported either way)."""
         torch = self.torch
@@ -1720,6 +1785,9 @@ class Smoke:
         worst_cos, worst, agree, total = 1.0, None, 0, 0
         for k, p in km.named_parameters():
             if k.endswith(("conv_conv.0.bias", "conv_conv.4.bias")):
+                continue
+            if p.grad is None:
+                assert pp[k].grad is None, f"{k}: a gradient on one path"
                 continue
             gk, gp = p.grad.float().flatten(), pp[k].grad.float().flatten()
             cos = float(torch.nn.functional.cosine_similarity(gk, gp, dim=0))
@@ -2969,7 +3037,7 @@ class Smoke:
             self.profile_steps(b, f"{b} UAPS", step, state, batch,
                                t["step_rounds"][b]["median"], per_step)
 
-    def step_rounds(self, t, key, paths, rounds=5, reps=3):
+    def step_rounds(self, t, key, paths, rounds=3, reps=2):
         """The UAPS steps of `paths` ({label: (step, state, batch)}) in
         alternating rounds (the order rotates each round), so that drift in
         the host's or the card's speed falls on all of them: per round and
@@ -3657,8 +3725,9 @@ class Smoke:
     # ------------------------------------------------------------ phase 19
     def graph_training(self):
         """The UAPS and baseline steps as CUDA graphs of K steps sampling
-        from device pools (see phase 19 in the module docstring), then the
-        Trainer with its defaults and device pools."""
+        from device pools (see phase 19 in the module docstring), the
+        Trainer with its defaults and device pools, then the other paths'
+        steps as graphs (graph_paths)."""
         from uaps_tpu_torch.data import SyntheticDefects
         cfg = self._uaps_config()
         t0 = time.perf_counter()
@@ -3678,6 +3747,7 @@ class Smoke:
             if not self._graph_case(key, label, c, method, data, per_step):
                 bad.append(key)
         self._graph_trainer(data)
+        bad += self.graph_paths(data)
         assert not bad, f"phase 19 failed for {bad}"
 
     def _graph_case(self, key, label, cfg, method_name, data, per_step):
@@ -3867,18 +3937,32 @@ class Smoke:
             log(f"  {label} graph check: {name}: {'ok' if ok else 'FAILED'}")
         return all(checks.values())
 
+    @staticmethod
+    def _modules(model, state):
+        """The modules a step updates: the model, the teacher (mt, uamt)
+        and net 2 (cps), those the state has."""
+        return [model] + [m for m in (
+            state.ema_model,
+            state.second.model if state.second is not None else None)
+            if m is not None]
+
+    @staticmethod
+    def _optimizers(state):
+        """Every Adam of the state: net 1's, and net 2's for cps."""
+        return [state.optimizer] + ([state.second.optimizer]
+                                    if state.second is not None else [])
+
     def _snapshot(self, model, state, sampler):
-        """Copies of what a step changes: the model's parameters and
-        buffers (and the teacher's, where the state has one), Adam's state,
-        the generators (the state's, and the sampler's where it draws
-        strong views), the step and the sampler's position."""
-        opt = {p: {n: v.clone() for n, v in st.items()}
-               for p, st in state.optimizer.state.items()}
-        mods = [model] + ([state.ema_model] if state.ema_model is not None
-                          else [])
+        """Copies of what a step changes: the parameters and buffers of
+        every module it updates (_modules), every Adam's state, the
+        generators (the state's, and the sampler's where it draws strong
+        views), the step and the sampler's position."""
+        opts = [{p: {n: v.clone() for n, v in st.items()}
+                 for p, st in opt.state.items()}
+                for opt in self._optimizers(state)]
         return ([{n: v.detach().clone() for n, v in m.state_dict().items()}
-                 for m in mods],
-                opt, state.generator.get_state(), state.step,
+                 for m in self._modules(model, state)],
+                opts, state.generator.get_state(), state.step,
                 sampler._pos.clone(),
                 sampler.generator.get_state() if sampler.generator is not None
                 else None)
@@ -3886,16 +3970,15 @@ class Smoke:
     def _restore(self, snap, model, state, sampler):
         """Put a _snapshot back in place (into the same tensors, which a
         captured graph reads)."""
-        sds, opt, gen, step, pos, sgen = snap
-        mods = [model] + ([state.ema_model] if state.ema_model is not None
-                          else [])
+        sds, opts, gen, step, pos, sgen = snap
         with self.torch.no_grad():
-            for m, sd in zip(mods, sds):
+            for m, sd in zip(self._modules(model, state), sds):
                 for n, v in m.state_dict().items():
                     v.copy_(sd[n])
-            for p, st in state.optimizer.state.items():
-                for n, v in st.items():
-                    v.copy_(opt[p][n])
+            for opt, saved in zip(self._optimizers(state), opts):
+                for p, st in opt.state.items():
+                    for n, v in st.items():
+                        v.copy_(saved[p][n])
             sampler._pos.copy_(pos)
         state.generator.set_state(gen)
         if sgen is not None:
@@ -3970,7 +4053,7 @@ class Smoke:
                 for name, ms, n in top[:12]))
         return got == want, got, want, busy
 
-    def _dispatch_rounds(self, paths, k, rounds=5, reps=3):
+    def _dispatch_rounds(self, paths, k, rounds=3, reps=2):
         """Dispatches of k steps of each of `paths` ({label: fn}) in
         alternating rounds, as step_rounds: per round and path the median
         of `reps` dispatches (host clock, a sync after each), divided by k;
@@ -4031,8 +4114,11 @@ class Smoke:
         assert all(np.isfinite(v) for r in recs for n, v in r.items()
                    if n in ("loss", "sup_loss", "ps_loss", "uncertainty_loss",
                             "consistency_loss", "mean_uncertainty",
-                            "train_mdice", "val_loss", "val_mdice", "lr")), \
-            recs
+                            "labeled_cps_loss", "unlabeled_cps_loss",
+                            "train_mdice", "val_loss", "val_mdice",
+                            "val2_mdice", "lr")), recs
+        if cfg.method.name == "cps":   # both nets validated
+            assert all("val2_mdice" in r for r in recs), recs
         assert tr.state.step == int(tr.state.counter) == epochs * iters, (
             tr.state.step, int(tr.state.counter))
 
@@ -4051,8 +4137,8 @@ class Smoke:
         return cfg
 
     def method_training(self):
-        """The cct, mt, uamt, dct and ucc steps at full width (see phase 20
-        in the module docstring)."""
+        """The cct, mt, uamt, dct, ucc and cps steps at full width (see
+        phase 20 in the module docstring)."""
         import gc
         from uaps_tpu_torch.data import SyntheticDefects
         torch = self.torch
@@ -4112,9 +4198,9 @@ class Smoke:
     def _method_pair(self, name, batch):
         """(a) and (b): one step of `name` on the kernel route and one on
         the plain route (conv_backend="xla") from the same weights, teacher,
-        batch, hooks and generator seed, past the ramp (and past mt's
-        gate), held to phase 10's gates; returns the kernel step's
-        launches."""
+        net 2 (cps), batch, hooks and generator seed, past the ramp (and
+        past mt's gate), held to phase 10's gates (each net's); returns the
+        kernel step's launches."""
         from uaps_tpu_torch.methods import get_method
         torch = self.torch
         cfgs = [self._method_config(name),
@@ -4130,25 +4216,31 @@ class Smoke:
         past = int(ramp * mcfg.consistency_rampup)
         assert past >= mcfg.consistency_start_iter, past
         batch = {**batch, **self._method_hooks(name, cfg, batch)}
-        out, init_sd = [], None
+        out, init = [], None
         for c in cfgs:
             state, model = method.init_state(
                 c, self.dev, torch.Generator().manual_seed(SEED))
-            if init_sd is None:
-                init_sd = {k: v.detach().clone()
-                           for k, v in model.state_dict().items()}
-            model.load_state_dict(init_sd)
+            if init is None:
+                # the model's weights, and net 2's where the state has one
+                init = [{k: v.detach().clone()
+                         for k, v in m.state_dict().items()}
+                        for m in (model, *([state.second.model]
+                                           if state.second else []))]
+            model.load_state_dict(init[0])
             if state.ema_model is not None:
-                state.ema_model.load_state_dict(init_sd)
+                state.ema_model.load_state_dict(init[0])
+            if state.second is not None:
+                state.second.model.load_state_dict(init[1])
             state.step = past
             self.sync()
             before = counters()
             _, m = method.make_train_step(c, model)(state, batch)
             self.sync()
             launched = {k: v - before[k] for k, v in counters().items()}
-            out.append((model, {k: float(v) for k, v in m.items()},
+            nets = [model] + ([state.second.model] if state.second else [])
+            out.append((nets, {k: float(v) for k, v in m.items()},
                         launched))
-        (km, kmet, launched), (pm, pmet, plain_launched) = out
+        (knets, kmet, launched), (pnets, pmet, plain_launched) = out
         assert not any(plain_launched.values()), \
             f"the plain path launched kernels: {plain_launched}"
         assert abs(kmet["consistency_w1"] - mcfg.consistency1) < 1e-7, kmet
@@ -4167,9 +4259,11 @@ class Smoke:
             log(f"uamt: the entropy mask keeps {res['mask_share']:.4f} of "
                 f"the pixels (threshold {thr:.4f}; T-pass batch "
                 f"{tuple(rep.shape)})")
-        res["kernel_vs_plain"] = self._compare_steps(
-            km, pm, kmet, pmet, init_sd, cfg.optim.base_lr,
-            terms=METHOD_TERMS[name], label=f"{name} kernel vs plain")
+        res["kernel_vs_plain"] = [self._compare_steps(
+            km, pm, kmet, pmet, sd, cfg.optim.base_lr,
+            terms=METHOD_TERMS[name],
+            label=f"{name} net {i + 1} kernel vs plain")
+            for i, (km, pm, sd) in enumerate(zip(knets, pnets, init))]
         res["launches_a_step"] = launched
         reached = {k for k, v in launched.items() if v}
         log(f"{name} launches a step: " + json.dumps(
@@ -4177,13 +4271,39 @@ class Smoke:
         assert reached == set(METHOD_KERNELS[name]), (
             f"{name}: kernels launched {sorted(reached)}, its model reaches "
             f"{sorted(METHOD_KERNELS[name])}")
+        if name == "cps":
+            assert {k: v for k, v in launched.items() if v} == \
+                CPS_STEP_LAUNCHES, (launched, CPS_STEP_LAUNCHES)
         return launched
 
+    def _library_convs(self, fn, classes):
+        """PyTorch's own 3x3 convs in an eager fn(), from the profiler's
+        operator input shapes (aten::convolution and its backward): (ok,
+        [[input shape, weight shape, calls], ...] of those on inputs of
+        128 px or more). ok: every one of them is a logits head (Cout =
+        classes), so no ConvBlock conv at 256 or 128 px ran cuDNN."""
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU],
+                     record_shapes=True) as prof:
+            fn()
+            self.sync()
+        big = []
+        for e in prof.key_averages(group_by_input_shape=True):
+            at = {"aten::convolution": (0, 1),
+                  "aten::convolution_backward": (1, 2)}.get(e.key)
+            if at is None:
+                continue
+            x, w = (list(e.input_shapes[i]) for i in at)
+            if len(x) == 4 and min(x[2:]) >= 128:
+                big.append([x, w, e.count])
+        return all(w[0] == classes for _, w, _ in big), big
+
     def _method_case(self, name, data):
-        """Phase 20 for one method: (a) and (b) (_method_pair), (c) a graph
-        of K steps against K eager steps from one state, bit for bit, and
-        its times, (d) the Trainer; returns whether every check of (c)
-        passed (the rest raise)."""
+        """Phase 20 for one method: (a) and (b) (_method_pair), the
+        library convs of an eager step (_library_convs), (c) a graph of K
+        steps against K eager steps from one state, bit for bit, and its
+        times (_graph_bitwise), (d) the Trainer; returns whether every
+        check of (c) passed (the rest raise)."""
         from uaps_tpu_torch import dispatch
         from uaps_tpu_torch.data.device_pool import PoolSampler
         from uaps_tpu_torch.methods import get_method
@@ -4195,28 +4315,137 @@ class Smoke:
         sampler.start_epoch(1)
         per_step = self._method_pair(name, sampler.sample())
 
-        # (c) the graph against eager steps from one state
-        k = dispatch.AUTO_STEPS_CUDA
+        # no ConvBlock conv at 256 or 128 px on cuDNN: one eager step
         method = get_method(name)
+        state, model = method.init_state(
+            cfg, self.dev, torch.Generator().manual_seed(SEED))
+        step = method.make_train_step(cfg, model)
+        batch = sampler.sample()
+        step(state, batch)     # builds and loads outside the window
+        ok, big = self._library_convs(lambda: step(state, batch),
+                                      cfg.data.num_classes)
+        res["library_convs_at_128px_or_more"] = big
+        log(f"{name}: PyTorch convs on 128 px or more in an eager step "
+            f"(input, weight, calls): {json.dumps(big)} "
+            f"{'ok: logits heads only' if ok else 'MISMATCH'}")
+        assert ok, big
+        del state, model, step, batch
+
+        if name in DETERMINISTIC_CUDNN:
+            res["default_cudnn_repeat"] = self._eager_repeat(cfg, name,
+                                                             sampler)
+        det = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = name in DETERMINISTIC_CUDNN
+        res["cudnn_deterministic"] = torch.backends.cudnn.deterministic
+        try:
+            checks = self._graph_bitwise(f"method_{name}", name, cfg, name,
+                                         sampler, per_step, res)
+        finally:
+            torch.backends.cudnn.deterministic = det
+        if name in DETERMINISTIC_CUDNN:
+            # the same graph with cuDNN's default algorithms, as the
+            # Trainer runs it: its time alone
+            res["graph_default_cudnn_ms"] = self._graph_ms(cfg, name,
+                                                           sampler)
+            log(f"{name} graph with cuDNN's default algorithms: "
+                f"{res['graph_default_cudnn_ms']['host']['median']:.3f} ms "
+                f"a step, a replay on CUDA events "
+                f"{res['graph_default_cudnn_ms']['events']:.3f} ms")
+        # (d) the Trainer with its defaults and device pools
+        self._graph_trainer(data, cfg, METHOD_TRAINER, res)
+        return all(checks.values())
+
+    def _eager_repeat(self, cfg, method_name, sampler):
+        """Two eager steps of `method_name` from one state (after one step
+        that builds and loads) with cuDNN's default algorithms: {parameter:
+        the largest difference of its gradients} for those that differ
+        (every module the step updates, net 2's names prefixed "net2.")."""
+        from uaps_tpu_torch.methods import get_method
+        method = get_method(method_name)
+        state, model = method.init_state(
+            cfg, self.dev, self.torch.Generator().manual_seed(SEED))
+        step = method.make_train_step(cfg, model)
+        batch = sampler.sample()
+        step(state, batch)
+        snap = self._snapshot(model, state, sampler)
+        grads = []
+        for _ in range(2):
+            self._restore(snap, model, state, sampler)
+            step(state, batch)
+            grads.append({
+                f"{'net2.' if i else ''}{n}": p.grad.clone()
+                for i, m in enumerate(self._modules(model, state))
+                for n, p in m.named_parameters() if p.grad is not None})
+        diff = {n: float((g - grads[1][n]).abs().max())
+                for n, g in grads[0].items() if not self.torch.equal(
+                    g, grads[1][n])}
+        log(f"{method_name}: two eager steps from one state, cuDNN's "
+            f"default algorithms: {len(diff)} of {len(grads[0])} "
+            f"gradients differ {json.dumps(diff)}")
+        return diff
+
+    def _graph_ms(self, cfg, method_name, sampler):
+        """{"host": ms a step of `method_name`'s graph of K steps over
+        GRAPH_ROUNDS dispatches after the first (as _dispatch_rounds),
+        "events": a replay on CUDA events, ms a step}."""
+        from uaps_tpu_torch import dispatch
+        from uaps_tpu_torch.methods import get_method
+        k = dispatch.AUTO_STEPS_CUDA
+        method = get_method(method_name)
+        state, model = method.init_state(
+            cfg, self.dev, self.torch.Generator().manual_seed(SEED))
+        graphed = dispatch.GraphedSteps(method.make_train_step(cfg, model),
+                                        k, self.dev, sampler)
+        graphed(state)   # K eager steps, then the capture
+        host = self._dispatch_rounds({"graph": lambda: graphed(state)}, k,
+                                     *GRAPH_ROUNDS)["graph"]
+        return {"host": host, "events": self.time_ms(
+            lambda: graphed(state), iters=2, rounds=2, warmup=1) / k}
+
+    def _graph_bitwise(self, key, label, cfg, method_name, sampler, per_step,
+                       res, rounds=GRAPH_ROUNDS[0], reps=GRAPH_ROUNDS[1]):
+        """`method_name`'s step on `cfg` as one dispatch.GraphedSteps graph
+        of K steps sampling from `sampler`: the first dispatch (K eager
+        steps, then the capture) launches 2 K x per_step through the
+        wrappers; against K eager steps from one state (every module's
+        weights and BN stats, every Adam, the generators, the pool
+        position) the metrics and every module's state bit-equal; a
+        profiled replay holds K x per_step of every kernel family; graph
+        and eager dispatches in `rounds` alternating rounds of `reps`, a
+        replay on CUDA events, device busy, idle share and peak memory
+        (into `res`, and report["times"] under `key`). Returns the
+        checks."""
+        from uaps_tpu_torch import dispatch
+        from uaps_tpu_torch.methods import get_method
+        torch = self.torch
+        k = dispatch.AUTO_STEPS_CUDA
+        method = get_method(method_name)
         state, model = method.init_state(
             cfg, self.dev, torch.Generator().manual_seed(SEED))
         step = method.make_train_step(cfg, model)
         graphed = dispatch.GraphedSteps(step, k, self.dev, sampler)
         self.sync()
         torch.cuda.reset_peak_memory_stats()
+        reset_counters()
         t0 = time.perf_counter()
         state, warm = graphed(state)   # K eager steps, then the capture
         self.sync()
         res["first_dispatch_s"] = time.perf_counter() - t0
         res["capture_s"] = graphed.capture_seconds
-
-        def modules():
-            return [model] + ([state.ema_model] if state.ema_model
-                              is not None else [])
+        launched = counters()
+        reset_counters()   # the capture ticked them, no replay does
+        checks = {}
+        want = {n: 2 * k * per_step[n] for n in launched}
+        checks["warm-up and capture through every wrapper"] = \
+            launched == want
+        if launched != want:
+            log(f"{label} warm-up and capture launches "
+                f"{json.dumps({n: v for n, v in launched.items() if v})}, "
+                f"want {json.dumps({n: v for n, v in want.items() if v})}")
 
         def copies():
             return [{n: v.detach().clone() for n, v in m.state_dict().items()}
-                    for m in modules()]
+                    for m in self._modules(model, state)]
 
         def eager_steps():
             return dispatch.run_steps(step, state, lambda i: sampler.sample(),
@@ -4229,66 +4458,99 @@ class Smoke:
         state, gm = graphed(state)
         self.sync()
         graph = copies()
-        checks = {}
         checks["metrics bit-equal"] = all(torch.equal(gm[n], em[n])
                                           for n in em)
-        checks["params and BN stats bit-equal"] = all(
-            torch.equal(graph[0][n], v) for n, v in eager[0].items())
-        if len(eager) > 1:
-            checks["the teacher bit-equal"] = all(
-                torch.equal(graph[1][n], v) for n, v in eager[1].items())
+        checks["params and BN stats bit-equal (every module)"] = all(
+            torch.equal(graph[j][n], v) for j in range(len(eager))
+            for n, v in eager[j].items())
         checks["finite metrics"] = all(
             bool(torch.isfinite(v).all()) for m in (warm, em, gm)
             for v in m.values())
         largest = max(float((graph[j][n].float() - v.float()).abs().max())
                       for j in range(len(eager)) for n, v in eager[j].items())
         res["graph_vs_eager"] = {
-            "largest_diff": largest,
-            "eager": {n: em[n].tolist() for n in METHOD_TERMS[name]},
-            "graph": {n: gm[n].tolist() for n in METHOD_TERMS[name]}}
-        log(f"{name} graph of {k} steps: first dispatch (warm-up, capture) "
+            "largest_diff": largest, "modules": len(eager),
+            "eager": {n: em[n].tolist() for n in em},
+            "graph": {n: gm[n].tolist() for n in gm}}
+        log(f"{label} graph of {k} steps: first dispatch (warm-up, capture) "
             f"{res['first_dispatch_s']:.2f} s, capture "
             f"{res['capture_s']:.2f} s; against {k} eager steps from one "
-            f"state: losses {[round(float(v), 5) for v in gm['loss']]} and "
+            f"state ({len(eager)} modules): losses "
+            f"{[round(float(v), 5) for v in gm['loss']]} and "
             f"{[round(float(v), 5) for v in em['loss']]}, largest "
             f"difference {largest:.3e}")
 
         # the route and device busy of a replay, then the times
         ok, got, _, busy = self._graph_route(
-            lambda: graphed(state), per_step, k, f"{name} graph dispatch",
-            f"method_{name}_graph")
+            lambda: graphed(state), per_step, k, f"{label} graph dispatch",
+            f"{key}_graph")
         checks["route of a replay (4 x the step's launches)"] = ok
         res["route"] = got
-        rounds = self._dispatch_rounds({"graph": lambda: graphed(state),
-                                        "eager": eager_steps}, k, rounds=3,
-                                       reps=2)
+        times = self._dispatch_rounds({"graph": lambda: graphed(state),
+                                       "eager": eager_steps}, k,
+                                      rounds=rounds, reps=reps)
         res["replay_event_ms"] = self.time_ms(lambda: graphed(state),
                                               iters=2, rounds=2,
                                               warmup=1) / k
         res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
         t = self.report["times"]
-        t[f"method_{name}_step_ms"] = rounds
-        t[f"method_{name}_graph_device_busy_ms"] = busy
-        t[f"method_{name}_graph_idle_share"] = \
-            1.0 - busy / rounds["graph"]["median"]
+        t[f"{key}_step_ms"] = times
+        t[f"{key}_graph_device_busy_ms"] = busy
+        t[f"{key}_graph_idle_share"] = 1.0 - busy / times["graph"]["median"]
         res["checks"] = checks
         card = self.report.get("nvidia_smi", "")
-        log(f"{name} step as a graph of {k} ({card}): graph "
-            f"{rounds['graph']['median']:.3f} ms a step "
-            f"[{rounds['graph']['min']:.3f}, {rounds['graph']['max']:.3f}], "
+        log(f"{label} step as a graph of {k} ({card}): graph "
+            f"{times['graph']['median']:.3f} ms a step "
+            f"[{times['graph']['min']:.3f}, {times['graph']['max']:.3f}], "
             f"a replay on CUDA events {res['replay_event_ms']:.3f} ms a "
             f"step, device busy {busy:.3f} ms, idle share "
-            f"{t[f'method_{name}_graph_idle_share']:.3f}; eager "
-            f"{rounds['eager']['median']:.3f} ms a step "
-            f"[{rounds['eager']['min']:.3f}, {rounds['eager']['max']:.3f}]; "
+            f"{t[f'{key}_graph_idle_share']:.3f}; eager "
+            f"{times['eager']['median']:.3f} ms a step "
+            f"[{times['eager']['min']:.3f}, {times['eager']['max']:.3f}]; "
             f"peak memory {res['peak_mem_gib']:.3f} GiB")
         for check, passed in checks.items():
-            log(f"  {name} graph check: {check}: "
+            log(f"  {label} graph check: {check}: "
                 f"{'ok' if passed else 'FAILED'}")
-        del graphed, state, model, step
-        # (d) the Trainer with its defaults and device pools
-        self._graph_trainer(data, cfg, METHOD_TRAINER, res)
-        return all(checks.values())
+        return checks
+
+    def graph_paths(self, data):
+        """Phase 19's second part: the chain, fused, unfused, fullh +
+        flat-BN, dagm, mtiles and kosdd2 steps, each as a graph of K steps
+        held to K eager steps bit for bit and timed (_graph_bitwise);
+        returns the keys of those that failed a check."""
+        import gc
+        from uaps_tpu_torch.data import SyntheticDefects
+        from uaps_tpu_torch.data.device_pool import PoolSampler
+        torch = self.torch
+        paths = self.report["graph"]["paths"] = {}
+        bad = []
+        for key, label, (make_cfg, arg), per_step in GRAPH_PATHS:
+            t0 = time.perf_counter()
+            if make_cfg == "_uaps_config":
+                cfg = self._uaps_config(**arg)
+                if key == "unfused":
+                    cfg.method = dataclasses.replace(
+                        cfg.method, fused_uncertainty=False)
+                pool = data
+            else:
+                cfg = self._preset_config(arg)
+                pool = SyntheticDefects(cfg.data, seed=SEED,
+                                        labeled_pool=GRAPH_PATH_POOLS[0],
+                                        unlabeled_pool=GRAPH_PATH_POOLS[1])
+            sampler = PoolSampler(pool, cfg.data.batch_size, SEED, self.dev)
+            sampler.start_epoch(1)
+            res = paths[key] = {}
+            checks = self._graph_bitwise(f"graph_{key}", label, cfg,
+                                         cfg.method.name, sampler, per_step,
+                                         res)
+            if not all(checks.values()):
+                bad.append(key)
+            del sampler, pool
+            gc.collect()
+            torch.cuda.empty_cache()
+            res["seconds"] = time.perf_counter() - t0
+            log(f"{label}: {res['seconds']:.1f} s")
+        return bad
 
 # the kernels line: (launch counter, CUDA source, the TPU kernel replaced)
 KERNELS = [
@@ -4406,8 +4668,9 @@ def main() -> int:
         s.phase("18 the fullh + flat-BN UAPS step, the bn_stats blocks, "
                 "the NHWC conv", s.fullh_flat_training)
         s.phase("19 the UAPS and baseline steps as CUDA graphs, the "
-                "Trainer", s.graph_training)
-        s.phase("20 the cct, mt, uamt, dct and ucc steps",
+                "Trainer, the chain, fused, unfused, fullh + flat-BN and "
+                "preset steps as graphs", s.graph_training)
+        s.phase("20 the cct, mt, uamt, dct, ucc and cps steps",
                 s.method_training)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

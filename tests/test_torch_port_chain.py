@@ -35,8 +35,9 @@ import pytest
 import torch
 
 from _torch_port_util import torch_threads  # noqa: F401 (autouse)
-from _torch_port_util import (Counts, check_params, jax_sd, neu_config,
-                              running, seeded_variables)
+from _torch_port_util import (Counts, check_params, jax_sd, jit,
+                              neu_config, open_gates, running,
+                              seeded_variables)
 from uaps_tpu.methods import base as jbase
 from uaps_tpu.methods import uaps as juaps
 from uaps_tpu.models.unet import MultiDecoderUNet as JaxMultiDecoderUNet
@@ -85,10 +86,10 @@ def _close_grads(got, ref, what):
 
 @pytest.fixture
 def gates_open(monkeypatch):
-    """The kernel shape gates opened, so that the port routes its level-0/1
-    blocks through the kernel modules at test sizes."""
-    monkeypatch.setattr(tunet, "conv_kernel_ok", lambda *a: True)
-    monkeypatch.setattr(tunet, "pool_pallas_ok", lambda x: True)
+    """The kernel shape gates opened (`open_gates`), so that the port
+    routes a block, or a net's level-0/1 blocks, through the kernel modules
+    at test sizes."""
+    open_gates(monkeypatch)
     return monkeypatch
 
 
@@ -324,7 +325,7 @@ def chain_step():
     start = int(cfg.method.ramp_iters * cfg.method.consistency_rampup)
     with jax.enable_x64(True):
         tx = jbase.make_optimizer(cfg.optim)
-        step = jax.jit(juaps.make_train_step(
+        step = jit(juaps.make_train_step(
             cfg, _jax_chain_model(jnp.float64), tx))
         state = jbase.TrainState(
             step=jnp.asarray(start, jnp.int32), params=v0["params"],
@@ -336,8 +337,7 @@ def chain_step():
         jout = ({k: float(v) for k, v in jm.items()},
                 jax_sd(new.params, new.batch_stats))
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(tunet, "conv_kernel_ok", lambda *a: True)
-        mp.setattr(tunet, "pool_pallas_ok", lambda x: True)
+        open_gates(mp, HW[1])
         model = _port_chain_model(v0, torch.float64)
         pstate = base.init_model_state(pcfg, model)
         pstate.step = start
@@ -449,6 +449,7 @@ def test_uaps_step_routes_through_fused_blocks(gates_open, backend):
                (kpt, "_fdrop_fwd"), (kpt, "_fdrop_bwd"),
                (kun, "uncertainty_fwd"), (kun, "uncertainty_bwd"),
                (tunet, "conv3x3_bnl")]
+    open_gates(gates_open, HW[1])
     counts = Counts(gates_open, targets)
     _BwdCounts(gates_open, counts)
     bnl_bwd = kbnl._backward

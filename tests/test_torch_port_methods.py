@@ -34,7 +34,7 @@ import pytest
 import torch
 
 from _torch_port_util import torch_threads  # noqa: F401 (autouse)
-from _torch_port_util import (check_method_steps, jax_method_runs,
+from _torch_port_util import (check_method_steps, jax_runs_in_threads,
                               neu_config, port_method_runs, seeded_variables)
 from uaps_tpu.methods import cct as jcct
 from uaps_tpu.methods import dct as jdct
@@ -117,17 +117,19 @@ def _batches(method):
 def method_runs():
     """{method: (cfg, JAX runs, JAX step-1 gradients, port runs)}, from
     step 0 and from the end of the ramp."""
-    out = {}
+    cases, jobs, out = {}, {}, {}
     for name, (jmethod, n_dec) in METHODS.items():
         cfg, pcfg = _cfgs(name)
         v0 = seeded_variables(_jax_model(n_dec, jnp.float32), _hw(name),
                               41)
         batches = _batches(name)
         starts = (0, int(150 * cfg.method.consistency_rampup))
-        with jax.enable_x64(True):
-            jruns, jgrads = jax_method_runs(
-                jmethod, cfg, _jax_model(n_dec, jnp.float64), v0, batches,
-                starts)
+        cases[name] = (cfg, pcfg, v0, batches, starts)
+        jobs[name] = ((jmethod, cfg, _jax_model(n_dec, jnp.float64), v0,
+                       batches, starts), {})
+    for name, (jruns, jgrads) in jax_runs_in_threads(jobs):
+        cfg, pcfg, v0, batches, starts = cases[name]
+        n_dec = METHODS[name][1]
         pruns = port_method_runs(get_method(name), pcfg,
                                  lambda: _port_model(n_dec, v0), batches,
                                  starts, jruns)
@@ -176,12 +178,17 @@ def test_dct_needs_square_images():
 
 
 def test_registry():
-    """Every method but cps is ported; cps raises naming its ROADMAP item."""
-    for name in ("baseline", "uaps", "cct", "mt", "uamt", "dct", "ucc"):
+    """All eight of JAX's methods are ported, cps too; an unknown name
+    raises."""
+    from uaps_tpu.methods import METHODS as JAX_METHODS
+    from uaps_tpu_torch.methods import METHODS
+    assert set(METHODS) == set(JAX_METHODS)
+    for name in ("baseline", "uaps", "cct", "mt", "uamt", "cps", "dct",
+                 "ucc"):
         mod = get_method(name)
         assert callable(mod.init_state) and callable(mod.make_train_step)
-    with pytest.raises(NotImplementedError, match="The other methods"):
-        get_method("cps")
+    with pytest.raises(ValueError, match="unknown method"):
+        get_method("fixmatch")
 
 
 # ------------------------------------------------------------------ CutMix
@@ -270,12 +277,14 @@ def test_ucc_step_mixes_on_its_own():
 
 
 # ----------------------------------------------------------------- Trainer
-@pytest.mark.parametrize("method", ["cct", "mt", "uamt", "dct", "ucc"])
+@pytest.mark.parametrize("method", ["cct", "mt", "uamt", "dct", "ucc",
+                                    "cps"])
 def test_cli_trains_method(tmp_path, method):
     """`python -m uaps_tpu_torch.train --method M` on the CPU (the
     synthetic preset, batch 2, 2 steps as one 2-step dispatch, ucc on the
     weak / strong host stream): the method's model, finite metrics under
-    JAX's names, and the step count."""
+    JAX's names, and the step count; for cps net 2's validation metrics
+    and its checkpoint beside net 1's."""
     import json
     from uaps_tpu_torch import train
     argv = ["--preset", "synthetic", "--method", method, "--device", "cpu",
@@ -286,9 +295,12 @@ def test_cli_trains_method(tmp_path, method):
     rec = json.loads(line)
     want = {"cct": "consistency_loss", "mt": "consistency_loss",
             "uamt": "mean_uncertainty", "dct": "consistency_loss",
-            "ucc": "ps_loss"}[method]
+            "ucc": "ps_loss", "cps": "unlabeled_cps_loss"}[method]
     assert np.isfinite([rec[k] for k in ("loss", want, "train_mdice",
                                          "val_loss")]).all(), rec
+    if method == "cps":   # both nets validated, both kept
+        assert np.isfinite([rec["val2_loss"], rec["val2_mdice"]]).all()
+        assert (tmp_path / "best_model2.pth").exists()
 
 
 def test_pool_sampler_strong_views():

@@ -28,7 +28,8 @@ import pytest
 import torch
 
 from _torch_port_util import torch_threads  # noqa: F401 (autouse)
-from _torch_port_util import jax_main_only, port_logits, seeded_variables
+from _torch_port_util import (jax_main_only, open_gates, port_logits,
+                              seeded_variables)
 from uaps_tpu.models.unet import MultiDecoderUNet as JaxMultiDecoderUNet
 from uaps_tpu.pallas.pseudo_label import _reference_impl
 from uaps_tpu.pallas.pseudo_label import fused_pseudo_label as jax_pseudo
@@ -147,8 +148,7 @@ def test_preset_uaps_step_on_cpu(name, monkeypatch):
     full = cfg.data.image_size
     assert full[1] * hw[0] == full[0] * hw[1]   # the preset's aspect
     cfg.data = dataclasses.replace(cfg.data, image_size=hw, batch_size=2)
-    monkeypatch.setattr(tunet, "conv_kernel_ok", lambda *a: True)
-    monkeypatch.setattr(tunet, "pool_pallas_ok", lambda x: True)
+    open_gates(monkeypatch, hw[1])
     method = get_method("uaps")
     state, model = method.init_state(cfg, "cpu")
     data = SyntheticDefects(cfg.data, seed=3)

@@ -36,7 +36,7 @@ import torch
 
 from _torch_port_util import torch_threads  # noqa: F401 (autouse)
 from _torch_port_util import ZERO_GRAD_BIASES, Counts, jax_sd
-from _torch_port_util import seeded_variables
+from _torch_port_util import jit, open_gates, seeded_variables
 from uaps_tpu.models import unet as junet
 from uaps_tpu.pallas import conv3x3 as jnhwc
 from uaps_tpu.pallas import conv3x3_nchw as jconv
@@ -72,10 +72,10 @@ def _jax_vjp(fn, args, cts):
 
 @pytest.fixture
 def gates_open(monkeypatch):
-    """The kernel shape gates opened: the port routes its level-0/1 convs
-    and pools through the kernel modules at test sizes."""
-    monkeypatch.setattr(tunet, "conv_kernel_ok", lambda *a: True)
-    monkeypatch.setattr(tunet, "pool_pallas_ok", lambda x: True)
+    """The kernel shape gates opened (`open_gates`): the port routes a
+    block's convs through the kernel modules at test sizes (a net's tests
+    narrow the gate to its level-0/1 convs)."""
+    open_gates(monkeypatch)
     return monkeypatch
 
 
@@ -285,7 +285,7 @@ def test_stats_convblock_matches_jax(gates_open, kind):
                               xx, train=True, mutable=["batch_stats"])
             return (y * ct).sum(), (y, mut["batch_stats"])
 
-        (_, (ry, rstats)), (rgp, rgx) = jax.jit(jax.value_and_grad(
+        (_, (ry, rstats)), (rgp, rgx) = jit(jax.value_and_grad(
             loss, (0, 1), has_aux=True))(v["params"], jnp.asarray(x))
         rev = np.asarray(jb.apply(v, jnp.asarray(x), train=False))
     pb = tunet.ConvBlock(CIN, COUT, 0.0, torch.float64, True, **knobs)
@@ -329,6 +329,7 @@ def test_unet_fullh_flat_matches_jax(gates_open):
     against JAX's, f64 activations (the f32 logits head on both sides);
     the port's level-0/1 convs take the fullh entries and every level-0/1
     BN is a StatsBatchNorm."""
+    open_gates(gates_open, UNET_HW[1])
     counts = Counts(gates_open, [
         (kconv, "conv3x3_nchw_fullh"), (kconv, "conv3x3_nchw_dgrad_fullh"),
         (kconv, "conv3x3_nchw_wgrad_fullh"), (kconv, "_forward")])
@@ -351,7 +352,7 @@ def test_unet_fullh_flat_matches_jax(gates_open):
                                mutable=["batch_stats"])
             return (lg * ct).sum(), (lg, mut["batch_stats"])
 
-        (_, (rlg, rstats)), rg = jax.jit(jax.value_and_grad(
+        (_, (rlg, rstats)), rg = jit(jax.value_and_grad(
             loss, has_aux=True))(v["params"])
     pm = load_jax_params(
         tunet.UNet(4, 3, torch.float64, features=FEATURES,
@@ -407,6 +408,7 @@ def test_uaps_step_fullh_flat_routes_through_the_kernel_modules(gates_open):
             cfg, model=dataclasses.replace(cfg.model, name=name)), "cpu")
         assert sum(isinstance(b, tunet.StatsBatchNorm)
                    for b in m.modules()) == (8 if name == "unet" else 20)
+    open_gates(gates_open, 32)
     counts = Counts(gates_open, [
         (kconv, "conv3x3_nchw_fullh"), (kconv, "conv3x3_nchw_dgrad_fullh"),
         (kconv, "conv3x3_nchw_wgrad_fullh"), (kconv, "_forward"),

@@ -21,7 +21,7 @@ import pytest
 import torch
 
 from _torch_port_util import torch_threads  # noqa: F401 (autouse)
-from _torch_port_util import (check_method_steps, jax_method_runs,
+from _torch_port_util import (check_method_steps, jax_runs_in_threads,
                               neu_config, port_method_runs, seeded_variables)
 from uaps_tpu.methods import mt as jmt
 from uaps_tpu.methods import uamt as juamt
@@ -95,15 +95,16 @@ def v0():
 def teacher_runs(v0):
     """{method: (cfg, JAX runs, JAX step-1 gradients, port runs)}, from
     step 0 and from consistency_start_iter."""
-    out = {}
+    cases, jobs, out = {}, {}, {}
     for name, jmethod in METHODS.items():
         cfg, pcfg = _cfgs(name)
         batches = _batches(name)
         starts = (0, cfg.method.consistency_start_iter)
-        with jax.enable_x64(True):
-            jruns, jgrads = jax_method_runs(
-                jmethod, cfg, _jax_model(jnp.float64), v0, batches, starts,
-                teacher=True)
+        cases[name] = (cfg, pcfg, batches, starts)
+        jobs[name] = ((jmethod, cfg, _jax_model(jnp.float64), v0, batches,
+                       starts), {"teacher": True})
+    for name, (jruns, jgrads) in jax_runs_in_threads(jobs):
+        cfg, pcfg, batches, starts = cases[name]
         pruns = port_method_runs(get_method(name), pcfg,
                                  lambda: _port_model(v0), batches, starts,
                                  jruns, teacher=True)

@@ -53,8 +53,8 @@ import pytest
 import torch
 
 from _torch_port_util import torch_threads  # noqa: F401 (autouse)
-from _torch_port_util import (ZERO_GRAD_BIASES, Counts, check_params,
-                              neu_config, seeded_variables)
+from _torch_port_util import (ZERO_GRAD_BIASES, Counts, check_params, jit,
+                              neu_config, open_gates, seeded_variables)
 from _torch_port_util import jax_sd as _sd
 from _torch_port_util import running as _running
 from uaps_tpu.methods import base as jbase
@@ -139,7 +139,7 @@ def runs():
                                  batch_stats=v0["batch_stats"],
                                  opt_state=tx.init(v0["params"]),
                                  key=jax.random.key(0))
-        step = jax.jit(jbaseline.make_train_step(cfg, jm, tx))
+        step = jit(jbaseline.make_train_step(cfg, jm, tx))
         out["jax_steps"] = []
         f32 = functools.partial(jax.tree.map,
                                 lambda a: a.astype(jnp.float32))
@@ -156,14 +156,13 @@ def runs():
                 mu = state.opt_state.inner_state[0].mu
                 out["jax_grad"] = (m["loss"], _sd(jax.tree.map(
                     lambda a: a / (1 - cfg.optim.b1), mu)))
-        ev = jax.jit(jbase.make_eval_step(cfg, jm))
+        ev = jit(jbase.make_eval_step(cfg, jm))
         out["jax_eval"] = {k: float(v) for k, v in ev(
             v0["params"], v0["batch_stats"], batches[0]).items()}
 
     # --- port, with the kernel gates opened (see the module docstring)
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(tunet, "conv_kernel_ok", lambda *a: True)
-        mp.setattr(tunet, "pool_pallas_ok", lambda x: True)
+        open_gates(mp, HW[1])
         counts = Counts(mp, KERNEL_CALLS)
         tb = _torch_batch(batches[0])
         model = _port_model(v0, torch.float32)

@@ -46,8 +46,9 @@ import pytest
 import torch
 
 from _torch_port_util import torch_threads  # noqa: F401 (autouse)
-from _torch_port_util import (Counts, check_params, jax_sd, neu_config,
-                              running, seeded_variables)
+from _torch_port_util import (Counts, check_params, jax_sd, jit,
+                              neu_config, open_gates, running,
+                              seeded_variables)
 from uaps_tpu.methods import base as jbase
 from uaps_tpu.methods import uaps as juaps
 from uaps_tpu.models.unet import MultiDecoderUNet as JaxMultiDecoderUNet
@@ -114,10 +115,10 @@ def _torch_batch(b):
 
 @pytest.fixture
 def gates_open(monkeypatch):
-    """The kernel shape gates opened, so that the port routes its level-0/1
-    convs and pools through the kernel modules at test sizes."""
-    monkeypatch.setattr(tunet, "conv_kernel_ok", lambda *a: True)
-    monkeypatch.setattr(tunet, "pool_pallas_ok", lambda x: True)
+    """The kernel shape gates opened (`open_gates`), so that the port
+    routes its level-0/1 convs and pools through the kernel modules at test
+    sizes."""
+    open_gates(monkeypatch, HW[1])
     return monkeypatch
 
 
@@ -584,7 +585,7 @@ def uaps_runs():
     with jax.enable_x64(True):
         jm = _jax_model(n_aux, jnp.float64)
         tx = jbase.make_optimizer(cfg.optim)
-        step = jax.jit(juaps.make_train_step(cfg, jm, tx))
+        step = jit(juaps.make_train_step(cfg, jm, tx))
 
         def same_types(new, old):
             # keep every float leaf at its starting dtype (x64 mode lifts
@@ -615,8 +616,7 @@ def uaps_runs():
                 for mu, prev in zip(mus, [None] + mus[:-1])]
 
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(tunet, "conv_kernel_ok", lambda *a: True)
-        mp.setattr(tunet, "pool_pallas_ok", lambda x: True)
+        open_gates(mp, HW[1])
         for start in (0, ramp_end):
             model = _port_model(n_aux, v0, torch.float64)
             state = base.init_model_state(pcfg, model)
@@ -769,14 +769,13 @@ def unfused_run():
             step=jnp.asarray(ramp_end, jnp.int32), params=v0["params"],
             batch_stats=v0["batch_stats"], opt_state=tx.init(v0["params"]),
             key=jax.random.key(0))
-        new, m = jax.jit(juaps.make_train_step(cfg, jm, tx))(state, batch)
+        new, m = jit(juaps.make_train_step(cfg, jm, tx))(state, batch)
         jax_out = ({k: float(v) for k, v in m.items()},
                    jax_sd(new.params, new.batch_stats),
                    {k: g / (1 - cfg.optim.b1) for k, g in jax_sd(
                        new.opt_state.inner_state[0].mu).items()})
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(tunet, "conv_kernel_ok", lambda *a: True)
-        mp.setattr(tunet, "pool_pallas_ok", lambda x: True)
+        open_gates(mp, HW[1])
         calls = Counts(mp, [(kpl, "pseudo_label_plain"),
                             (kun, "uncertainty_fwd")])
         model = _port_model(n_aux, v0, torch.float64)

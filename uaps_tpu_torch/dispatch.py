@@ -147,8 +147,11 @@ class GraphedSteps:
         if getattr(self.sampler, "generator", None) is not None:
             graph.register_generator_state(self.sampler.generator)
         steps = state.step
-        # backward allocates the captured steps' .grad in the graph's pool
+        # backward allocates the captured steps' .grad in the graph's pool:
+        # every optimizer's, cps's second net's too
         state.optimizer.zero_grad(set_to_none=True)
+        if state.second is not None:
+            state.second.optimizer.zero_grad(set_to_none=True)
         with torch.cuda.graph(graph):
             _, self.metrics = run_steps(self.step, state, self._batch,
                                         self.k)

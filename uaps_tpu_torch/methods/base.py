@@ -1,10 +1,11 @@
 """Shared training machinery: the port's `uaps_tpu/methods/base.py`.
 
-`build_model` (with the JAX enum validation), the train state, Adam with a
-settable learning rate and the host-side plateau scheduler, the train-mode
-forward, the mean teacher (its copy of the student and its EMA update), the
-supervised CE + Dice pair (the fused kernel where JAX's gate sends it
-there), the ramped consistency weight and the main-decoder eval step.
+`build_model` (with the JAX enum validation), the train state (with cps's
+second net), Adam with a settable learning rate and the host-side plateau
+scheduler, the train-mode forward, the mean teacher (its copy of the
+student and its EMA update), the supervised CE + Dice pair (the fused
+kernel where JAX's gate sends it there), the ramped consistency weight and
+the main-decoder eval step.
 
 Where JAX threads an immutable state pytree through a jitted step, the port
 keeps the parameters and BN running stats in the `nn.Module`, which the
@@ -38,6 +39,9 @@ _MODEL_ENUMS = {
 }
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# the deep-supervision nets, which JAX builds from conv_backend,
+# conv_variant and remat alone (methods/base.py:120-136)
+DS_NETS = ("unet_f", "unet_g", "unet_h")
 
 
 def resolve_device(device) -> torch.device:
@@ -68,11 +72,11 @@ def build_model(cfg, device, generator: Optional[torch.Generator] = None
         generator = torch.Generator().manual_seed(cfg.run.seed)
     # remat only trades memory in the backward: accepted and ignored
     m = cfg.model
-    kwargs = {"nchw_levels": m.nchw_levels, "conv_backend": m.conv_backend,
-              "conv_variant": m.conv_variant,
-              "head_variant": m.head_variant,
-              "pool_backend": m.pool_backend, "bn_backend": m.bn_backend,
-              "dropout_backend": m.dropout_backend}
+    kwargs = {"conv_backend": m.conv_backend, "conv_variant": m.conv_variant}
+    if m.name not in DS_NETS:
+        kwargs.update(nchw_levels=m.nchw_levels, head_variant=m.head_variant,
+                      pool_backend=m.pool_backend, bn_backend=m.bn_backend,
+                      dropout_backend=m.dropout_backend)
     if m.name == "unet_uaps":
         kwargs["n_aux"] = m.n_aux
     if m.name in ("unet_uaps", "unet_cct", "unet_ucc", "unet_ccps"):
@@ -101,15 +105,21 @@ class TrainState:
     `ema_params` and `ema_batch_stats`): a module on the model's device
     with the EMA parameters and the teacher's own BN running stats, which
     only its own forwards move. None for the other methods.
+
+    `second` is cps's net 2 (JAX's `second`, a `SecondNet`): its module and
+    its own Adam. It shares this state's counter and generator. None for
+    the other methods.
     """
 
     def __init__(self, step: int, optimizer: torch.optim.Optimizer,
                  generator: torch.Generator, counter: torch.Tensor,
-                 ema_model: Optional[nn.Module] = None):
+                 ema_model: Optional[nn.Module] = None,
+                 second: Optional["SecondNet"] = None):
         self.optimizer = optimizer
         self.generator = generator
         self.counter = counter
         self.ema_model = ema_model
+        self.second = second
         self.step = step
 
     @property
@@ -131,6 +141,17 @@ class TrainState:
         self._step += n
 
 
+class SecondNet:
+    """cps's net 2 (JAX `TrainState.second`): its module, whose parameters
+    and BN buffers the step updates in place, and its own Adam with its own
+    lr tensor. `get_lr` and `set_lr` take it as they take a TrainState, so
+    that a second plateau scheduler steps its lr (JAX train.py:183-187)."""
+
+    def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer):
+        self.model = model
+        self.optimizer = optimizer
+
+
 def make_optimizer(params, optim_cfg, device) -> torch.optim.Optimizer:
     """Adam with the config's lr, betas and eps (JAX:
     optax.inject_hyperparams(optax.adam)). The lr is a 0-d tensor on
@@ -150,12 +171,14 @@ def make_optimizer(params, optim_cfg, device) -> torch.optim.Optimizer:
                             capturable=dev.type == "cuda")
 
 
-def get_lr(state: TrainState) -> float:
+def get_lr(state) -> float:
+    """The lr of a TrainState's Adam, or of a SecondNet's."""
     return float(state.optimizer.param_groups[0]["lr"])
 
 
-def set_lr(state: TrainState, lr: float) -> TrainState:
-    """Fill the lr tensor in place (every group shares it)."""
+def set_lr(state, lr: float):
+    """Fill the lr tensor of a TrainState's Adam, or of a SecondNet's, in
+    place (every group shares it)."""
     for group in state.optimizer.param_groups:
         group["lr"].fill_(lr)
     return state
@@ -266,7 +289,9 @@ def ramp_weight(cmax: float, step, ramp_iters: int,
 
 def make_eval_step(cfg, model: nn.Module) -> Callable:
     """Main-decoder validation step: loss = 0.5 (CE + (1 - mDice)) and the
-    metrics, per batch (the caller averages over batches)."""
+    metrics, per batch (the caller averages over batches). The logits are
+    `main_only`'s where the model has it, else the forward's: a
+    deep-supervision net's forward returns dp0 (JAX base.py:231)."""
     n_classes = cfg.data.num_classes
     forward = getattr(model, "main_only", model)
 

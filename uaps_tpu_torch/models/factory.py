@@ -1,12 +1,12 @@
 """Model factory: the port's counterpart of `uaps_tpu/models/factory.py`.
 
 Registers the U-Net family (`unet`: baseline, mt, uamt, dct; `unet_uaps`;
-`unet_cct`: cct; `unet_ucc`: ucc; `unet_ccps`) with the JAX factory's
-keyword arguments, and initialises the weights as flax does (lecun_normal
-conv kernels, zero biases, BN scale 1 / bias 0, running mean 0 / var 1)
-from an explicit `torch.Generator`. The deep-supervision nets of `cps`
-and the ResNet BaseNets come later (ROADMAP.md Queue A, "The other
-methods" and "Remainder").
+`unet_cct`: cct; `unet_ucc`: ucc; `unet_ccps`; the deep-supervision nets
+`unet_f`: cps, `unet_g`, `unet_h`) with the JAX factory's keyword
+arguments, and initialises the weights as flax does (lecun_normal conv
+kernels, zero biases, BN scale 1 / bias 0, running mean 0 / var 1) from an
+explicit `torch.Generator`. The ResNet BaseNets come later (ROADMAP.md
+Queue A, "Remainder").
 """
 from __future__ import annotations
 
@@ -15,20 +15,16 @@ from typing import Any, Callable, Dict
 import torch
 import torch.nn as nn
 
-from uaps_tpu_torch.models.unet import (Conv3x3, MultiDecoderUNet,
-                                        PointwiseConv, UNet, lecun_normal_)
+from uaps_tpu_torch.models.unet import (Conv3x3, DeepSupervisionUNet,
+                                        MultiDecoderUNet, PointwiseConv, UNet,
+                                        lecun_normal_)
 
 # name -> constructor(num_classes, in_chns, dtype, **knobs) -> nn.Module
 MODEL_REGISTRY: Dict[str, Callable[..., nn.Module]] = {}
 
 _UNPORTED = {
-    **{n: "ROADMAP.md Queue A, 'The other methods' (DeepSupervisionUNet, "
-          "with cps)"
-       for n in ("unet_f", "unet_g", "unet_h")},
-    **{f"basenet_{bk}": "ROADMAP.md Queue A, 'Remainder' (models/resnet.py)"
-       for bk in ("resnet18", "resnet34", "resnet50", "resnet101",
-                  "resnet152")},
-}
+    f"basenet_{bk}": "ROADMAP.md Queue A, 'Remainder' (models/resnet.py)"
+    for bk in ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152")}
 
 
 def _register(name):
@@ -73,6 +69,22 @@ MODEL_REGISTRY["unet_cct"] = _multi(
     ("feature_noise", "dropout", "feature_dropout"))
 MODEL_REGISTRY["unet_ucc"] = _multi(("feature_noise",))
 MODEL_REGISTRY["unet_ccps"] = _multi(("feature_dropout",))
+
+
+def _deep_supervision(perturbation):
+    """JAX passes these nets only conv_backend, conv_variant and remat
+    (which the port ignores: ROADMAP.md Queue A, 'Remainder')."""
+    def make(num_classes, in_chns, dtype, conv_backend="auto",
+             conv_variant="taps"):
+        return DeepSupervisionUNet(num_classes, perturbation, in_chns, dtype,
+                                   conv_backend, conv_variant)
+    return make
+
+
+# m_unet.py UNet_f (cps), UNet_g, UNet_h
+MODEL_REGISTRY["unet_f"] = _deep_supervision("none")
+MODEL_REGISTRY["unet_g"] = _deep_supervision("feature_dropout")
+MODEL_REGISTRY["unet_h"] = _deep_supervision("feature_noise")
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:

@@ -1,4 +1,5 @@
-"""U-Net building blocks and the multi-decoder family, NCHW.
+"""U-Net building blocks, the multi-decoder and deep-supervision families,
+NCHW.
 
 Counterpart of `uaps_tpu/models/unet.py`. Module names follow the reference
 torch code (`conv_conv.{0,1,4,5}`, `maxpool_conv.1`, `conv1x1`, `out_conv`),
@@ -15,12 +16,15 @@ Matching the JAX model:
   * UpBlock is conv1x1 then bilinear x2 with align_corners=True (as two
     interpolation matmuls), then concat [skip, up]; LeakyReLU slope 0.01,
     BN eps 1e-5;
-  * kernel dispatch mirrors the JAX gates: a 3x3 conv runs the CUDA conv
-    (kernels/conv3x3_nchw.py) where its level is < nchw_levels, conv_backend
-    != "xla" and the shape gate holds (H, W >= 128, H % 8 == 0,
-    W % 128 == 0, Cout <= 32, Cin <= 64); a 2x2 pool whose input level is
-    < nchw_levels runs the CUDA pool where `pool_pallas_ok` holds and the
-    backends allow it. The ConvBlock convs take ModelConfig.conv_variant and
+  * kernel dispatch mirrors the JAX gates: a ConvBlock's 3x3 conv runs
+    the CUDA conv (kernels/conv3x3_nchw.py) wherever conv_backend != "xla"
+    and the shape gate holds (H, W >= 128, H % 8 == 0, W % 128 == 0,
+    Cout <= 32, Cin <= 64), at every level: JAX's `Conv3x3` takes the
+    Pallas conv at its NCHW levels and, between two transposes
+    (`conv3x3_fast`), at its NHWC levels too, so nchw_levels does not
+    decide it; a 2x2 pool whose input level is < nchw_levels runs the
+    CUDA pool where `pool_pallas_ok` holds and the backends allow it (JAX's
+    NHWC pool is XLA's). The ConvBlock convs take ModelConfig.conv_variant and
     the head head_variant, as in JAX: "fullh" runs the fullh entries (their
     own launch counters; a bf16 fullh conv rounds its output to bf16 before
     any cast), every other Pallas variant name the default entries of the
@@ -46,7 +50,7 @@ Train mode (`model.train()`), as flax computes it:
 
 ConvBlock recipes, in JAX's order (models/unet.py:312-349), at the levels
 below nchw_levels (JAX's NCHW levels); deeper levels keep the default
-block:
+block, its convs gated by shape alone:
   * "chain": conv1 emits its output's moments (kernels/block_conv.py
     `chain_conv_plain`), `BNFactorShift` turns them into BN's per-channel
     factor and shift, conv2 applies normalise + LeakyReLU + the level's
@@ -80,6 +84,13 @@ once, the main decoder on its features and aux decoder i on the features
 perturbed by `perturbations[i]` (all 5 skips, one seed each, drawn from the
 generator after the encoder's). The perturbations apply in eval mode too,
 as in JAX; only the encoder's dropout is train-only.
+
+The deep-supervision net (`DeepSupervisionUNet`: unet_f, unet_g, unet_h,
+the nets of cps) has no NCHW level in JAX: its pools are plain, its
+ConvBlock convs take the kernel conv by the shape gate alone, and its four
+logits heads are flax `nn.Conv` in f32 (plain `F.conv2d` here). Its forward
+returns dp0, the one output JAX's cps step and eval read (XLA drops the
+rest); `full=True` returns JAX's dict.
 """
 from __future__ import annotations
 
@@ -497,9 +508,9 @@ def _block_kw(level: int, nchw_levels: int, conv_backend: str,
 
 class Encoder(nn.Module):
     """5-stage encoder returning every skip feature (UAPS_unet.py:89-116).
-    Level i runs the CUDA conv when i < nchw_levels (and the backend
-    allows); the pool into level i runs the CUDA pool when its input
-    level i-1 < nchw_levels."""
+    Every level's convs may run the CUDA conv (where the backend allows and
+    the shape gate holds); the pool into level i runs the CUDA pool when
+    its input level i-1 < nchw_levels."""
 
     def __init__(self, in_chns: int, features: Sequence[int],
                  dropout: Sequence[float], dtype: torch.dtype,
@@ -514,14 +525,12 @@ class Encoder(nn.Module):
         drop = ("xla" if dropout_backend == "auto" and not conv_kernel
                 else dropout_backend)
         knobs = (nchw_levels, conv_backend, conv_variant, bn_backend)
-        self.in_conv = ConvBlock(in_chns, ft[0], dp[0], dtype,
-                                 conv_kernel and 0 < nchw_levels, drop,
-                                 **_block_kw(0, *knobs))
+        self.in_conv = ConvBlock(in_chns, ft[0], dp[0], dtype, conv_kernel,
+                                 drop, **_block_kw(0, *knobs))
         for i in range(1, SKIPS):
             self.add_module(f"down{i}", DownBlock(
                 ft[i - 1], ft[i], dp[i], dtype,
-                pool_kernel and i - 1 < nchw_levels,
-                conv_kernel and i < nchw_levels, drop,
+                pool_kernel and i - 1 < nchw_levels, conv_kernel, drop,
                 **_block_kw(i, *knobs)))
 
     def forward(self, x: torch.Tensor,
@@ -553,8 +562,8 @@ class Decoder(nn.Module):
         for j in range(4):
             lvl = 3 - j
             self.add_module(f"up{j + 1}", UpBlock(
-                ft[lvl + 1], ft[lvl], ft[lvl], dtype,
-                conv_kernel and lvl < nchw_levels, **_block_kw(lvl, *knobs)))
+                ft[lvl + 1], ft[lvl], ft[lvl], dtype, conv_kernel,
+                **_block_kw(lvl, *knobs)))
         if nchw_levels > 0 and head_variant != "xla":
             self.out_conv = Conv3x3(ft[0], num_classes, dtype,
                                     out_dtype=torch.float32,
@@ -676,6 +685,90 @@ class MultiDecoderUNet(nn.Module):
         """Encoder + main decoder only: the eval/serving path."""
         return _to_nhwc(self.main_decoder(self.encoder(_to_nchw(x),
                                                        generator)))
+
+
+# the deep-supervision nets' feature perturbation (JAX factory unet_f/g/h)
+DS_PERTURBATIONS = ("none", "feature_dropout", "feature_noise")
+
+
+class DeepSupervisionDecoder(Decoder):
+    """Decoder_mcps (JAX `DeepSupervisionDecoder`, m_unet.py:156-210):
+    `Decoder` with every level JAX's NHWC (nchw_levels 0: the up-stages'
+    default blocks, dropout 0, and the f32 logits head `out_conv`, dp0),
+    and the coarser f32 heads `out_conv_dp3`, `_dp2` and `_dp1` on the
+    first three up-stages, each resized to the input with nearest. The
+    heads are flax `nn.Conv(dtype=f32)`: plain f32 convs, never the
+    kernel."""
+
+    def __init__(self, num_classes: int, features: Sequence[int],
+                 dtype: torch.dtype, conv_kernel: bool,
+                 conv_backend: str = "auto", conv_variant: str = "taps"):
+        super().__init__(num_classes, features, dtype, 0, conv_kernel,
+                         "taps", conv_backend, conv_variant)
+        for i in (1, 2, 3):   # dp_i's head reads up(4 - i)'s ft[i] channels
+            self.add_module(f"out_conv_dp{i}",
+                            Conv3x3(features[i], num_classes, torch.float32))
+
+    def forward(self, feats: Sequence[torch.Tensor], full: bool = False):
+        """dp0, NCHW f32 logits; with `full` JAX's dict: the bottleneck,
+        the up-stages' features f1..f4 and the heads dp0..dp3."""
+        if not full:
+            return super().forward(feats)
+        x0, x1, x2, x3, x4 = feats
+        f = [x4]
+        for j, skip in enumerate((x3, x2, x1, x0)):
+            f.append(getattr(self, f"up{j + 1}")(f[-1], skip))
+
+        def head(i):
+            return F.interpolate(getattr(self, f"out_conv_dp{i}")(f[4 - i]),
+                                 size=x0.shape[2:], mode="nearest")
+
+        return {"bottleneck": x4, "f1": f[1], "f2": f[2], "f3": f[3],
+                "f4": f[4], "dp0": self.out_conv(f[4]), "dp1": head(1),
+                "dp2": head(2), "dp3": head(3)}
+
+
+class DeepSupervisionUNet(nn.Module):
+    """Encoder + deep-supervision decoder (JAX `DeepSupervisionUNet`,
+    m_unet.py UNet_f / UNet_g / UNet_h), with `perturbation` "none",
+    "feature_dropout" or "feature_noise" applied to all 5 skips after the
+    encoder (seeds from the generator after the encoder's, JAX's "perturb"
+    rng). JAX gives it no NCHW level: plain pools, the encoder's dropout
+    by the "auto" backend, the ConvBlock convs by the shape gate alone.
+    The torch module names are the reference's (`encoder`, `decoder`)."""
+
+    def __init__(self, num_classes: int, perturbation: str = "none",
+                 in_chns: int = 3, dtype: torch.dtype = torch.float32,
+                 conv_backend: str = "auto", conv_variant: str = "taps",
+                 features: Sequence[int] = UNET_FEATURES,
+                 dropout: Sequence[float] = UNET_DROPOUT):
+        super().__init__()
+        if perturbation not in DS_PERTURBATIONS:
+            raise ValueError(f"unknown perturbation kind: {perturbation!r}")
+        conv_k, pool_k = _kernel_flags(conv_backend, "auto")
+        self.perturbation = perturbation
+        self.conv_backend = conv_backend
+        self.encoder = Encoder(in_chns, features, dropout, dtype, 0, conv_k,
+                               pool_k, "auto", conv_backend, conv_variant)
+        self.decoder = DeepSupervisionDecoder(num_classes, features, dtype,
+                                              conv_k, conv_backend,
+                                              conv_variant)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                full: bool = False):
+        """NHWC images -> dp0, NHWC f32 logits (what cps trains and eval
+        and serving read: JAX's step keeps only dp0, methods/cps.py:52);
+        with `full`, JAX's dict of NHWC tensors."""
+        feats = self.encoder(_to_nchw(x), generator)
+        if self.perturbation != "none":
+            seeds = draw_seeds(generator, SKIPS, feats[0].device)
+            feats = perturb_features(seeds, feats, self.perturbation,
+                                     self.conv_backend)
+        out = self.decoder(feats, full)
+        if not full:
+            return _to_nhwc(out)
+        return {k: _to_nhwc(v) for k, v in out.items()}
 
 
 def lecun_normal_(t: torch.Tensor, generator: torch.Generator) -> None:

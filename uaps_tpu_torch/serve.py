@@ -6,13 +6,14 @@
 `predict` keeps the JAX contract (serve.py:142-169): uint8 NHWC images are
 normalised as (x / 255 - mean) / std in f32 (float input is taken as
 already normalised), cut into micro-batches of `batch_size` with the last
-one padded by repeating its last image, run through the main decoder,
-softmaxed in f32 and argmaxed; it returns int32 masks [N, H, W] and f32
-probs [N, H, W, C]. `uncertainty` (serve.py:171-178) returns the main
-decoder's KL map against the mean of every decoder's softmax, the aux
-decoders seeing perturbed features. For concurrent traffic,
-`uaps_tpu_torch.server` puts its `AsyncBatcher` and HTTP front in front of
-this engine.
+one padded by repeating its last image, run through the main decoder (a
+deep-supervision net's forward gives its dp0 head, as JAX's `_forward`
+takes `out["dp0"]`), softmaxed in f32 and argmaxed; it returns int32
+masks [N, H, W] and f32 probs [N, H, W, C]. `uncertainty`
+(serve.py:171-178) returns the main decoder's KL map against the mean of
+every decoder's softmax, the aux decoders seeing perturbed features. For
+concurrent traffic, `uaps_tpu_torch.server` puts its `AsyncBatcher` and
+HTTP front in front of this engine.
 
 Weights come from a `.pth` (a reference checkpoint, one written by the
 port's trainer, or JAX weights written by the JAX package's `save_pth`) or

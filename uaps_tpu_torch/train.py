@@ -5,14 +5,17 @@
         [--epochs 2 --iter_per_epoch 20] [--device cuda] \
         [--steps_per_dispatch K] [--device_pools]
 
-M is `uaps`, `baseline`, `cct`, `mt`, `uamt`, `dct` or `ucc` (`ucc` trains
-on the weak / strong stream, `train_iter_weak_strong`). The loop is the JAX
-one on one device: `iter_per_epoch` train steps, the
+M is `uaps`, `baseline`, `cct`, `mt`, `uamt`, `cps`, `dct` or `ucc`
+(`ucc` trains on the weak / strong stream, `train_iter_weak_strong`). The
+loop is the JAX one on one device: `iter_per_epoch` train steps, the
 epoch's metric means (the step metrics stay on the device until then), a
 validation sweep of the main decoder, the plateau scheduler on val mDice, a
 keep-best `best_model.pth` (the reference's training dict) and one line of
-metrics JSONL per epoch under `--out_dir`. The step runs on `cuda` unless
-`--device cpu` is given.
+metrics JSONL per epoch under `--out_dir`. `cps` validates both nets (net
+2's metrics as `val2_*`), steps net 2's lr with a second scheduler on
+`val2_mdice`, keeps the best on the larger of the two mDice and writes net
+2 beside net 1 as `best_model2.pth` (JAX train.py:183-187, :232-262,
+:345-366). The step runs on `cuda` unless `--device cpu` is given.
 
 K steps go in one dispatch (`RunConfig.steps_per_dispatch`; 0, the default,
 means 4 on CUDA and 1 on the CPU; `profile_steps` forces 1): on CUDA one
@@ -25,10 +28,9 @@ pool there; data without fixed pools is trained from the host stream, with
 a warning, as in JAX. `profile_steps=(start, stop)` writes a torch.profiler
 trace of epoch 1's steps start..stop to `out_dir/profile`.
 
-Not ported yet: the `cps` method (ROADMAP.md Queue A, "The other
-methods"), `--resume` ("The rest of the Trainer and CLIs"), more than one
-device ("Multi-GPU"), and the `RunConfig` knobs of `UNPORTED_RUN_KNOBS`,
-which raise when set (`check_run_config`).
+Not ported yet: `--resume` (ROADMAP.md Queue A, "The rest of the Trainer
+and CLIs"), more than one device ("Multi-GPU"), and the `RunConfig` knobs
+of `UNPORTED_RUN_KNOBS`, which raise when set (`check_run_config`).
 """
 from __future__ import annotations
 
@@ -123,8 +125,16 @@ class Trainer:
             cfg, seed=cfg.run.seed)
         self.state, self.model = self.method.init_state(cfg, self.device)
         self.train_step = self.method.make_train_step(cfg, self.model)
-        self.eval_step = base.make_eval_step(cfg, self.model)
+        # (metric prefix, eval step) a net: cps validates both
+        second = self.state.second
+        self.eval_steps = [("val_", base.make_eval_step(cfg, self.model))]
+        if second is not None:
+            self.eval_steps.append(
+                ("val2_", base.make_eval_step(cfg, second.model)))
         self.scheduler = base.PlateauScheduler(cfg.optim)
+        # cps's net 2 has its own plateau scheduler (JAX train.py:183-187)
+        self.scheduler2 = (base.PlateauScheduler(cfg.optim)
+                           if second is not None else None)
         self.best_dice = -1.0
         self.epochs_since_best = 0
         self.k_dispatch = dispatch.steps_per_dispatch(cfg.run, self.device)
@@ -150,18 +160,25 @@ class Trainer:
                 self.train_step, self.k_dispatch, self.device, self.pools)
 
     def validate(self) -> Dict[str, float]:
-        """Mean over the validation batches of the eval step's metrics."""
+        """Mean over the validation batches of the eval step's metrics, of
+        each net (cps's net 2 under `val2_` names)."""
+        out: Dict[str, float] = {}
         if self._val_pool is not None:
-            return device_pool.pool_eval(self.eval_step, *self._val_pool,
-                                         self.cfg.data.batch_size)
-        sums: Dict[str, float] = {}
+            for prefix, eval_step in self.eval_steps:
+                m = device_pool.pool_eval(eval_step, *self._val_pool,
+                                          self.cfg.data.batch_size)
+                out.update({k.replace("val_", prefix, 1): v
+                            for k, v in m.items()})
+            return out
         n = 0
         for batch in self.data.val_iter():
-            m = self.eval_step(to_device(batch, self.device))
-            for k, v in m.items():
-                sums[k] = sums.get(k, 0.0) + float(v)
+            batch = to_device(batch, self.device)
+            for prefix, eval_step in self.eval_steps:
+                for k, v in eval_step(batch).items():
+                    k = k.replace("val_", prefix, 1)
+                    out[k] = out.get(k, 0.0) + float(v)
             n += 1
-        return {k: v / max(n, 1) for k, v in sums.items()}
+        return {k: v / max(n, 1) for k, v in out.items()}
 
     def _dispatch(self, stream):
         """K steps in one dispatch: the CUDA graph, or on the CPU the K-step
@@ -250,6 +267,8 @@ class Trainer:
 
             val = self.validate()
             self.state = self.scheduler.step(self.state, val["val_mdice"])
+            if self.scheduler2 is not None:
+                self.scheduler2.step(self.state.second, val["val2_mdice"])
             self.writer.write(epoch, {**means, **val})
             self.logger.info(
                 f"epoch {epoch:03d}/{cfg.run.epochs} "
@@ -258,13 +277,21 @@ class Trainer:
                 f"val_dice {val['val_mdice']:.4f} "
                 f"val_miou {val['val_miou']:.4f} "
                 f"({means['imgs_per_sec']:.1f} img/s)")
-            if val["val_mdice"] > self.best_dice:
-                self.best_dice = val["val_mdice"]
+            # keep-best on the better net's dice (JAX train.py:359-366)
+            gate_dice = max(val["val_mdice"],
+                            val.get("val2_mdice", float("-inf")))
+            if gate_dice > self.best_dice:
+                self.best_dice = gate_dice
                 self.epochs_since_best = 0
+                extra = {"epoch": epoch, "step": self.state.step,
+                         "best_dice": self.best_dice}
                 save_pth(self.model,
                          os.path.join(cfg.run.out_dir, "best_model.pth"),
-                         {"epoch": epoch, "step": self.state.step,
-                          "best_dice": self.best_dice})
+                         extra)
+                if self.state.second is not None:
+                    save_pth(self.state.second.model,
+                             os.path.join(cfg.run.out_dir,
+                                          "best_model2.pth"), extra)
             else:
                 self.epochs_since_best += 1
             if (cfg.run.early_stop_patience

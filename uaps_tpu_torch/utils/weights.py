@@ -2,8 +2,10 @@
 
   * `state_dict_from_jax(params, batch_stats)`: the JAX package's flax
     trees (nested dicts of numpy arrays) -> a torch state dict under the
-    reference's names, for `unet` (top modules `encoder`, `decoder`) and
-    the multi-decoder nets (`encoder`, `main_decoder`, `aux_decoderN`);
+    reference's names, for `unet` (top modules `encoder`, `decoder`), the
+    multi-decoder nets (`encoder`, `main_decoder`, `aux_decoderN`) and the
+    deep-supervision nets (flax `main_decoder`, holding `out_conv_dp1..3`,
+    is torch `decoder`, m_unet.py:277);
   * `load_jax_params(model, params, batch_stats)`: load those, strict;
   * `load_pth(model, path)`: a `.pth` file, either a raw state dict or the
     reference's training dict `{'state_dict': ...}`, with or without
@@ -49,17 +51,24 @@ def _decoder(prefix: str) -> Dict:
     return m
 
 
+def _ds_decoder(prefix: str) -> Dict:
+    """Decoder_mcps: `_decoder` and the heads dp1..dp3 (the reference's
+    unused out_conv_dp4 is not in JAX's tree either)."""
+    m = _decoder(prefix)
+    for i in (1, 2, 3):
+        m[f"out_conv_dp{i}"] = f"{prefix}.out_conv_dp{i}"
+    return m
+
+
 def _name_map(params) -> Dict:
     m = {}
     for top in params:
         if top == "encoder":
             m[top] = _encoder()
+        elif top == "main_decoder" and "out_conv_dp1" in params[top]:
+            m[top] = _ds_decoder("decoder")
         elif top == "decoder" or top == "main_decoder" or \
                 top.startswith("aux_decoder"):
-            if "out_conv_dp1" in params[top]:
-                raise NotImplementedError(
-                    "deep-supervision decoders are not ported yet: "
-                    "ROADMAP.md Queue A, 'The other methods'")
             m[top] = _decoder(top)
         else:
             raise ValueError(f"no torch mapping for module {top!r}")
