@@ -150,11 +150,12 @@ Phases (any failure: exit 1 and no result line):
      uaps_tpu_torch.train --preset NAME --dataset synthetic --dtype
      bfloat16` builds them (PRESETS: 1 input channel and 7 classes; 6
      classes, lr 2e-3, the unramped uncertainty term; 2 classes at 256 x
-     512, batch 12): 3 warm-up and 5 timed steps each with finite losses and
-     UAPS_STEP_LAUNCHES per step, one step against the plain path past the
-     ramp within phase 10's gates (on a miss the same pair in f32 is
-     reported, to tell a kernel fault from bf16 rounding, and the phase
-     fails), one eval step, peak memory, a profile of 2 steps;
+     512, batch 12): one step each with finite losses and
+     UAPS_STEP_LAUNCHES, one step against the plain path past the ramp
+     within phase 10's gates (on a miss the same pair in f32 is reported,
+     to tell a kernel fault from bf16 rounding, and the phase fails), one
+     eval step (their times, device busy and route come from phase 19's
+     graphs of them);
  17. the fullh entries (`conv3x3_nchw_fullh`, its dgrad,
      `conv3x3_nchw_wgrad_fullh`) at every ConvBlock conv shape of levels
      0-1 of a neu UAPS step (FULLH_SHAPES), the stats conv
@@ -245,8 +246,33 @@ Phases (any failure: exit 1 and no result line):
      the same graph with cuDNN's default algorithms, timed alone; (d)
      Trainer.run with its defaults and device pools, 1 epoch
      of 8 steps, finite metrics (cps's val2_mdice too) and state.step ==
-     counter.
-It then prints {"kernels": [...]} (launches from phase 7 for the baseline
+     counter;
+ 21. checkpoints, resume, eval and debug_nans (utils/checkpoint.py,
+     train.py, eval.py), at the neu geometry, bf16, on pools of
+     GRAPH_PATH_POOLS and a val pool of BATCH images: (a) for
+     RESUME_METHODS, Trainer.run with its defaults (K = 4, device pools)
+     for RESUME_RUN epochs of 8 steps with save_every 1 and
+     keep_checkpoints 2, against a run of 1 epoch and a fresh Trainer that
+     resumes from its checkpoint and runs epoch 2 (cps under
+     DETERMINISTIC_CUDNN): every tensor of the run (state_tensors:
+     parameters, BN buffers, Adam's moments, steps and lr, the counter,
+     the generators, the teacher, net 2), the best dice, the schedulers
+     and epoch 2's metrics line bit-equal; the resumed UAPS run's launches
+     (counted from just before its run to just after) cover every UAPS
+     kernel, and a profiled replay of its graph holds 4 x
+     UAPS_STEP_LAUNCHES of every kernel family; (b) eval.evaluate on (a)'s
+     UAPS run (8 test images at batch 1) through the kernels (the main
+     decoder's 9 conv and 2 pool launches an image, counted, and their
+     route from the profiler's names: conv_fwd_mma_kernel and
+     max_pool_2x2_fwd_kernel), against the same call on the plain route
+     (conv_backend="xla") within EVAL_TOL; p50 / p99 latency; once with
+     tta=True and the visualisations; (c) debug_nans: a NaN written into
+     one conv weight raises FloatingPointError naming that conv's module,
+     and halt_on_nan, (a)'s run resumed for a third epoch with a NaN
+     weight, names (a)'s last step.
+Before phase 1 it prints which image decoders import (cv2, PIL,
+torchvision.io; report["versions"]["image_decoders"]). It then prints
+{"kernels": [...]} (launches from phase 7 for the baseline
 kernels, from phase 10 for the UAPS kernels, from phase 13 for the
 fused-block kernels, from phase 16a for the pseudo-label kernel and from
 phase 18's runs for the fullh, stats and NHWC kernels) and, last, {"ok":
@@ -374,7 +400,6 @@ NHWC_SHAPE = (16, 256, 256, 16, 16)
 # input channels); they take the default (auto) UAPS step
 PRESETS = {"dagm": (16, 256, 256, 7, 1), "mtiles": (16, 256, 256, 6, 3),
            "kosdd2": (12, 256, 512, 2, 3)}
-PRESET_WARMUP, PRESET_STEPS = 3, 5
 # phase 15: the pseudo-label kernel at each preset's logits (B, H, W, C)
 PSEUDO_GEOMS = {"neu": (BATCH, HW, HW, NUM_CLASSES),
                 **{k: v[:4] for k, v in PRESETS.items()}}
@@ -540,6 +565,13 @@ METHOD_TRAINER = (1, 8)
 # (0.75 + 2.5 * 0.4) ln 2 = 1.21 keeps a few percent (mask_share, printed)
 UAMT_PAIR_CONSISTENCY = 0.4
 # the least time the card could take: published H100 SXM peaks
+# phase 21: the methods whose resume is held to the uninterrupted run,
+# its (epochs, iterations an epoch), and the largest difference of eval's
+# mIoU, mDice and pixel accuracy (per-class IoU: twice that) between the
+# kernel and the plain route in bf16 (the serving gate's 0.5% of pixels)
+RESUME_METHODS = ("uaps", "mt", "cps", "ucc")
+RESUME_RUN = (2, 8)
+EVAL_TOL = 5e-3
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
 
@@ -3236,17 +3268,15 @@ class Smoke:
         from uaps_tpu_torch.data import SyntheticDefects
         from uaps_tpu_torch.methods import base
         from uaps_tpu_torch.train import to_device
-        t = self.report["times"]
         for name in PRESETS:
             cfg = self._preset_config(name)
             data = SyntheticDefects(cfg.data, seed=SEED)
             it = data.train_iter()
-            batches = [to_device(next(it), self.dev)
-                       for _ in range(PRESET_WARMUP + PRESET_STEPS + 1)]
+            batches = [to_device(next(it), self.dev) for _ in range(2)]
             val = to_device(next(data.val_iter(1)), self.dev)
             model, state, step, init_sd, _ = self._run_steps(
-                cfg, batches, PRESET_WARMUP, PRESET_STEPS, name,
-                f"{name} UAPS", UAPS_STEP_LAUNCHES)
+                cfg, batches, 0, 1, name, f"{name} UAPS",
+                UAPS_STEP_LAUNCHES)
             try:
                 self.report[name]["kernel_vs_plain"] = self._pair_past_ramp(
                     cfg, self._preset_config(name, conv_backend="xla"),
@@ -3269,8 +3299,6 @@ class Smoke:
                 f"{json.dumps(ev)}")
             assert all(np.isfinite(v) for v in ev.values()), ev
             self.report[name]["eval"] = ev
-            self.profile_steps(name, f"{name} UAPS", step, state, batches[0],
-                               t[f"{name}_step_ms"]["median"])
             del model, state, step, batches
 
 
@@ -4553,6 +4581,254 @@ class Smoke:
         return bad
 
 # the kernels line: (launch counter, CUDA source, the TPU kernel replaced)
+
+    # ------------------------------------------------------------ phase 21
+    def _resume_trainer(self, name, data, out, epochs, **run_kw):
+        """Trainer.run's run of method `name` as the CLI builds it, with
+        its defaults (K = 4 on the card), device pools on `data`,
+        save_every 1 and keep_checkpoints 2, for `epochs` epochs of
+        RESUME_RUN[1] steps into `out`."""
+        from uaps_tpu_torch.train import Trainer
+        cfg = self._method_config(name)
+        cfg.run = dataclasses.replace(
+            cfg.run, epochs=epochs, iter_per_epoch=RESUME_RUN[1], seed=SEED,
+            device_pools=True, save_every=1, keep_checkpoints=2,
+            out_dir=out, **run_kw)
+        tr = Trainer(cfg, device=self.dev, data=data)
+        graphed = tr.graphed is not None or self.dev.type != "cuda"
+        assert ((tr.k_dispatch == 4 and graphed) or cfg.run.debug_nans) \
+            and tr.pools is not None, (tr.k_dispatch, tr.graphed, tr.pools)
+        return tr
+
+    @staticmethod
+    def _epoch_lines(out):
+        """{epoch: metrics line} of a run, without its wall-clock fields."""
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        return {r.pop("step"): {k: v for k, v in r.items()
+                                if k not in ("time", "imgs_per_sec")}
+                for r in recs}
+
+    def resume_eval(self):
+        """Checkpoints, resume, eval and debug_nans (see phase 21 in the
+        module docstring)."""
+        import gc
+        import shutil
+        from uaps_tpu_torch.data import SyntheticDefects
+        cfg = self._method_config("uaps")
+        data = SyntheticDefects(cfg.data, seed=SEED,
+                                labeled_pool=GRAPH_PATH_POOLS[0],
+                                unlabeled_pool=GRAPH_PATH_POOLS[1],
+                                val_pool=BATCH)
+        res = self.report["resume"] = {}
+        root = os.path.join(ROOT, "runs", "chip_smoke_resume")
+        shutil.rmtree(root, ignore_errors=True)
+        bad = []
+        for name in RESUME_METHODS:
+            t0 = time.perf_counter()
+            if not self._resume_case(name, data, os.path.join(root, name),
+                                     res):
+                bad.append(name)
+            gc.collect()
+            self.torch.cuda.empty_cache()
+            res[name]["seconds"] = time.perf_counter() - t0
+            log(f"resume {name}: {res[name]['seconds']:.1f} s")
+        uaps_run = os.path.join(root, "uaps", "whole")
+        t0 = time.perf_counter()
+        self._eval_case(uaps_run, res)
+        res["eval"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        self._nan_case(data, uaps_run, os.path.join(root, "nan"), res)
+        res["nan"]["seconds"] = time.perf_counter() - t0
+        shutil.rmtree(root, ignore_errors=True)
+        assert not bad, f"phase 21 failed for {bad}"
+
+    def _resume_case(self, name, data, root, res):
+        """(a) for one method: the uninterrupted run against 1 epoch and a
+        resumed epoch 2; returns whether everything was equal."""
+        from uaps_tpu_torch.utils.checkpoint import state_tensors
+        torch = self.torch
+        out = res[name] = {}
+        whole_dir, cut_dir = (os.path.join(root, "whole"),
+                              os.path.join(root, "cut"))
+        det = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = name in DETERMINISTIC_CUDNN
+        try:
+            epochs = RESUME_RUN[0]
+            whole = self._resume_trainer(name, data, whole_dir, epochs)
+            whole.run()
+            cut = self._resume_trainer(name, data, cut_dir, epochs - 1)
+            cut.run()
+            del cut
+            resumed = self._resume_trainer(name, data, cut_dir, epochs)
+            reset_counters()        # the resumed run starts here
+            resumed.run(resume=True)
+            self.sync()
+            launches = counters()   # ... and ends here
+        finally:
+            torch.backends.cudnn.deterministic = det
+        a = state_tensors(whole.state, whole.model, whole.pools)
+        b = state_tensors(resumed.state, resumed.model, resumed.pools)
+        differ = {k: float((a[k].double() - b[k].double()).abs().max())
+                  for k in a if k in b and not torch.equal(a[k], b[k])}
+        lines = (self._epoch_lines(whole_dir), self._epoch_lines(cut_dir))
+        checks = {
+            "the same tensors": a.keys() == b.keys(),
+            "every tensor bit-equal": not differ,
+            "the same best dice, schedulers and epochs since best": (
+                whole.best_dice == resumed.best_dice
+                and whole._sched_host() == resumed._sched_host()
+                and whole.epochs_since_best == resumed.epochs_since_best),
+            "epoch 2's metrics line equal": lines[0][epochs] ==
+            lines[1][epochs],
+            "the same checkpoints": (whole.ckpt.steps()
+                                     == resumed.ckpt.steps()),
+            "the resumed step": resumed.state.step == int(
+                resumed.state.counter) == epochs * RESUME_RUN[1]}
+        out.update({"tensors": len(a), "differ": differ,
+                    "steps": whole.ckpt.steps(),
+                    "best_dice": [whole.best_dice, resumed.best_dice],
+                    "epoch_lines": [lines[0][epochs], lines[1][epochs]],
+                    "launches": launches,
+                    "cudnn_deterministic": name in DETERMINISTIC_CUDNN})
+        if name == "uaps":
+            # the resumed run went through every UAPS kernel; a profiled
+            # replay of its graph proves the route
+            checks["every UAPS kernel launched in the resumed run"] = all(
+                launches[k] >= 1 for k, n in UAPS_STEP_LAUNCHES.items()
+                if n)
+            ok, got, want, busy = self._graph_route(
+                lambda: resumed.graphed(resumed.state), UAPS_STEP_LAUNCHES,
+                4, "resumed UAPS replay", "resume_uaps")
+            checks["route of the resumed UAPS replay"] = ok
+            out["route"], out["route_busy_ms"] = got, busy
+        out["checks"] = checks
+        ran = {k: v for k, v in launches.items() if v}
+        log(f"resume {name}: {len(a)} tensors, steps {out['steps']}, best "
+            f"dice {whole.best_dice:.6f} / {resumed.best_dice:.6f}, epoch "
+            f"{epochs} loss {lines[0][epochs].get('loss')} / "
+            f"{lines[1][epochs].get('loss')}; differing tensors "
+            f"{json.dumps(dict(list(differ.items())[:8]))}; launches of "
+            f"the resumed run {json.dumps(ran)}")
+        for what, ok in checks.items():
+            log(f"  resume {name}: {what}: {'ok' if ok else 'FAILED'}")
+        return all(checks.values())
+
+    def _eval_case(self, run_dir, res):
+        """(b): eval.evaluate on the UAPS run through the kernels (counted,
+        its route profiled) and on the plain route; with tta=True and the
+        visualisations."""
+        import math
+        from uaps_tpu_torch.eval import evaluate
+        out = res["eval"] = {}
+        cfg = self._method_config("uaps")
+        plain = self._method_config("uaps", conv_backend="xla")
+        got = {}
+
+        def kernel_eval():
+            got["kernel"] = evaluate(cfg, run_dir, device=self.dev)
+
+        reset_counters()            # the eval's run starts here
+        prof = self._profiled(kernel_eval)
+        launches = counters()       # ... and ends here
+        n = got["kernel"]["num_images"]
+        per_image = {k: 0 for k in launches}
+        per_image.update({"conv3x3_nchw": 9, "max_pool_2x2_nchw": 2})
+        cuda = self.torch.autograd.DeviceType.CUDA
+        entries = [(e.key, e.count) for e in device_work(
+            prof.key_averages(), cuda)]
+        route = route_of(entries)
+        route["max_pool_2x2_fwd_kernel"] = sum(
+            c for k, c in entries if "max_pool_2x2_fwd_kernel" in k)
+        want = bf16_route(per_image, n)
+        want["max_pool_2x2_fwd_kernel"] = 2 * n
+        reset_counters()
+        got["plain"] = evaluate(plain, run_dir, device=self.dev)
+        plain_launches = sum(counters().values())
+        viz_dir = os.path.join(run_dir, "viz")
+        got["tta"] = evaluate(cfg, run_dir, device=self.dev, tta=True,
+                              save_viz=viz_dir)
+        pngs = sorted(os.listdir(viz_dir))
+        k, p = got["kernel"], got["plain"]
+        diffs = {m: abs(k[m] - p[m]) for m in ("miou", "mdice",
+                                               "pixel_acc")}
+        class_diff = [abs(a - b) if not (math.isnan(a) or math.isnan(b))
+                      else (0.0 if math.isnan(a) and math.isnan(b)
+                            else float("inf"))
+                      for a, b in zip(k["class_iou"], p["class_iou"])]
+        checks = {
+            "8 images at batch 1": n == p["num_images"] == 8,
+            "the kernels' launches: 9 conv and 2 pool an image": launches
+            == {name: c * n for name, c in per_image.items()},
+            "their route (profiler)": route == want,
+            "the plain route launches no kernel": plain_launches == 0,
+            f"kernel vs plain within {EVAL_TOL}": max(diffs.values())
+            <= EVAL_TOL,
+            f"per-class IoU within {2 * EVAL_TOL}": max(class_diff)
+            <= 2 * EVAL_TOL,
+            "tta: finite metrics": all(math.isfinite(got["tta"][m]) for m
+                                       in ("miou", "mdice", "pixel_acc")),
+            "tta: 3 PNGs an image": len(pngs) == 3 * n}
+        out.update({"results": got, "diffs": diffs,
+                    "class_iou_diff": class_diff, "launches": launches,
+                    "route": route, "route_want": want, "checks": checks})
+        card = self.report.get("nvidia_smi", "")
+        for path, r in got.items():
+            log(f"eval {path} ({card}): miou {r['miou']:.6f} mdice "
+                f"{r['mdice']:.6f} pixel_acc {r['pixel_acc']:.6f} class IoU "
+                f"{json.dumps(r['class_iou'])}; latency p50 "
+                f"{r['p50_latency_ms']:.3f} ms, p99 "
+                f"{r['p99_latency_ms']:.3f} ms ({r['num_images']} images, "
+                f"batch 1, host clock)")
+        log(f"eval route (profiler): {json.dumps(route)}; launches "
+            f"{json.dumps({c: v for c, v in launches.items() if v})}")
+        for what, ok in checks.items():
+            log(f"  eval: {what}: {'ok' if ok else 'FAILED'}")
+        assert all(checks.values()), checks
+
+    def _nan_case(self, data, run_dir, nan_dir, res):
+        """(c): debug_nans names the module of a NaN conv weight;
+        halt_on_nan names (a)'s last good step."""
+        torch = self.torch
+        out = res["nan"] = {}
+        tr = self._resume_trainer("uaps", data, nan_dir, 1,
+                                  debug_nans=True)
+        assert tr.k_dispatch == 1 and tr.graphed is None
+        with torch.no_grad():
+            tr.model.encoder.down1.maxpool_conv[1].conv_conv[0].weight[
+                0, 0, 0, 0] = float("nan")
+        try:
+            tr.run()
+            out["debug_nans"] = "no error"
+        except FloatingPointError as exc:
+            out["debug_nans"] = str(exc)
+        log(f"debug_nans with a NaN conv weight: {out['debug_nans']}")
+        assert ("'encoder.down1.maxpool_conv.1.conv_conv.0'"
+                in out["debug_nans"]), out["debug_nans"]
+
+        last = RESUME_RUN[0] * RESUME_RUN[1]
+        tr = self._resume_trainer("uaps", data, run_dir, RESUME_RUN[0] + 1)
+        start = tr.pools.start_epoch
+        weight = tr.model.encoder.in_conv.conv_conv[0].weight
+
+        def poisoned(epoch):
+            if epoch == RESUME_RUN[0] + 1:
+                with torch.no_grad():
+                    weight.fill_(float("nan"))
+            start(epoch)
+
+        tr.pools.start_epoch = poisoned
+        try:
+            tr.run(resume=True)
+            out["halt_on_nan"] = "no error"
+        except FloatingPointError as exc:
+            out["halt_on_nan"] = str(exc)
+        log(f"halt_on_nan after resuming step {last}: {out['halt_on_nan']}")
+        assert f"last good checkpoint: step {last}" in out["halt_on_nan"], \
+            out["halt_on_nan"]
+
+
+
 KERNELS = [
     ("conv3x3_nchw", "conv3x3_nchw", "uaps_tpu/pallas/conv3x3_nchw.py:289"),
     ("conv3x3_nchw_dgrad", "conv3x3_nchw",
@@ -4624,6 +4900,22 @@ def launches_of(s, name):
             else s.train_launches)[name]
 
 
+def image_decoders():
+    """{module: its version, or why it does not import} for the image
+    decoders a real-image pipeline could use: cv2, PIL, torchvision.io."""
+    import importlib
+    out = {}
+    for name, top in (("cv2", "cv2"), ("PIL", "PIL"),
+                      ("torchvision.io", "torchvision")):
+        try:
+            importlib.import_module(name)
+            out[name] = str(getattr(importlib.import_module(top),
+                                    "__version__", "unknown version"))
+        except Exception as exc:   # absent, or broken on this machine
+            out[name] = f"absent ({type(exc).__name__}: {exc})"
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4640,7 +4932,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     s = Smoke(torch, "cuda:0")
     s.report["versions"] = {"python": sys.version, "torch": torch.__version__,
-                            "cuda": torch.version.cuda}
+                            "cuda": torch.version.cuda,
+                            "image_decoders": image_decoders()}
+    log(f"image decoders: "
+        f"{json.dumps(s.report['versions']['image_decoders'])}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     if s.phase("1 build", s.build):
@@ -4672,6 +4967,8 @@ def main() -> int:
                 "preset steps as graphs", s.graph_training)
         s.phase("20 the cct, mt, uamt, dct, ucc and cps steps",
                 s.method_training)
+        s.phase("21 checkpoints, resume, eval and debug_nans",
+                s.resume_eval)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(s.report, f, indent=1, default=str)

@@ -6,17 +6,18 @@ this CPU) and numpy fills them from a seed; the same numbers then go to the
 port through `load_jax_params`.
 
 Every port test file imports `torch_threads`, an autouse fixture that caps
-torch's intra-op threads at TORCH_THREADS while the file's tests run: the
-port's test tensors are small, and under `pytest -n 6` torch's default (one
-thread per core) mostly takes CPU from the workers running the JAX
-package's tests. Two threads took the port's tests in one process from
-300 s to 276 s of wall time on an 8-core host, for 3% more CPU time.
+torch's intra-op threads at TORCH_THREADS (one) while the file's tests
+run: the port's test tensors are small, and under `pytest -n 6` more
+threads mostly take CPU from the worker that runs
+tests/test_config_knobs.py, which bounds that run. One thread took two of
+the heaviest files from 238 to 212 CPU-s at the same wall time (8-core
+host, one process).
 
-The f64 JAX steps build at XLA's optimisation level 1 (`jit`,
-COMPILE_OPTIONS), and the fixtures that need several of them trace and
-build them in threads (`jax_runs_in_threads`): both cut the time of the
-JAX halves, which is most of these tests' time, and not what they
-compute.
+The f64 JAX steps build at XLA's optimisation level 0 (`jit`,
+COMPILE_OPTIONS) unless their run is long (RUN_OPTIONS), and the fixtures
+that need several of them build them one after the other (`jax_runs`):
+the JAX halves are most of these tests' CPU time, and neither choice
+changes what they compute.
 """
 import dataclasses
 
@@ -28,21 +29,22 @@ import torch
 
 from uaps_tpu.utils.config import preset
 
-TORCH_THREADS = 2
+TORCH_THREADS = 1
 # compile options of the f64 JAX steps that the parity tests jit (`jit`):
-# XLA's CPU backend at optimisation level 1 builds a train step with about
-# two thirds of the default's CPU time (LLVM's passes are most of a build;
-# the default, 3, spends ~35 CPU-s on cct's step here, level 1 ~23) and
-# runs the same HLO program about as fast (level 0 builds in ~10 CPU-s but
-# runs dct's 128 x 128 steps several times slower). Its results are ~1e-16
-# apart in f64 from the default build's, far inside every tolerance here;
-# the f32 comparisons keep the default build.
-COMPILE_OPTIONS = {"xla_backend_optimization_level": 1}
+# XLA's CPU backend at optimisation level 0 builds a train step with about
+# half the CPU time of level 1 (LLVM's passes are most of a build), and a
+# test's few steps at 32 px or 2 x 16 x 128 run about as fast; a step that
+# runs long (dct's 128 x 128 steps) takes RUN_OPTIONS, level 1, whose
+# build (~23 CPU-s for cct's step) costs less than level 0's slower run.
+# Level 0's results are ~1e-16 apart in f64 from the default build's, far
+# inside every tolerance here; the f32 comparisons keep the default build.
+COMPILE_OPTIONS = {"xla_backend_optimization_level": 0}
+RUN_OPTIONS = {"xla_backend_optimization_level": 1}
 
 
-def jit(fn, **kw):
-    """jax.jit with COMPILE_OPTIONS."""
-    return jax.jit(fn, compiler_options=COMPILE_OPTIONS, **kw)
+def jit(fn, options=None, **kw):
+    """jax.jit with `options` (default COMPILE_OPTIONS)."""
+    return jax.jit(fn, compiler_options=options or COMPILE_OPTIONS, **kw)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -194,7 +196,7 @@ def _jax_grad(record, cfg):
 
 
 def jax_method_runs(jmethod, cfg, jmodel, v0, batches, starts,
-                    teacher=False, second=None):
+                    teacher=False, second=None, options=None):
     """JAX's steps of `jmethod` (one jit) on `batches`, from each step count
     of `starts`, from the weights v0 (the teacher, with `teacher`, a copy
     of them; a second net, cps's `state.second`, from the weights
@@ -203,15 +205,17 @@ def jax_method_runs(jmethod, cfg, jmodel, v0, batches, starts,
     state after it as {torch name: numpy}: "sd" (params and BN stats),
     "ema" (the teacher's, or None), Adam's "mu" and "nu", and "second"
     (net 2's "sd", "mu", "nu" and its step-1 gradient "grad", or None).
-    Call under jax.enable_x64(True) with an f64 model."""
+    The step builds with `options` (`jit`). Call under
+    jax.enable_x64(True) with an f64 model."""
     from uaps_tpu.methods import base as jbase
     tx = jbase.make_optimizer(cfg.optim)
     train_step = jmethod.make_train_step(cfg, jmodel, tx)
 
-    @jit
-    def step(state, b):
+    def step_fn(state, b):
         new, m = train_step(state, b)
         return keep_dtypes(new, state), m
+
+    step = jit(step_fn, options)
 
     runs, grads = {}, {}
     extra = ({"ema_params": v0["params"],
@@ -246,24 +250,13 @@ def jax_method_runs(jmethod, cfg, jmodel, v0, batches, starts,
     return runs, grads
 
 
-def jax_runs_in_threads(jobs):
+def jax_runs(jobs):
     """Yield (name, jax_method_runs(*args, **kw)) for jobs {name: (args,
-    kw)} as each is done, each in a thread of its own under
-    jax.enable_x64(True): the traces take turns (they are Python), the XLA
-    builds and runs of one step overlap the traces of the others, and the
-    caller's work on a result overlaps those still running. Each step is
-    its own function, so the results are those of one run after the
-    other."""
-    from concurrent.futures import ThreadPoolExecutor, as_completed
-
-    def run(name, args, kw):
+    kw)}, one after the other under jax.enable_x64(True), so that the
+    caller's work on a result comes before the next build."""
+    for name, (args, kw) in jobs.items():
         with jax.enable_x64(True):
-            return name, jax_method_runs(*args, **kw)
-
-    with ThreadPoolExecutor(len(jobs)) as pool:
-        for done in as_completed([pool.submit(run, name, *job)
-                                  for name, job in jobs.items()]):
-            yield done.result()
+            yield name, jax_method_runs(*args, **kw)
 
 
 def _load(module, sd):

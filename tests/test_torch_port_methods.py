@@ -34,7 +34,7 @@ import pytest
 import torch
 
 from _torch_port_util import torch_threads  # noqa: F401 (autouse)
-from _torch_port_util import (check_method_steps, jax_runs_in_threads,
+from _torch_port_util import (RUN_OPTIONS, check_method_steps, jax_runs,
                               neu_config, port_method_runs, seeded_variables)
 from uaps_tpu.methods import cct as jcct
 from uaps_tpu.methods import dct as jdct
@@ -125,9 +125,11 @@ def method_runs():
         batches = _batches(name)
         starts = (0, int(150 * cfg.method.consistency_rampup))
         cases[name] = (cfg, pcfg, v0, batches, starts)
+        # dct's 128 x 128 steps run long: their build at RUN_OPTIONS
         jobs[name] = ((jmethod, cfg, _jax_model(n_dec, jnp.float64), v0,
-                       batches, starts), {})
-    for name, (jruns, jgrads) in jax_runs_in_threads(jobs):
+                       batches, starts),
+                      {"options": RUN_OPTIONS} if name == "dct" else {})
+    for name, (jruns, jgrads) in jax_runs(jobs):
         cfg, pcfg, v0, batches, starts = cases[name]
         n_dec = METHODS[name][1]
         pruns = port_method_runs(get_method(name), pcfg,

@@ -26,6 +26,7 @@ from uaps_tpu import native
 from uaps_tpu.methods.base import build_model as jax_build_model
 from uaps_tpu.utils.config import preset
 from uaps_tpu_torch.methods.base import build_model
+from uaps_tpu_torch.ops.tta import flip_tta_softmax
 from uaps_tpu_torch.serve import InferenceEngine
 from uaps_tpu_torch.server import AsyncBatcher, serve_http
 from uaps_tpu_torch.utils.weights import load_pth, state_dict_from_jax
@@ -130,8 +131,14 @@ def test_engine_contract_errors(served):
     cfg, _, _, sd = served
     with pytest.raises(ValueError, match="exactly one"):
         InferenceEngine(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        InferenceEngine(cfg, state_dict=sd, device="cpu", tta=True)
+    # tta is ported: the probs are the flips' mean softmax (ops/tta.py)
+    tta = InferenceEngine(cfg, state_dict=sd, device="cpu", tta=True)
+    masks, probs = tta.predict(_images(2, 3))
+    with torch.inference_mode():
+        want = flip_tta_softmax(tta._forward, torch.from_numpy(
+            tta._normalize(_images(2, 3))))
+    np.testing.assert_array_equal(probs, want.numpy())
+    np.testing.assert_array_equal(masks, want.argmax(-1).numpy())
     engine = InferenceEngine(cfg, state_dict=sd, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         engine.export("x")

@@ -21,7 +21,7 @@ import pytest
 import torch
 
 from _torch_port_util import torch_threads  # noqa: F401 (autouse)
-from _torch_port_util import (check_method_steps, jax_runs_in_threads,
+from _torch_port_util import (check_method_steps, jax_runs,
                               neu_config, port_method_runs, seeded_variables)
 from uaps_tpu.methods import mt as jmt
 from uaps_tpu.methods import uamt as juamt
@@ -103,7 +103,7 @@ def teacher_runs(v0):
         cases[name] = (cfg, pcfg, batches, starts)
         jobs[name] = ((jmethod, cfg, _jax_model(jnp.float64), v0, batches,
                        starts), {"teacher": True})
-    for name, (jruns, jgrads) in jax_runs_in_threads(jobs):
+    for name, (jruns, jgrads) in jax_runs(jobs):
         cfg, pcfg, batches, starts = cases[name]
         pruns = port_method_runs(get_method(name), pcfg,
                                  lambda: _port_model(v0), batches, starts,

@@ -286,8 +286,9 @@ def test_synthetic_data_matches_jax(pools):
 def test_trainer_one_epoch_on_cpu(tmp_path):
     """`python -m uaps_tpu_torch.train` with --device cpu: one epoch of two
     baseline steps on the synthetic data, validation, one metrics JSONL
-    line and a best_model.pth that loads back strict; --resume is not
-    ported and says so."""
+    line and a best_model.pth that loads back strict; --resume with
+    --epochs 2 goes on from the epoch-1 checkpoint (step 2) and writes
+    epoch 2's line."""
     import json
     from uaps_tpu_torch import train
     from uaps_tpu_torch.utils.cli import parse_args
@@ -304,37 +305,45 @@ def test_trainer_one_epoch_on_cpu(tmp_path):
     assert best == rec["val_mdice"]
     load_pth(base.build_model(parse_args(argv)[0], "cpu"),
              str(tmp_path / "best_model.pth"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.main(argv + ["--resume"])
+    train.main(argv + ["--resume", "--epochs", "2"])
+    lines = (tmp_path / "metrics.jsonl").read_text().splitlines()
+    assert [json.loads(s)["step"] for s in lines] == [1, 2]
+    assert "resumed from step 2" in (tmp_path / "run.log").read_text()
 
 
 @pytest.mark.parametrize("knob,value", [
     (None, None), ("steps_per_dispatch", 4), ("device_pools", True),
     ("save_every", 5), ("keep_checkpoints", 3), ("profile_steps", (2, 4)),
     ("debug_nans", True)])
-def test_unported_run_knobs_raise(knob, value):
-    """Each RunConfig knob that the JAX Trainer reads and the port does not
-    yet raises NotImplementedError at a non-default value, naming the
-    ROADMAP Queue A item that ports it, before the Trainer builds anything;
-    the defaults, the JAX-only prng_impl and use_shard_map, and the knobs
-    ported since (steps_per_dispatch, device_pools, profile_steps) pass."""
+def test_unported_run_knobs_raise(tmp_path, knob, value):
+    """Every RunConfig knob that the JAX Trainer reads is ported: the
+    Trainer builds with each set away from its default (and with the
+    JAX-only prng_impl and use_shard_map), and takes it up: K and the
+    pools, the checkpoint manager's keep, and debug_nans' single steps."""
     from uaps_tpu_torch import train
-    from uaps_tpu_torch.utils.config import Config, RunConfig
-    if knob is None:
-        train.check_run_config(RunConfig(prng_impl="rbg",
-                                         use_shard_map=True))
-        return
-    run = dataclasses.replace(RunConfig(), **{knob: value})
-    if knob in ("steps_per_dispatch", "device_pools", "profile_steps"):
-        assert knob not in train.UNPORTED_RUN_KNOBS
-        train.check_run_config(run)
-        return
-    with pytest.raises(NotImplementedError,
-                       match=rf"RunConfig\.{knob}=.*Queue A, 'The rest of "
-                             r"the Trainer and CLIs'"):
-        train.check_run_config(run)
-    with pytest.raises(NotImplementedError, match=knob):
-        train.Trainer(Config(run=run), device="cpu", data=object())
+    cfg = _pool_cfg(tmp_path, "baseline", prng_impl="rbg",
+                    use_shard_map=True)
+    cfg.run = dataclasses.replace(cfg.run, **{"device_pools": False,
+                                              **({knob: value} if knob
+                                                 else {})})
+    t = train.Trainer(cfg, device="cpu", data=_pool_data(cfg))
+    assert t.ckpt.keep == cfg.run.keep_checkpoints
+    assert t.ckpt.directory == str(tmp_path / "checkpoints")
+    assert (t.pools is not None) == (knob == "device_pools")
+    assert t.k_dispatch == (4 if knob == "steps_per_dispatch" else 1)
+    assert (t.train_step.__name__ == "checked") == (knob == "debug_nans")
+
+
+def test_unported_paths_still_raise():
+    """What the port does not have yet says so: --num_devices > 1
+    (Multi-GPU) and the real-image pipeline (DefectDataset)."""
+    from uaps_tpu_torch import train
+    with pytest.raises(NotImplementedError, match="Multi-GPU"):
+        train.main(["--device", "cpu", "--num_devices", "2"])
+    cfg = _cfgs()[1]
+    cfg.data = dataclasses.replace(cfg.data, name="neu")
+    with pytest.raises(NotImplementedError, match="real-image pipeline"):
+        train.make_data(cfg)
 
 
 def test_steps_per_dispatch_rule():

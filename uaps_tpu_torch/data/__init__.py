@@ -1,17 +1,16 @@
 """Data sources of the port: the synthetic fixture. The real-image pipeline
-(`uaps_tpu/data/pipeline.py`) needs cv2, which the GPU machine lacks."""
+(`uaps_tpu/data/pipeline.py`) is not ported yet."""
 from uaps_tpu_torch.data.synthetic import SyntheticDefects, synthetic_batch
 
 
 class DefectDataset:
-    """The real-image pipeline, not ported: it decodes and augments with
-    cv2 (uaps_tpu/data/augment.py), which the GPU machine does not have."""
+    """The real-image pipeline, not ported yet: JAX's decodes and augments
+    with cv2 (uaps_tpu/data/augment.py)."""
 
     def __init__(self, cfg, seed: int = 0):
         raise NotImplementedError(
-            f"dataset {cfg.name!r}: the image pipeline needs cv2 and is not "
-            "ported yet (ROADMAP.md Queue A, 'The rest of the Trainer and "
-            "CLIs'); train on "
+            f"dataset {cfg.name!r}: the image pipeline is not ported yet "
+            "(ROADMAP.md Queue A, 'The real-image pipeline'); train on "
             "'--dataset synthetic'")
 
 

@@ -9,11 +9,12 @@ already normalised), cut into micro-batches of `batch_size` with the last
 one padded by repeating its last image, run through the main decoder (a
 deep-supervision net's forward gives its dp0 head, as JAX's `_forward`
 takes `out["dp0"]`), softmaxed in f32 and argmaxed; it returns int32
-masks [N, H, W] and f32 probs [N, H, W, C]. `uncertainty`
-(serve.py:171-178) returns the main decoder's KL map against the mean of
-every decoder's softmax, the aux decoders seeing perturbed features. For
-concurrent traffic, `uaps_tpu_torch.server` puts its `AsyncBatcher` and
-HTTP front in front of this engine.
+masks [N, H, W] and f32 probs [N, H, W, C]; with `tta` the probs are the
+mean softmax over the 4 H/V flips (`ops/tta.py`, JAX serve.py:77-82).
+`uncertainty` (serve.py:171-178) returns the main decoder's KL map
+against the mean of every decoder's softmax, the aux decoders seeing
+perturbed features. For concurrent traffic, `uaps_tpu_torch.server` puts
+its `AsyncBatcher` and HTTP front in front of this engine.
 
 Weights come from a `.pth` (a reference checkpoint, one written by the
 port's trainer, or JAX weights written by the JAX package's `save_pth`) or
@@ -28,7 +29,25 @@ import torch
 
 from uaps_tpu_torch.methods.base import build_model, resolve_device
 from uaps_tpu_torch.ops import kl_divergence_map
+from uaps_tpu_torch.ops.tta import flip_tta_softmax
 from uaps_tpu_torch.utils.weights import load_pth, load_state_dict
+
+
+def uncertainty_map(model: torch.nn.Module, x: torch.Tensor
+                    ) -> torch.Tensor:
+    """A normalised NHWC batch on the model's device -> its KL maps [B, H,
+    W]: the main decoder against the mean of every decoder's softmax, from
+    the eval-mode forward with perturbations drawn from a generator seeded
+    0 for every batch (JAX: rngs key(0)); zeros for a single-output
+    model."""
+    with torch.inference_mode():
+        gen = torch.Generator(device=x.device).manual_seed(0)
+        out = model(x, gen)
+        outs = out if isinstance(out, tuple) else (out,)
+        if len(outs) < 2:
+            return torch.zeros(x.shape[:3], device=x.device)
+        preds = sum(torch.softmax(o, -1) for o in outs) / len(outs)
+        return kl_divergence_map(outs[0], preds)
 
 
 class InferenceEngine:
@@ -39,10 +58,6 @@ class InferenceEngine:
                  state_dict: Optional[dict] = None,
                  batch_size: Optional[int] = None, device="cuda",
                  tta: bool = False):
-        if tta:
-            raise NotImplementedError(
-                "test-time augmentation is not ported yet: ROADMAP.md "
-                "Queue A, 'The rest of serving and checkpoints' (ops/tta.py)")
         if (ckpt is None) == (state_dict is None):
             raise ValueError("pass exactly one of ckpt (.pth path) and "
                              "state_dict")
@@ -56,6 +71,7 @@ class InferenceEngine:
             load_state_dict(model, state_dict)
         self.model = model.to(self.device).eval()
         self._forward = getattr(self.model, "main_only", self.model)
+        self.tta = tta
 
     @classmethod
     def from_torch(cls, cfg, pth_path: str, **kw) -> "InferenceEngine":
@@ -65,7 +81,7 @@ class InferenceEngine:
     def export(self, path: str) -> None:
         raise NotImplementedError(
             "export is not ported yet: ROADMAP.md Queue A, 'The rest of "
-            "serving and checkpoints'")
+            "serving'")
 
     def uncertainty(self, images: np.ndarray) -> np.ndarray:
         """images [N,H,W,C] uint8 or normalized float32 -> f32 [N,H,W] KL
@@ -80,17 +96,9 @@ class InferenceEngine:
         return np.concatenate(maps)
 
     def uncertainty_device(self, x: torch.Tensor) -> torch.Tensor:
-        """One normalised NHWC batch on the device -> its uncertainty maps:
-        the eval-mode multi-decoder forward with perturbations drawn from a
-        generator seeded 0 for every batch (JAX: rngs key(0))."""
-        with torch.inference_mode():
-            gen = torch.Generator(device=self.device).manual_seed(0)
-            out = self.model(x, gen)
-            outs = out if isinstance(out, tuple) else (out,)
-            if len(outs) < 2:
-                return torch.zeros(x.shape[:3], device=x.device)
-            preds = sum(torch.softmax(o, -1) for o in outs) / len(outs)
-            return kl_divergence_map(outs[0], preds)
+        """One normalised NHWC batch on the device -> its uncertainty maps
+        (`uncertainty_map`)."""
+        return uncertainty_map(self.model, x)
 
     # ------------------------------------------------------------------
     def _normalize(self, images: np.ndarray) -> np.ndarray:
@@ -118,7 +126,10 @@ class InferenceEngine:
         """One normalised NHWC batch already on the device -> (masks int32
         [B, H, W], probs f32 [B, H, W, C]) on the device."""
         with torch.inference_mode():
-            probs = torch.softmax(self._forward(x).float(), dim=-1)
+            if self.tta:
+                probs = flip_tta_softmax(self._forward, x)
+            else:
+                probs = torch.softmax(self._forward(x).float(), dim=-1)
             return torch.argmax(probs, dim=-1).to(torch.int32), probs
 
     def predict(self, images: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:

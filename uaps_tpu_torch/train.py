@@ -3,7 +3,8 @@
     python -m uaps_tpu_torch.train --preset neu --method M \
         --dtype bfloat16 --dataset synthetic \
         [--epochs 2 --iter_per_epoch 20] [--device cuda] \
-        [--steps_per_dispatch K] [--device_pools]
+        [--steps_per_dispatch K] [--device_pools] [--resume] \
+        [--debug_nans]
 
 M is `uaps`, `baseline`, `cct`, `mt`, `uamt`, `cps`, `dct` or `ucc`
 (`ucc` trains on the weak / strong stream, `train_iter_weak_strong`). The
@@ -28,9 +29,20 @@ pool there; data without fixed pools is trained from the host stream, with
 a warning, as in JAX. `profile_steps=(start, stop)` writes a torch.profiler
 trace of epoch 1's steps start..stop to `out_dir/profile`.
 
-Not ported yet: `--resume` (ROADMAP.md Queue A, "The rest of the Trainer
-and CLIs"), more than one device ("Multi-GPU"), and the `RunConfig` knobs
-of `UNPORTED_RUN_KNOBS`, which raise when set (`check_run_config`).
+Checkpoints (JAX train.py:183-217, :332-390): the full state of the run
+(utils/checkpoint.py) goes to `out_dir/checkpoints/<step>/` whenever the
+gate dice improves, and otherwise every `save_every` epochs; the
+`keep_checkpoints` best by val mDice stay. `--resume` (`run(resume=True)`)
+restores the latest into the freshly built run before its first dispatch
+and goes on from the epoch after it; with device pools the resumed run is
+the uninterrupted one bit for bit. `halt_on_nan` names the last good step.
+
+`debug_nans` (JAX's jax_debug_nans) runs single eager steps under
+autograd's anomaly mode, with a forward hook on every module that raises
+FloatingPointError naming the first module whose output holds a NaN; the
+kernels stay on the path.
+
+Not ported yet: more than one device (ROADMAP.md Queue A, "Multi-GPU").
 """
 from __future__ import annotations
 
@@ -49,31 +61,57 @@ from uaps_tpu_torch import dispatch
 from uaps_tpu_torch.data import DefectDataset, SyntheticDefects
 from uaps_tpu_torch.data import device_pool
 from uaps_tpu_torch.methods import base, get_method
+from uaps_tpu_torch.utils.checkpoint import (CheckpointManager,
+                                             load_state_tensors,
+                                             state_tensors)
 from uaps_tpu_torch.utils.cli import parse_args
-from uaps_tpu_torch.utils.config import RunConfig
 from uaps_tpu_torch.utils.logging_utils import MetricWriter, get_logger
 from uaps_tpu_torch.utils.weights import save_pth
 
-# RunConfig knobs that the JAX Trainer reads and the port does not yet, with
-# the ROADMAP.md Queue A item that ports each (prng_impl and use_shard_map
-# are JAX's alone and stay accepted)
-UNPORTED_RUN_KNOBS = {
-    "save_every": "The rest of the Trainer and CLIs",
-    "keep_checkpoints": "The rest of the Trainer and CLIs",
-    "debug_nans": "The rest of the Trainer and CLIs",
-}
+def _tensors(out):
+    """The tensors of a module's output (a tensor, tuple, list or dict)."""
+    if torch.is_tensor(out):
+        return [out]
+    if isinstance(out, dict):
+        out = list(out.values())
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _tensors(o)]
+    return []
 
 
-def check_run_config(run: RunConfig) -> None:
-    """Raise NotImplementedError for a knob of UNPORTED_RUN_KNOBS set away
-    from its default, rather than train without it."""
-    default = RunConfig()
-    for name, item in UNPORTED_RUN_KNOBS.items():
-        value = getattr(run, name)
-        if value != getattr(default, name):
-            raise NotImplementedError(
-                f"RunConfig.{name}={value!r} is not ported yet: ROADMAP.md "
-                f"Queue A, '{item}'")
+def add_nan_hooks(module: torch.nn.Module, prefix: str = "") -> None:
+    """A forward hook on `module` and every submodule that raises
+    FloatingPointError naming the first module whose output holds a NaN
+    (NaN only, as jax_debug_nans checks)."""
+    def hook_for(name):
+        def hook(mod, inputs, output):
+            for t in _tensors(output):
+                if t.is_floating_point() and bool(torch.isnan(t).any()):
+                    raise FloatingPointError(
+                        f"NaN in the output of module {name!r} "
+                        f"({type(mod).__name__})")
+        return hook
+
+    for name, m in module.named_modules():
+        # the root module by its prefix, or else by its class
+        label = prefix + name if name else (prefix.rstrip(".")
+                                            or type(m).__name__)
+        m.register_forward_hook(hook_for(label))
+
+
+def nan_checked(step):
+    """`step` under autograd's anomaly mode, whose NaN in a backward
+    output is raised as FloatingPointError (JAX's jax_debug_nans raises
+    that at the first operation that makes a NaN)."""
+    def checked(state, batch):
+        with torch.autograd.detect_anomaly():
+            try:
+                return step(state, batch)
+            except RuntimeError as e:
+                if "nan values" not in str(e):
+                    raise
+                raise FloatingPointError(str(e)) from e
+    return checked
 
 
 def make_data(cfg, seed: int = 0):
@@ -115,7 +153,6 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str,
 
 class Trainer:
     def __init__(self, cfg, device="cuda", data=None):
-        check_run_config(cfg.run)
         self.cfg = cfg
         self.device = base.resolve_device(device)
         self.logger = get_logger(cfg.run.out_dir)
@@ -135,9 +172,22 @@ class Trainer:
         # cps's net 2 has its own plateau scheduler (JAX train.py:183-187)
         self.scheduler2 = (base.PlateauScheduler(cfg.optim)
                            if second is not None else None)
+        self.ckpt = CheckpointManager(
+            os.path.join(cfg.run.out_dir, "checkpoints"),
+            keep=cfg.run.keep_checkpoints)
         self.best_dice = -1.0
         self.epochs_since_best = 0
-        self.k_dispatch = dispatch.steps_per_dispatch(cfg.run, self.device)
+        # debug_nans: single eager steps, each checked on the host
+        self.k_dispatch = (1 if cfg.run.debug_nans
+                           else dispatch.steps_per_dispatch(cfg.run,
+                                                            self.device))
+        if cfg.run.debug_nans:
+            self.train_step = nan_checked(self.train_step)
+            for prefix, net in (("", self.model),
+                                ("ema_model.", self.state.ema_model),
+                                ("second.", second and second.model)):
+                if net is not None:
+                    add_nan_hooks(net, prefix)
         self.weak_strong = cfg.method.name == "ucc"
         # device-resident pools, where the data has fixed ones (JAX
         # train.py:140-176)
@@ -158,6 +208,48 @@ class Trainer:
         if self.k_dispatch > 1 and self.device.type == "cuda":
             self.graphed = dispatch.GraphedSteps(
                 self.train_step, self.k_dispatch, self.device, self.pools)
+
+    def maybe_resume(self) -> int:
+        """Restore the latest checkpoint, if there is one, into the state
+        built here (in place, before any graph is captured) and the host
+        state; returns the epoch to go on from (0: none). Device pools draw
+        a resumed run's batches again; the host stream starts over (JAX
+        train.py:198-217, :284-285)."""
+        tensors, host = self.ckpt.restore()
+        if tensors is None:
+            return 0
+        load_state_tensors(self.state, self.model, tensors, self.pools)
+        self.best_dice = host.get("best_dice", -1.0)
+        self.epochs_since_best = host.get("epochs_since_best", 0)
+        self.scheduler.best = host.get("sched_best", -float("inf"))
+        self.scheduler.bad_epochs = host.get("sched_bad", 0)
+        if self.scheduler2 is not None:
+            self.scheduler2.best = host.get("sched2_best", -float("inf"))
+            self.scheduler2.bad_epochs = host.get("sched2_bad", 0)
+        start_epoch = host.get("epoch", 0)
+        self.logger.info(f"resumed from step {self.state.step} (epoch "
+                         f"{start_epoch}, best dice {self.best_dice:.4f})")
+        return start_epoch
+
+    def _sched_host(self) -> Dict[str, float]:
+        host = {"sched_best": self.scheduler.best,
+                "sched_bad": self.scheduler.bad_epochs}
+        if self.scheduler2 is not None:
+            host["sched2_best"] = self.scheduler2.best
+            host["sched2_bad"] = self.scheduler2.bad_epochs
+        return host
+
+    def save(self, epoch: int, metrics: Dict, **host) -> None:
+        """The full state at the current step (utils/checkpoint.py), with
+        JAX's host state."""
+        self.ckpt.save(self.state.step,
+                       state_tensors(self.state, self.model, self.pools),
+                       host_state={"epoch": epoch,
+                                   "best_dice": self.best_dice,
+                                   "epochs_since_best":
+                                   self.epochs_since_best, **host,
+                                   **self._sched_host()},
+                       metrics=metrics)
 
     def validate(self) -> Dict[str, float]:
         """Mean over the validation batches of the eval step's metrics, of
@@ -216,8 +308,9 @@ class Trainer:
         self.logger.info(f"profile of steps {self.cfg.run.profile_steps} "
                          f"written to {out}")
 
-    def run(self) -> float:
+    def run(self, resume: bool = False) -> float:
         cfg = self.cfg
+        start_epoch = self.maybe_resume() if resume else 0
         n_iter = cfg.run.iter_per_epoch
         stream = None if self.pools else train_stream(self.data,
                                                       self.weak_strong)
@@ -228,7 +321,7 @@ class Trainer:
             f"steps_per_dispatch={self.k_dispatch} "
             f"device_pools={self.pools is not None}")
         prof = None
-        for epoch in range(1, cfg.run.epochs + 1):
+        for epoch in range(start_epoch + 1, cfg.run.epochs + 1):
             t0 = time.time()
             epoch_metrics = []
             if self.pools:
@@ -262,8 +355,10 @@ class Trainer:
             means["imgs_per_sec"] = n_iter * cfg.data.batch_size / dt
             means["lr"] = base.get_lr(self.state)
             if cfg.run.halt_on_nan and not np.isfinite(means["loss"]):
+                self.ckpt.wait()
                 raise FloatingPointError(
-                    f"non-finite loss {means['loss']} at epoch {epoch}")
+                    f"non-finite loss {means['loss']} at epoch {epoch}; "
+                    f"last good checkpoint: step {self.ckpt.latest_step()}")
 
             val = self.validate()
             self.state = self.scheduler.step(self.state, val["val_mdice"])
@@ -277,7 +372,9 @@ class Trainer:
                 f"val_dice {val['val_mdice']:.4f} "
                 f"val_miou {val['val_miou']:.4f} "
                 f"({means['imgs_per_sec']:.1f} img/s)")
-            # keep-best on the better net's dice (JAX train.py:359-366)
+            # keep-best on the better net's dice (JAX train.py:359-366),
+            # and the full state on a new best, else every save_every
+            # epochs for preemption (:368-390)
             gate_dice = max(val["val_mdice"],
                             val.get("val2_mdice", float("-inf")))
             if gate_dice > self.best_dice:
@@ -292,8 +389,11 @@ class Trainer:
                     save_pth(self.state.second.model,
                              os.path.join(cfg.run.out_dir,
                                           "best_model2.pth"), extra)
+                self.save(epoch, val, config_method=cfg.method.name)
             else:
                 self.epochs_since_best += 1
+                if cfg.run.save_every and epoch % cfg.run.save_every == 0:
+                    self.save(epoch, val)
             if (cfg.run.early_stop_patience
                     and self.epochs_since_best >= cfg.run.early_stop_patience):
                 self.logger.info(
@@ -301,6 +401,7 @@ class Trainer:
                     f"{self.epochs_since_best} epochs "
                     f"(best {self.best_dice:.4f})")
                 break
+        self.ckpt.wait()
         self.writer.close()
         return self.best_dice
 
@@ -312,12 +413,12 @@ def main(argv=None) -> float:
     p.add_argument("--resume", action="store_true")
     p.add_argument("--num_devices", type=int, default=None)
     extra, _ = p.parse_known_args(argv)
-    if extra.resume or (extra.num_devices or 1) > 1:
+    if (extra.num_devices or 1) > 1:
         raise NotImplementedError(
-            "--resume and --num_devices > 1 are not ported yet: ROADMAP.md "
-            "Queue A, 'The rest of the Trainer and CLIs' and 'Multi-GPU'")
+            "--num_devices > 1 is not ported yet: ROADMAP.md Queue A, "
+            "'Multi-GPU'")
     trainer = Trainer(cfg, device=extra.device)
-    best = trainer.run()
+    best = trainer.run(resume=extra.resume)
     trainer.logger.info(f"done; best val mDice {best:.4f}")
     return best
 

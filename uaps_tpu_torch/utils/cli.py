@@ -54,6 +54,9 @@ def parse_args(argv=None):
     p.add_argument("--device_pools", action="store_true",
                    help="sample batches on the device from the data's "
                         "fixed pools (data/device_pool.py)")
+    p.add_argument("--debug_nans", action="store_true",
+                   help="single eager steps that raise FloatingPointError "
+                        "at the first NaN (train.py)")
     args, _ = p.parse_known_args(argv)
 
     if args.preset in ("synthetic", "neu"):
@@ -90,6 +93,7 @@ def parse_args(argv=None):
                 out_dir=args.out_dir,
                 early_stop_patience=args.early_stop_patience,
                 steps_per_dispatch=args.steps_per_dispatch,
-                device_pools=args.device_pools or None),
+                device_pools=args.device_pools or None,
+                debug_nans=args.debug_nans or None),
     )
     return cfg, args
