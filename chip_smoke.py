@@ -234,16 +234,13 @@ Phases (any failure: exit 1 and no result line):
      logits heads (no ConvBlock conv at 256 or 128 px on cuDNN); (c) 4
      steps as one dispatch.GraphedSteps graph against 4 eager steps from
      one state (weights, teacher, net 2, every Adam, the generators, pool
-     position): the first dispatch's launches 2 x 4 x (b)'s, metrics,
-     params, BN stats, the teacher and net 2 bit-equal (for
-     DETERMINISTIC_CUDNN's methods with cuDNN's deterministic algorithms,
-     after two eager steps from one state with its default ones print the
-     gradients that differ);
-     a profiled replay holds 4 x (b)'s launches of every kernel family
-     (bf16_route, GRAPH_FAMILIES); graph and eager dispatches in
+     position), cuDNN at its default algorithms: the first dispatch's
+     launches 2 x 4 x (b)'s, metrics, params, BN stats, the teacher and
+     net 2 bit-equal; a profiled replay holds 4 x (b)'s launches of every
+     kernel family (bf16_route, GRAPH_FAMILIES; cps's f32 heads on the
+     CUDA-core kernels, F32_HEAD_LAUNCHES); graph and eager dispatches in
      alternating rounds (ms a step), a replay on CUDA events, device busy
-     and idle share, peak memory, and for DETERMINISTIC_CUDNN's methods
-     the same graph with cuDNN's default algorithms, timed alone; (d)
+     and idle share, peak memory; (d)
      Trainer.run with its defaults and device pools, 1 epoch
      of 8 steps, finite metrics (cps's val2_mdice too) and state.step ==
      counter;
@@ -253,8 +250,8 @@ Phases (any failure: exit 1 and no result line):
      RESUME_METHODS, Trainer.run with its defaults (K = 4, device pools)
      for RESUME_RUN epochs of 8 steps with save_every 1 and
      keep_checkpoints 2, against a run of 1 epoch and a fresh Trainer that
-     resumes from its checkpoint and runs epoch 2 (cps under
-     DETERMINISTIC_CUDNN): every tensor of the run (state_tensors:
+     resumes from its checkpoint and runs epoch 2: every tensor of the run
+     (state_tensors:
      parameters, BN buffers, Adam's moments, steps and lr, the counter,
      the generators, the teacher, net 2), the best dice, the schedulers
      and epoch 2's metrics line bit-equal; the resumed UAPS run's launches
@@ -269,7 +266,52 @@ Phases (any failure: exit 1 and no result line):
      tta=True and the visualisations; (c) debug_nans: a NaN written into
      one conv weight raises FloatingPointError naming that conv's module,
      and halt_on_nan, (a)'s run resumed for a third epoch with a NaN
-     weight, names (a)'s last step.
+     weight, names (a)'s last step;
+ 22. real image files (data/pipeline.py, specs.py, augment.py; OpenCV):
+     (a) writes a seeded image set in NEU-Seg's layout under OUT_DIR
+     (REAL_NEU: 3630 train and 840 test 200 x 200 RGB JPGs of the
+     synthetic defect blobs, PNG masks of classes 0-3; data/synthetic.py
+     write_image_set) and a KolektorSDD2-shaped one (REAL_KOSDD2: 64
+     portrait PNGs, masks of 0 / 255), timed, and removes both at the
+     end; (b) the neu stream alone (DefectDataset.train_iter, 16 + 16
+     images a batch): images/s over REAL_STREAM_BATCHES batches after the
+     first, with the host's cores (os.sched_getaffinity) and num_workers;
+     two datasets of one seed give the same first REAL_SAME_BATCHES
+     batches bit for bit; shapes, dtypes and label ranges of neu, ucc_neu
+     (train_iter_weak_strong, with the strong view) and kosdd2 (256 x 512
+     landscape, labels 0 / 1); (c) a dispatch.GraphedSteps graph of 4
+     UAPS steps fed host batches of the stream (no sampler: the pinned
+     staging of GraphedSteps._load) against 4 eager steps from one state
+     on the same batches: metrics, every module's weights and BN stats
+     and Adam's state bit-equal, the first dispatch's launches 2 x 4 x a
+     step's, and a profiled replay with 4 x the step's launches of every
+     kernel family (bf16_route, GRAPH_FAMILIES); the same for ucc on the
+     weak / strong stream (its uimage_strong buffer); (d) `python -m
+     uaps_tpu_torch.train --preset neu --method uaps --dtype bfloat16
+     --image_root ... --mask_root ... --test_image_root ...
+     --test_mask_root ...` (train.main, REAL_TRAINER epochs and steps,
+     the default K = 4 graph fed from the host stream): every UAPS kernel
+     launched in the run (its counts reset just before and read just
+     after), the metrics lines finite, a checkpoint, and each epoch's val
+     sweep over the val split's 545 images, its last batch of 1; then the
+     same Trainer's graphed dispatches from the host stream against a
+     device-pool graph of the same step on synthetic pools, in
+     alternating rounds (host clock, ms a step), with the host stages of
+     a host-fed dispatch (waiting for the stream's batches, staging and
+     replay enqueue), the host time of a round's first dispatch on an
+     idle card (waiting, stacking, the pinned fill and the copies, then
+     the replay's enqueue), and device busy and idle share from a
+     profiled window of dispatches of each; (e) `python -m uaps_tpu_torch.eval` on
+     the 840 test images at batch 1 (eval.main): mIoU, mDice, pixel
+     accuracy, p50 / p99 latency, and the main decoder's 9 conv and 2
+     pool launches an image; (f) `python -m uaps_tpu_torch.serve --images
+     DIR --out DIR --ckpt RUN_DIR` on REAL_SERVE_IMAGES test images
+     (serve.main): the masks it writes equal InferenceEngine.predict of
+     the same decoded batch, images/s; (g) cps with cuDNN's default
+     algorithms: two eager steps from one state give the same gradients
+     bit for bit (the f32 heads on the port's conv kernels, ROADMAP
+     Queue C #5), phase 20's graph of it passed its bit-equal checks
+     without cudnn.deterministic, and its graphed ms a step.
 Before phase 1 it prints which image decoders import (cv2, PIL,
 torchvision.io; report["versions"]["image_decoders"]). It then prints
 {"kernels": [...]} (launches from phase 7 for the baseline
@@ -533,21 +575,21 @@ METHOD_KERNELS = {"cct": UNET_KERNELS + ("feature_noise", "feature_dropout",
                           "conv3x3_nchw_wgrad", "ce_dice_fwd", "ce_dice_bwd",
                           "fused_dropout")}
 # cps's launches a step, read from the code: four forwards of unet_f (two a
-# net), each 8 kernel convs (the ConvBlocks at 256 and 128 px: in_conv,
+# net), each 9 kernel convs (the ConvBlocks at 256 and 128 px: in_conv,
 # down1, up3, up4, all at NHWC levels of JAX's net, where its Conv3x3 gate
-# takes the Pallas conv too), 7 of them with a dgrad (not the image's), and
-# 5 encoder dropouts; 2 + 4 CE+Dice; no CUDA pool (JAX's pools there are
-# XLA's) and the f32 heads on cuDNN (flax nn.Conv on XLA)
-CPS_STEP_LAUNCHES = {"conv3x3_nchw": 32, "conv3x3_nchw_dgrad": 28,
-                     "conv3x3_nchw_wgrad": 32, "ce_dice_fwd": 6,
+# takes the Pallas conv too; and the f32 dp0 head, a flax nn.Conv in JAX,
+# on the port's f32 conv for its deterministic weight gradient), 8 of them
+# with a dgrad (not the image's), and 5 encoder dropouts; 2 + 4 CE+Dice;
+# no CUDA pool (JAX's pools there are XLA's)
+CPS_STEP_LAUNCHES = {"conv3x3_nchw": 36, "conv3x3_nchw_dgrad": 32,
+                     "conv3x3_nchw_wgrad": 36, "ce_dice_fwd": 6,
                      "ce_dice_bwd": 6, "fused_dropout": 40}
-# the methods whose graph-against-eager check (and the times taken with it)
-# runs with torch.backends.cudnn.deterministic: cuDNN's f32 weight
-# gradient of cps's logits heads (plain F.conv2d, as flax's nn.Conv) gave
-# two eager steps from one state gradients 4.5e-8 apart on the H100, so
-# that the nets part after a few Adam steps with it off; every other
-# weight gradient of the port is deterministic (ROADMAP Queue C)
-DETERMINISTIC_CUDNN = ("cps",)
+# ... of which the f32 heads' (their forward, dgrad and wgrad on the CUDA
+# cores), by method: what bf16_route counts apart ("f32:" keys of a step's
+# launches)
+F32_HEAD_LAUNCHES = {"cps": {"f32:conv3x3_nchw": 4,
+                             "f32:conv3x3_nchw_dgrad": 4,
+                             "f32:conv3x3_nchw_wgrad": 4}}
 CONSISTENCY_TERMS = ("loss", "ce_loss", "dice_loss", "consistency_loss")
 METHOD_TERMS = {"cct": CONSISTENCY_TERMS, "mt": CONSISTENCY_TERMS,
                 "uamt": CONSISTENCY_TERMS + ("mean_uncertainty",),
@@ -564,7 +606,6 @@ METHOD_TRAINER = (1, 8)
 # 1.5% between the routes on the H100 where some straddled the threshold;
 # (0.75 + 2.5 * 0.4) ln 2 = 1.21 keeps a few percent (mask_share, printed)
 UAMT_PAIR_CONSISTENCY = 0.4
-# the least time the card could take: published H100 SXM peaks
 # phase 21: the methods whose resume is held to the uninterrupted run,
 # its (epochs, iterations an epoch), and the largest difference of eval's
 # mIoU, mDice and pixel accuracy (per-class IoU: twice that) between the
@@ -572,6 +613,24 @@ UAMT_PAIR_CONSISTENCY = 0.4
 RESUME_METHODS = ("uaps", "mt", "cps", "ucc")
 RESUME_RUN = (2, 8)
 EVAL_TOL = 5e-3
+# phase 22: the image sets (train images, test images, (H, W)): NEU-Seg's
+# counts (3630 train, 840 test: SURVEY.md) at its 200 x 200, and 64
+# KolektorSDD2-shaped portrait images; the stream's timed batches after
+# the first, and the images one thread times stage by stage; the batches
+# two datasets of one seed must share; the Trainer's run (epochs,
+# iterations an epoch); the serve CLI's images; the timing rounds
+# (rounds, dispatches a round) and the profiled window's dispatches
+REAL_NEU = (3630, 840, (200, 200))
+REAL_KOSDD2 = (64, 0, (640, 232))
+REAL_STREAM_BATCHES = 20
+REAL_STAGE_IMAGES = 64
+REAL_SAME_BATCHES = 3
+REAL_TRAINER = (2, 20)
+REAL_SERVE_IMAGES = 64
+REAL_ROUNDS = (2, 12)
+REAL_PROFILED = 3
+REAL_DIR = os.path.join(OUT_DIR, "real_images")
+# the least time the card could take: published H100 SXM peaks
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
 
@@ -689,24 +748,32 @@ def bf16_route(per_step, steps):
     dgrad, every conv3x3_nchw forward and dgrad, every fused-block forward,
     every NHWC forward and dgrad and every fused-block dgrad with the BN
     prologue (the chain bnl and conv3x3_bnl backwards) on the tensor cores;
-    no CUDA-core kernel; every feature-dropout forward as the attention
-    and apply passes, every backward as the apply pass, and the replaced
-    max kernel never; every CE+Dice forward as one ce_dice_fwd_kernel, and
-    the replaced finalize pass never."""
+    no CUDA-core kernel but the f32 heads' (per_step's "f32:" entries,
+    F32_HEAD_LAUNCHES: conv3x3_fwd_kernel a forward or dgrad,
+    wgrad_partial_kernel a wgrad); every feature-dropout forward as the
+    attention and apply passes, every backward as the apply pass, and the
+    replaced max kernel never; every CE+Dice forward as one
+    ce_dice_fwd_kernel, and the replaced finalize pass never."""
     plain = per_step["chain_conv_plain_bwd"]
-    return {"wgrad_mma_kernel": steps * sum(per_step[k]
-                                            for k in WGRAD_PASSES),
+    f32_fwd = (per_step.get("f32:conv3x3_nchw", 0)
+               + per_step.get("f32:conv3x3_nchw_dgrad", 0))
+    f32_wgrad = per_step.get("f32:conv3x3_nchw_wgrad", 0)
+    return {"wgrad_mma_kernel": steps * (sum(per_step[k]
+                                             for k in WGRAD_PASSES)
+                                         - f32_wgrad),
             "dgrad_mma_kernel": steps * (plain - CHAIN_PLAIN_NO_DX
                                          if plain else 0),
-            "conv_fwd_mma_kernel": steps * sum(per_step[k]
-                                               for k in NCHW_FWD_PASSES),
+            "conv_fwd_mma_kernel": steps * (sum(per_step[k]
+                                                for k in NCHW_FWD_PASSES)
+                                            - f32_fwd),
             "block_fwd_mma_kernel": steps * sum(per_step[k]
                                                 for k in BLOCK_FWD_PASSES),
             "nhwc_fwd_mma_kernel": steps * per_step["conv3x3_nhwc"],
             "bnl_bwd_mma_kernel": steps * (per_step["chain_conv_bnl_bwd"]
                                            + per_step["conv3x3_bnl_bwd"]),
-            "wgrad_partial_kernel": 0, "block_conv_dgrad_kernel": 0,
-            "conv3x3_fwd_kernel": 0, "block_conv_fwd_kernel": 0,
+            "wgrad_partial_kernel": steps * f32_wgrad,
+            "block_conv_dgrad_kernel": 0,
+            "conv3x3_fwd_kernel": steps * f32_fwd, "block_conv_fwd_kernel": 0,
             "conv3x3_nhwc_fwd_kernel": 0,
             "fdrop_att_kernel": steps * per_step["feature_dropout"],
             "fdrop_apply_kernel": steps * (per_step["feature_dropout"]
@@ -3984,16 +4051,17 @@ class Smoke:
         """Copies of what a step changes: the parameters and buffers of
         every module it updates (_modules), every Adam's state, the
         generators (the state's, and the sampler's where it draws strong
-        views), the step and the sampler's position."""
+        views), the step and the sampler's position (no sampler: host-fed
+        batches)."""
         opts = [{p: {n: v.clone() for n, v in st.items()}
                  for p, st in opt.state.items()}
                 for opt in self._optimizers(state)]
         return ([{n: v.detach().clone() for n, v in m.state_dict().items()}
                  for m in self._modules(model, state)],
                 opts, state.generator.get_state(), state.step,
-                sampler._pos.clone(),
-                sampler.generator.get_state() if sampler.generator is not None
-                else None)
+                sampler._pos.clone() if sampler is not None else None,
+                sampler.generator.get_state()
+                if getattr(sampler, "generator", None) is not None else None)
 
     def _restore(self, snap, model, state, sampler):
         """Put a _snapshot back in place (into the same tensors, which a
@@ -4007,7 +4075,8 @@ class Smoke:
                 for p, st in opt.state.items():
                     for n, v in st.items():
                         v.copy_(saved[p][n])
-            sampler._pos.copy_(pos)
+            if pos is not None:
+                sampler._pos.copy_(pos)
         state.generator.set_state(gen)
         if sgen is not None:
             sampler.generator.set_state(sgen)
@@ -4053,25 +4122,36 @@ class Smoke:
         GRAPH_FAMILIES'), the counts, the wanted counts and the device busy
         ms a step; the 20 largest device entries a step go to
         times[key + "_device_top_ms"], the operator table to
-        chip_smoke_profile_<key>.txt."""
+        chip_smoke_profile_<key>.txt. A replay launches the same kernels
+        every time, so where the counts differ fn() is profiled again,
+        up to LEAD_IN_TRIES windows in all: the profiler once dropped 4
+        kernels of ~8000 deep inside a window of cps's graph on the H100,
+        as it misses some at a window's start."""
         cuda = self.torch.autograd.DeviceType.CUDA
-        prof = self._profiled(fn)
-        events = prof.key_averages()
-        device = sorted(device_work(events, cuda),
-                        key=lambda e: -e.self_device_time_total)
+        want = bf16_route(per_step, k)
+        want.update({fam: k * per_step[c]
+                     for fam, c in GRAPH_FAMILIES.items()})
+        for attempt in range(1, LEAD_IN_TRIES + 1):
+            prof = self._profiled(fn)
+            events = prof.key_averages()
+            device = sorted(device_work(events, cuda),
+                            key=lambda e: -e.self_device_time_total)
+            entries = [(e.key, e.count) for e in device]
+            got = route_of(entries)
+            got.update({fam: sum(n for name, n in entries if fam in name)
+                        for fam in GRAPH_FAMILIES})
+            if got == want:
+                break
+            log(f"route of a {label}: the profiler counted "
+                f"{json.dumps({f: n for f, n in got.items() if n != want[f]})}"
+                f", want {json.dumps({f: want[f] for f in got if got[f] != want[f]})}"
+                f" (window {attempt} of {LEAD_IN_TRIES})")
         top = [[e.key, e.self_device_time_total / k / 1e3, e.count / k]
                for e in device[:20]]
         self.report["times"][f"{key}_device_top_ms"] = top
         with open(os.path.join(OUT_DIR, f"chip_smoke_profile_{key}.txt"),
                   "w") as f:
             f.write(events.table(sort_by="cuda_time_total", row_limit=40))
-        entries = [(e.key, e.count) for e in device]
-        got = route_of(entries)
-        got.update({fam: sum(n for name, n in entries if fam in name)
-                    for fam in GRAPH_FAMILIES})
-        want = bf16_route(per_step, k)
-        want.update({fam: k * per_step[c]
-                     for fam, c in GRAPH_FAMILIES.items()})
         busy = sum(e.self_device_time_total for e in device) / k / 1e3
         log(f"route of a {label} ({k} steps, profiler): {json.dumps(got)} "
             f"{'ok' if got == want else 'MISMATCH'} (want "
@@ -4332,7 +4412,6 @@ class Smoke:
         steps against K eager steps from one state, bit for bit, and its
         times (_graph_bitwise), (d) the Trainer; returns whether every
         check of (c) passed (the rest raise)."""
-        from uaps_tpu_torch import dispatch
         from uaps_tpu_torch.data.device_pool import PoolSampler
         from uaps_tpu_torch.methods import get_method
         torch = self.torch
@@ -4341,7 +4420,8 @@ class Smoke:
         sampler = PoolSampler(data, BATCH, SEED, self.dev,
                               strong=name == "ucc")
         sampler.start_epoch(1)
-        per_step = self._method_pair(name, sampler.sample())
+        per_step = {**self._method_pair(name, sampler.sample()),
+                    **F32_HEAD_LAUNCHES.get(name, {})}
 
         # no ConvBlock conv at 256 or 128 px on cuDNN: one eager step
         method = get_method(name)
@@ -4359,26 +4439,9 @@ class Smoke:
         assert ok, big
         del state, model, step, batch
 
-        if name in DETERMINISTIC_CUDNN:
-            res["default_cudnn_repeat"] = self._eager_repeat(cfg, name,
-                                                             sampler)
-        det = torch.backends.cudnn.deterministic
-        torch.backends.cudnn.deterministic = name in DETERMINISTIC_CUDNN
         res["cudnn_deterministic"] = torch.backends.cudnn.deterministic
-        try:
-            checks = self._graph_bitwise(f"method_{name}", name, cfg, name,
-                                         sampler, per_step, res)
-        finally:
-            torch.backends.cudnn.deterministic = det
-        if name in DETERMINISTIC_CUDNN:
-            # the same graph with cuDNN's default algorithms, as the
-            # Trainer runs it: its time alone
-            res["graph_default_cudnn_ms"] = self._graph_ms(cfg, name,
-                                                           sampler)
-            log(f"{name} graph with cuDNN's default algorithms: "
-                f"{res['graph_default_cudnn_ms']['host']['median']:.3f} ms "
-                f"a step, a replay on CUDA events "
-                f"{res['graph_default_cudnn_ms']['events']:.3f} ms")
+        checks = self._graph_bitwise(f"method_{name}", name, cfg, name,
+                                     sampler, per_step, res)
         # (d) the Trainer with its defaults and device pools
         self._graph_trainer(data, cfg, METHOD_TRAINER, res)
         return all(checks.values())
@@ -4411,24 +4474,6 @@ class Smoke:
             f"default algorithms: {len(diff)} of {len(grads[0])} "
             f"gradients differ {json.dumps(diff)}")
         return diff
-
-    def _graph_ms(self, cfg, method_name, sampler):
-        """{"host": ms a step of `method_name`'s graph of K steps over
-        GRAPH_ROUNDS dispatches after the first (as _dispatch_rounds),
-        "events": a replay on CUDA events, ms a step}."""
-        from uaps_tpu_torch import dispatch
-        from uaps_tpu_torch.methods import get_method
-        k = dispatch.AUTO_STEPS_CUDA
-        method = get_method(method_name)
-        state, model = method.init_state(
-            cfg, self.dev, self.torch.Generator().manual_seed(SEED))
-        graphed = dispatch.GraphedSteps(method.make_train_step(cfg, model),
-                                        k, self.dev, sampler)
-        graphed(state)   # K eager steps, then the capture
-        host = self._dispatch_rounds({"graph": lambda: graphed(state)}, k,
-                                     *GRAPH_ROUNDS)["graph"]
-        return {"host": host, "events": self.time_ms(
-            lambda: graphed(state), iters=2, rounds=2, warmup=1) / k}
 
     def _graph_bitwise(self, key, label, cfg, method_name, sampler, per_step,
                        res, rounds=GRAPH_ROUNDS[0], reps=GRAPH_ROUNDS[1]):
@@ -4651,22 +4696,17 @@ class Smoke:
         out = res[name] = {}
         whole_dir, cut_dir = (os.path.join(root, "whole"),
                               os.path.join(root, "cut"))
-        det = torch.backends.cudnn.deterministic
-        torch.backends.cudnn.deterministic = name in DETERMINISTIC_CUDNN
-        try:
-            epochs = RESUME_RUN[0]
-            whole = self._resume_trainer(name, data, whole_dir, epochs)
-            whole.run()
-            cut = self._resume_trainer(name, data, cut_dir, epochs - 1)
-            cut.run()
-            del cut
-            resumed = self._resume_trainer(name, data, cut_dir, epochs)
-            reset_counters()        # the resumed run starts here
-            resumed.run(resume=True)
-            self.sync()
-            launches = counters()   # ... and ends here
-        finally:
-            torch.backends.cudnn.deterministic = det
+        epochs = RESUME_RUN[0]
+        whole = self._resume_trainer(name, data, whole_dir, epochs)
+        whole.run()
+        cut = self._resume_trainer(name, data, cut_dir, epochs - 1)
+        cut.run()
+        del cut
+        resumed = self._resume_trainer(name, data, cut_dir, epochs)
+        reset_counters()        # the resumed run starts here
+        resumed.run(resume=True)
+        self.sync()
+        launches = counters()   # ... and ends here
         a = state_tensors(whole.state, whole.model, whole.pools)
         b = state_tensors(resumed.state, resumed.model, resumed.pools)
         differ = {k: float((a[k].double() - b[k].double()).abs().max())
@@ -4689,8 +4729,7 @@ class Smoke:
                     "steps": whole.ckpt.steps(),
                     "best_dice": [whole.best_dice, resumed.best_dice],
                     "epoch_lines": [lines[0][epochs], lines[1][epochs]],
-                    "launches": launches,
-                    "cudnn_deterministic": name in DETERMINISTIC_CUDNN})
+                    "launches": launches})
         if name == "uaps":
             # the resumed run went through every UAPS kernel; a profiled
             # replay of its graph proves the route
@@ -4826,6 +4865,575 @@ class Smoke:
         log(f"halt_on_nan after resuming step {last}: {out['halt_on_nan']}")
         assert f"last good checkpoint: step {last}" in out["halt_on_nan"], \
             out["halt_on_nan"]
+
+    # ------------------------------------------------------------ phase 22
+    def _real_argv(self, roots, method="uaps", *extra):
+        """The CLI flags of `method` at the neu preset on the image set
+        `roots`; the CLIs' default device (cuda), and BATCH, where a
+        rehearsal on the CPU shrinks it."""
+        cpu = ["--device", "cpu"] if self.dev.type == "cpu" else []
+        return ["--preset", "neu", "--method", method, "--dtype",
+                "bfloat16", "--batch_size", str(BATCH), "--seed", str(SEED),
+                "--image_root", roots["image_root"],
+                "--mask_root", roots["mask_root"],
+                "--test_image_root", roots["test_image_root"],
+                "--test_mask_root", roots["test_mask_root"], *cpu, *extra]
+
+    def real_images(self):
+        """Real image files (see phase 22 in the module docstring); the
+        image sets are removed at the end, also after a failure."""
+        import shutil
+        res = self.report["real"] = {}
+        shutil.rmtree(REAL_DIR, ignore_errors=True)
+        try:
+            roots = self._real_write(res)
+            bad = [part for part, ok in (
+                ("stream", self._real_stream(roots, res)),
+                ("host-fed graphs", self._real_graphs(roots["neu"], res)))
+                if not ok]
+            run_dir = self._real_trainer(roots["neu"], res)
+            self._real_eval(roots["neu"], run_dir, res)
+            self._real_serve(roots["neu"], run_dir, res)
+            self._real_cps(res)
+        finally:
+            shutil.rmtree(REAL_DIR, ignore_errors=True)
+        assert not bad, f"phase 22 failed: {bad}"
+
+    def _real_write(self, res):
+        """(a): the image sets; {dataset: its DataConfig roots}."""
+        from uaps_tpu_torch.data.synthetic import write_image_set
+        roots = {}
+        for name, (n, n_test, hw), classes in (
+                ("neu", REAL_NEU, NUM_CLASSES), ("kosdd2", REAL_KOSDD2, 2)):
+            t0 = time.perf_counter()
+            roots[name] = write_image_set(os.path.join(REAL_DIR, name), name,
+                                          n, n_test, hw, classes, SEED)
+            dt = time.perf_counter() - t0
+            res[f"write_{name}"] = {"images": n + n_test, "seconds": dt}
+            log(f"wrote {n} train and {n_test} test {name} images "
+                f"({hw[0]} x {hw[1]}) with their masks in {dt:.2f} s "
+                f"({(n + n_test) / dt:.0f} images/s)")
+        return roots
+
+    def _real_stream(self, roots, res):
+        """(b): the neu stream's rate, its determinism, and the batches of
+        neu, ucc_neu and kosdd2; returns whether every check passed."""
+        import numpy as np
+        from uaps_tpu_torch.train import make_data
+        from uaps_tpu_torch.utils.cli import parse_args
+        out = res["stream"] = {}
+        cfg, _ = parse_args(self._real_argv(roots["neu"]))
+        d = cfg.data
+        data = make_data(cfg, seed=SEED)
+        it = data.train_iter()
+        next(it)                       # the threads start, the first batch
+        t0 = time.perf_counter()
+        for _ in range(REAL_STREAM_BATCHES):
+            next(it)
+        dt = time.perf_counter() - t0
+        images = REAL_STREAM_BATCHES * 2 * d.batch_size
+        out.update({"images_per_s": images / dt, "seconds": dt,
+                    "batches": REAL_STREAM_BATCHES,
+                    "cores": len(os.sched_getaffinity(0)),
+                    "num_workers": d.num_workers,
+                    "splits": {k: len(v) for k, v in data.splits.items()}})
+        card = self.report.get("nvidia_smi", "")
+        log(f"the neu stream alone (train_iter, {d.batch_size} + "
+            f"{d.batch_size} images a batch, {d.num_workers} workers a "
+            f"stream, {out['cores']} cores; {card}): "
+            f"{out['images_per_s']:.1f} images/s over "
+            f"{REAL_STREAM_BATCHES} batches after the first ({dt:.2f} s); "
+            f"splits {json.dumps(out['splits'])}")
+        # one thread's CPU-ms an image of each stage of the stream
+        from uaps_tpu_torch.data.augment import normalize
+        aug, rng = data.spec.train_aug(), np.random.default_rng(SEED)
+        ms = {"decode": [], "augment": [], "normalize": []}
+        for stem in data.splits["labeled"][:REAL_STAGE_IMAGES]:
+            t0 = time.perf_counter()
+            img, mask = data._read(d.image_root, d.mask_root, stem)
+            t1 = time.perf_counter()
+            img, mask = aug(rng, img, mask)
+            t2 = time.perf_counter()
+            normalize(img, d.mean, d.std)
+            t3 = time.perf_counter()
+            for stage, dt_ in zip(ms, (t1 - t0, t2 - t1, t3 - t2)):
+                ms[stage].append(1e3 * dt_)
+        out["one_thread_ms_an_image"] = {k: float(np.mean(v))
+                                         for k, v in ms.items()}
+        log(f"one thread, ms an image (mean of {REAL_STAGE_IMAGES}): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in
+                        out["one_thread_ms_an_image"].items()))
+        checks = {}
+        a, b = (make_data(cfg, seed=SEED).train_iter() for _ in range(2))
+        pairs = [(next(a), next(b)) for _ in range(REAL_SAME_BATCHES)]
+        checks[f"one seed, the same first {REAL_SAME_BATCHES} batches"] = all(
+            x.keys() == y.keys() and all(np.array_equal(x[k], y[k])
+                                         for k in x) for x, y in pairs)
+        hw = (HW, HW)
+        cases = {"neu": (pairs[0][0], d.batch_size, hw, 3, NUM_CLASSES)}
+        ucc, _ = parse_args(self._real_argv(roots["neu"], "ucc"))
+        udata = make_data(ucc, seed=SEED)
+        cases["ucc_neu"] = (next(udata.train_iter_weak_strong()),
+                            d.batch_size, hw, 3, NUM_CLASSES)
+        kos, _ = parse_args(["--preset", "kosdd2", "--seed", str(SEED),
+                             "--image_root", roots["kosdd2"]["image_root"],
+                             "--mask_root", roots["kosdd2"]["mask_root"]])
+        cases["kosdd2"] = (next(make_data(kos, seed=SEED).train_iter()),
+                           kos.data.batch_size, (256, 512), 3, 2)
+        checks["ucc_neu read through UCC's recipe"] = \
+            udata.spec.name == "ucc_neu"
+        for name, (batch, bs, (h, w), c, classes) in cases.items():
+            want = {"image": (bs, h, w, c), "label": (bs, h, w),
+                    "uimage": (bs, h, w, c), "ulabel": (bs, h, w)}
+            if name == "ucc_neu":
+                want["uimage_strong"] = (bs, h, w, c)
+            got = {k: tuple(v.shape) for k, v in batch.items()}
+            labels = np.unique(np.concatenate([batch["label"].ravel(),
+                                               batch["ulabel"].ravel()]))
+            checks[f"{name}: keys and shapes"] = got == want
+            checks[f"{name}: f32 images, int32 labels in [0, {classes})"] = (
+                all(batch[k].dtype == np.float32 for k in want
+                    if "image" in k)
+                and all(batch[k].dtype == np.int32 for k in want
+                        if "label" in k)
+                and 0 <= int(labels.min()) and int(labels.max()) < classes)
+            out[name] = {"shapes": got, "labels": labels.tolist()}
+            log(f"{name} batch: {json.dumps(got)}, labels "
+                f"{labels.tolist()}")
+        out["checks"] = checks
+        for what, ok in checks.items():
+            log(f"  stream: {what}: {'ok' if ok else 'FAILED'}")
+        return all(checks.values())
+
+    def _state_copies(self, model, state):
+        """{name: copy} of every module's weights and buffers and every
+        Adam's state (_modules, _optimizers)."""
+        out = {f"module{j}.{n}": v.detach().clone()
+               for j, m in enumerate(self._modules(model, state))
+               for n, v in m.state_dict().items()}
+        for j, opt in enumerate(self._optimizers(state)):
+            for i, st in enumerate(opt.state.values()):
+                out.update({f"adam{j}.{i}.{n}": v.clone()
+                            for n, v in st.items()})
+        return out
+
+    def _real_graphs(self, roots, res):
+        """(c) for uaps and ucc; returns whether every check passed."""
+        from uaps_tpu_torch.train import make_data, train_stream
+        from uaps_tpu_torch.utils.cli import parse_args
+        out = res["host_graph"] = {}
+        ok = True
+        for name in ("uaps", "ucc"):
+            t0 = time.perf_counter()
+            cfg, _ = parse_args(self._real_argv(roots, name))
+            stream = train_stream(make_data(cfg, seed=SEED), name == "ucc")
+            ok &= self._host_graph_case(name, cfg, stream, out)
+            out[name]["seconds"] = time.perf_counter() - t0
+            self.torch.cuda.empty_cache()
+        return ok
+
+    def _host_graph_case(self, name, cfg, stream, out):
+        """One method's graph of K steps fed host batches, against K eager
+        steps on the same batches from one state."""
+        from uaps_tpu_torch import dispatch
+        from uaps_tpu_torch.methods import get_method
+        from uaps_tpu_torch.train import to_device
+        torch = self.torch
+        k = dispatch.AUTO_STEPS_CUDA
+        res = out[name] = {}
+        method = get_method(name)
+        state, model = method.init_state(
+            cfg, self.dev, torch.Generator().manual_seed(SEED))
+        step = method.make_train_step(cfg, model)
+        reset_counters()   # one eager step: its launches are a step's
+        state, _ = step(state, to_device(next(stream), self.dev))
+        self.sync()
+        per_step = counters()
+        graphed = dispatch.GraphedSteps(step, k, self.dev)   # no sampler
+        first, second = ([next(stream) for _ in range(k)] for _ in range(2))
+        reset_counters()
+        t0 = time.perf_counter()
+        state, warm = graphed(state, first)   # K eager steps, the capture
+        self.sync()
+        res["first_dispatch_s"] = time.perf_counter() - t0
+        launched = counters()
+        reset_counters()
+        checks = {}
+        if name == "uaps":
+            checks["a step launches UAPS_STEP_LAUNCHES"] = \
+                per_step == UAPS_STEP_LAUNCHES
+        checks["warm-up and capture through every wrapper"] = (
+            any(per_step.values())
+            and launched == {n: 2 * k * v for n, v in per_step.items()})
+        snap = self._snapshot(model, state, None)
+        batches = [to_device(b, self.dev) for b in second]
+        state, em = dispatch.run_steps(step, state, lambda i: batches[i], k)
+        eager = self._state_copies(model, state)
+        self._restore(snap, model, state, None)
+        state, gm = graphed(state, second)
+        self.sync()
+        graph = self._state_copies(model, state)
+        differ = {n: float((graph[n].double() - v.double()).abs().max())
+                  for n, v in eager.items() if not torch.equal(graph[n], v)}
+        checks["metrics bit-equal"] = all(torch.equal(gm[n], em[n])
+                                          for n in em)
+        checks["weights, BN stats and Adam's state bit-equal"] = \
+            not differ and graph.keys() == eager.keys()
+        checks["finite metrics"] = all(
+            bool(torch.isfinite(v).all()) for m in (warm, em, gm)
+            for v in m.values())
+        ok, got, _, busy = self._graph_route(
+            lambda: graphed(state, second), per_step, k,
+            f"host-fed {name} replay", f"real_{name}_graph")
+        checks["route of a replay (4 x the step's launches)"] = ok
+        res.update({"launches_a_step": {n: v for n, v in per_step.items()
+                                        if v},
+                    "tensors": len(eager), "differ": differ, "route": got,
+                    "busy_ms": busy, "checks": checks,
+                    "eager": {n: em[n].tolist() for n in em},
+                    "graph": {n: gm[n].tolist() for n in gm}})
+        log(f"host-fed {name} graph of {k} steps: first dispatch (warm-up, "
+            f"capture) {res['first_dispatch_s']:.2f} s; against {k} eager "
+            f"steps on the same host batches from one state "
+            f"({len(eager)} tensors: weights, BN stats, Adam): losses "
+            f"{[round(float(v), 5) for v in gm['loss']]} and "
+            f"{[round(float(v), 5) for v in em['loss']]}; differing "
+            f"{json.dumps(dict(list(differ.items())[:6]))}; launches a "
+            f"step {json.dumps(res['launches_a_step'])}")
+        for what, passed in checks.items():
+            log(f"  host-fed {name} graph: {what}: "
+                f"{'ok' if passed else 'FAILED'}")
+        return all(checks.values())
+
+    def _real_trainer(self, roots, res):
+        """(d): the training CLI on the image set, then its graphed
+        dispatches from the host stream against a device-pool graph;
+        returns the run directory."""
+        import math
+        from uaps_tpu_torch import train
+        from uaps_tpu_torch.data import pipeline
+        from uaps_tpu_torch.utils.checkpoint import CheckpointManager
+        from uaps_tpu_torch.utils.cli import parse_args
+        out = res["trainer"] = {}
+        run_dir = os.path.join(REAL_DIR, "run")
+        epochs, iters = REAL_TRAINER
+        argv = self._real_argv(roots, "uaps", "--epochs", str(epochs),
+                               "--iter_per_epoch", str(iters), "--out_dir",
+                               run_dir)
+        cfg, _ = parse_args(argv)
+        n_val = len(train.make_data(cfg, seed=SEED).splits["val"])
+        bs = cfg.data.batch_size
+        want_sizes = epochs * ([bs] * (n_val // bs)
+                               + ([n_val % bs] if n_val % bs else []))
+        sizes = []
+        finite = pipeline.DefectDataset._finite
+
+        def recorded(data, ids, *a, **kw):
+            for batch in finite(data, ids, *a, **kw):
+                sizes.append(len(batch["image"]))
+                yield batch
+
+        pipeline.DefectDataset._finite = recorded
+        try:
+            reset_counters()       # the main path's run starts here
+            t0 = time.perf_counter()
+            best = train.main(argv)
+            self.sync()
+            dt = time.perf_counter() - t0
+            launches = counters()  # ... and ends here
+        finally:
+            pipeline.DefectDataset._finite = finite
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        steps = CheckpointManager(os.path.join(run_dir, "checkpoints")).steps()
+        path_kernels = [n for n, v in UAPS_STEP_LAUNCHES.items() if v]
+        checks = {
+            "every UAPS kernel launched in the run": all(
+                launches[n] >= 1 for n in path_kernels),
+            f"{epochs} finite metrics lines": len(recs) == epochs and all(
+                math.isfinite(r[n]) for r in recs
+                for n in ("loss", "sup_loss", "ps_loss", "uncertainty_loss",
+                          "train_mdice", "val_loss", "val_mdice", "lr")),
+            "a checkpoint and best_model.pth": bool(steps) and os.path.exists(
+                os.path.join(run_dir, "best_model.pth")),
+            f"val sweeps of {n_val} images, the last batch "
+            f"{want_sizes[-1]}": sizes == want_sizes}
+        out.update({"seconds": dt, "best": best, "records": recs,
+                    "checkpoints": steps, "launches": launches,
+                    "val_batches": sizes, "checks": checks})
+        log(f"train.main on the image set ({epochs} epochs of {iters} UAPS "
+            f"steps, K = 4 graph from the host stream) in {dt:.1f} s: "
+            + "; ".join(f"epoch {r['step']} loss {r['loss']:.4f} val_mdice "
+                        f"{r['val_mdice']:.4f} {r['imgs_per_sec']:.1f} img/s"
+                        for r in recs)
+            + f"; checkpoints {steps}; val batches of the last epoch "
+            f"{sizes[len(sizes) - len(sizes) // epochs:]}; launches "
+            f"{json.dumps({n: v for n, v in launches.items() if v})}")
+        for what, ok in checks.items():
+            log(f"  train: {what}: {'ok' if ok else 'FAILED'}")
+        assert all(checks.values()), checks
+        self._real_rates(cfg, out)
+        return run_dir
+
+    def _real_rates(self, cfg, out):
+        """(d)'s timing: the Trainer's graphed dispatches from the host
+        stream against a device-pool graph of the same step on synthetic
+        pools, in alternating rounds of REAL_ROUNDS[1] dispatches (a sync
+        after each round); the host-fed rate in its steady state (the
+        median interval between dispatches after the first quarter of a
+        round, once the batches the stream had ready are used up) and the
+        stages of a host-fed dispatch (waiting for the stream's batches;
+        the dispatch call: stacking, waiting for the previous copy to the
+        card, the pinned staging and the replay's enqueue); the host time
+        before a round's first replay, while the card has nothing queued
+        (the by-rounds rate pays it once a round, the steady state not);
+        device busy and idle share of each path from a profiled window."""
+        import numpy as np
+        from uaps_tpu_torch import dispatch, train
+        from uaps_tpu_torch.data import SyntheticDefects
+        from uaps_tpu_torch.data.device_pool import PoolSampler
+        from uaps_tpu_torch.methods import get_method
+        torch = self.torch
+        cfg.run = dataclasses.replace(
+            cfg.run, out_dir=os.path.join(REAL_DIR, "rates"))
+        tr = train.Trainer(cfg, device=self.dev)
+        k = tr.k_dispatch
+        assert tr.graphed is not None and tr.pools is None, (tr.graphed,
+                                                             tr.pools)
+        stream = train.train_stream(tr.data, False)
+        tr._dispatch(stream)            # K eager steps, then the capture
+        pool_cfg = self._uaps_config()
+        pools = SyntheticDefects(pool_cfg.data, seed=SEED,
+                                 labeled_pool=GRAPH_PATH_POOLS[0],
+                                 unlabeled_pool=GRAPH_PATH_POOLS[1])
+        sampler = PoolSampler(pools, BATCH, SEED, self.dev)
+        sampler.start_epoch(1)
+        method = get_method("uaps")
+        pstate, pmodel = method.init_state(
+            pool_cfg, self.dev, torch.Generator().manual_seed(SEED))
+        pgraph = dispatch.GraphedSteps(
+            method.make_train_step(pool_cfg, pmodel), k, self.dev, sampler)
+        pgraph(pstate)
+        n = REAL_ROUNDS[1]
+        stages = {"wait_for_batches": [], "dispatch_call": []}
+        steady = []
+        rounds_seen = []   # per round: each dispatch's stages, seconds
+        inner = {}
+        stack = dispatch.stack_batches
+
+        def timed_stack(batches):
+            t0 = time.perf_counter()
+            out = stack(batches)
+            inner["stack"] = time.perf_counter() - t0
+            return out
+
+        class TimedEvent:
+            """The graph's copy event, its host wait timed."""
+
+            def __init__(self, ev):
+                self.ev = ev
+
+            def synchronize(self):
+                t0 = time.perf_counter()
+                self.ev.synchronize()
+                inner["synced_at"] = time.perf_counter()
+                inner["copy_wait"] = inner["synced_at"] - t0
+
+            def record(self):   # after the copies, before the replay
+                self.ev.record()
+                inner["recorded_at"] = time.perf_counter()
+
+        tr.graphed._copied = TimedEvent(tr.graphed._copied)
+
+        def host_fed(count=n):
+            starts, seen = [], []
+            for _ in range(count):
+                t0 = time.perf_counter()
+                starts.append(t0)
+                host = [next(stream) for _ in range(k)]
+                t1 = time.perf_counter()
+                tr.graphed(tr.state, host)
+                t2 = time.perf_counter()
+                stages["wait_for_batches"].append(t1 - t0)
+                stages["dispatch_call"].append(t2 - t1)
+                seen.append({
+                    "wait": t1 - t0, "call": t2 - t1, "stack": inner["stack"],
+                    "copy_wait": inner["copy_wait"],
+                    "fill": inner["recorded_at"] - inner["synced_at"],
+                    "after": t2 - inner["recorded_at"]})
+            steady.extend(b - a for a, b in zip(starts[count // 4:-1],
+                                                 starts[count // 4 + 1:]))
+            if count == n:
+                rounds_seen.append(seen)
+
+        def device_pools(count=n):
+            for _ in range(count):
+                pgraph(pstate)
+
+        paths = {"host_fed": host_fed, "device_pools": device_pools}
+        dispatch.stack_batches = timed_stack
+        try:
+            rounds = self._dispatch_rounds(paths, k * n,
+                                           rounds=REAL_ROUNDS[0], reps=1)
+        finally:
+            dispatch.stack_batches = stack
+        cuda = torch.autograd.DeviceType.CUDA
+        t = self.report["times"]
+        card = self.report.get("nvidia_smi", "")
+        for path, fn in paths.items():
+            prof = self._profiled(lambda: fn(REAL_PROFILED))
+            busy = sum(e.self_device_time_total for e in device_work(
+                prof.key_averages(), cuda)) / (REAL_PROFILED * k) / 1e3
+            med = rounds[path]["median"]
+            t[f"real_{path}_step_ms"] = rounds[path]
+            t[f"real_{path}_device_busy_ms"] = busy
+            t[f"real_{path}_idle_share"] = 1.0 - busy / med
+        t["real_host_fed_steady_step_ms"] = 1e3 * float(
+            np.median(steady)) / k
+        host = {s: 1e3 * float(np.median(v)) / k for s, v in stages.items()}
+        out["host_stages_ms_a_step"] = host
+        # a round starts on an idle card: until the first dispatch's batches
+        # are taken, stacked and staged, no replay is queued
+        first = [r[0] for r in rounds_seen]
+        start = {name: 1e3 * float(np.mean([d[name] for d in first]))
+                 for name in first[0]}
+        start["before_first_replay"] = (start["wait"] + start["stack"]
+                                        + start["fill"])
+        q = n // 4
+        waits = {part: 1e3 * float(np.mean([d["wait"] for r in rounds_seen
+                                            for d in r[sl]])) / k
+                 for part, sl in (("first_quarter", slice(0, q)),
+                                  ("rest", slice(q, None)))}
+        out["round_start_ms"] = start
+        out["wait_for_batches_ms_a_step"] = waits
+        t["real_host_fed_round_start_ms"] = start["before_first_replay"]
+        log(f"UAPS graph of {k} steps ({card}): " + "; ".join(
+            f"{path} {rounds[path]['median']:.3f} ms a step "
+            f"[{rounds[path]['min']:.3f}, {rounds[path]['max']:.3f}], device "
+            f"busy {t[f'real_{path}_device_busy_ms']:.3f} ms, idle share "
+            f"{t[f'real_{path}_idle_share']:.3f}" for path in paths)
+            + f"; host-fed steady state {t['real_host_fed_steady_step_ms']:.3f}"
+            " ms a step; its stages a step (median, host clock): "
+            + ", ".join(f"{s} {v:.3f} ms" for s, v in host.items())
+            + f"; a round's start before its first replay "
+            f"{start['before_first_replay']:.3f} ms (waiting for batches "
+            f"{start['wait']:.3f}, stacking {start['stack']:.3f}, the pinned "
+            f"fill and the copies' enqueue {start['fill']:.3f}; "
+            f"{start['before_first_replay'] / (k * n):.3f} ms a step of a "
+            f"round), then the replay's enqueue and the metrics' clones "
+            f"{start['after']:.3f} ms; waiting for batches a step "
+            f"{waits['first_quarter']:.3f} ms in a round's first quarter, "
+            f"{waits['rest']:.3f} after it")
+
+    def _real_eval(self, roots, run_dir, res):
+        """(e): the eval CLI on the test directory at batch 1."""
+        import math
+        from uaps_tpu_torch import eval as peval
+        reset_counters()
+        r = peval.main(self._real_argv(roots, "uaps", "--ckpt", run_dir))
+        self.sync()
+        launches = counters()
+        n = r["num_images"]
+        per_image = {"conv3x3_nchw": 9, "max_pool_2x2_nchw": 2}
+        checks = {
+            f"{REAL_NEU[1]} test images": n == REAL_NEU[1],
+            "finite metrics": all(math.isfinite(r[m]) for m in (
+                "miou", "mdice", "pixel_acc", "p50_latency_ms")),
+            "9 conv and 2 pool launches an image, no other": launches == {
+                c: per_image.get(c, 0) * n for c in launches}}
+        res["eval"] = {"results": r, "launches": launches,
+                       "checks": checks}
+        card = self.report.get("nvidia_smi", "")
+        log(f"eval CLI on {n} test images at batch 1 ({card}): miou "
+            f"{r['miou']:.6f} mdice {r['mdice']:.6f} pixel_acc "
+            f"{r['pixel_acc']:.6f}; latency p50 {r['p50_latency_ms']:.3f} "
+            f"ms, p99 {r['p99_latency_ms']:.3f} ms (host clock)")
+        for what, ok in checks.items():
+            log(f"  eval: {what}: {'ok' if ok else 'FAILED'}")
+        assert all(checks.values()), checks
+
+    def _real_serve(self, roots, run_dir, res):
+        """(f): the serve directory CLI on REAL_SERVE_IMAGES test images,
+        against InferenceEngine.predict of the same decoded batch."""
+        import shutil
+        import numpy as np
+        from uaps_tpu_torch import serve
+        from uaps_tpu_torch.data.augment import cv2
+        from uaps_tpu_torch.utils.checkpoint import module_tensors, restore_run
+        from uaps_tpu_torch.utils.cli import parse_args
+        src = os.path.join(REAL_DIR, "serve_in")
+        dst = os.path.join(REAL_DIR, "serve_out")
+        os.makedirs(src)
+        test_dir = roots["test_image_root"]
+        for f in sorted(os.listdir(test_dir))[:REAL_SERVE_IMAGES]:
+            shutil.copy(os.path.join(test_dir, f), src)
+        argv = self._real_argv(roots, "uaps", "--ckpt", run_dir, "--images",
+                               src, "--out", dst)
+        reset_counters()
+        r = serve.main(argv)
+        self.sync()
+        launches = counters()
+        cfg, _ = parse_args(argv)
+        names, batch = serve.read_images(src, cfg.data.image_size)
+        engine = serve.InferenceEngine(
+            cfg, state_dict=module_tensors(restore_run(run_dir)[0]),
+            device=self.dev)
+        masks, _ = engine.predict(batch)
+        written = [cv2().imread(os.path.join(
+            dst, os.path.splitext(n)[0] + "_mask.png"), cv2().IMREAD_UNCHANGED)
+            for n in names]
+        batches = -(-len(names) // cfg.data.batch_size)
+        checks = {
+            f"{REAL_SERVE_IMAGES} images": r["images"] == len(names)
+            == REAL_SERVE_IMAGES,
+            "the written masks equal predict": all(
+                w is not None and np.array_equal(w, m)
+                for w, m in zip(written, masks)),
+            "9 conv and 2 pool launches a batch": (
+                launches["conv3x3_nchw"] == 9 * batches
+                and launches["max_pool_2x2_nchw"] == 2 * batches)}
+        res["serve"] = {"result": r, "launches": launches, "checks": checks}
+        card = self.report.get("nvidia_smi", "")
+        log(f"serve CLI on {r['images']} images ({card}): "
+            f"{r['imgs_per_sec']:.1f} images/s (predict of the decoded "
+            f"batch, host clock, {r['seconds']:.3f} s)")
+        for what, ok in checks.items():
+            log(f"  serve: {what}: {'ok' if ok else 'FAILED'}")
+        assert all(checks.values()), checks
+
+    def _real_cps(self, res):
+        """(g): cps deterministic with cuDNN's default algorithms."""
+        from uaps_tpu_torch.data import SyntheticDefects
+        from uaps_tpu_torch.data.device_pool import PoolSampler
+        torch = self.torch
+        cfg = self._method_config("cps")
+        data = SyntheticDefects(cfg.data, seed=SEED,
+                                labeled_pool=GRAPH_PATH_POOLS[0],
+                                unlabeled_pool=GRAPH_PATH_POOLS[1])
+        sampler = PoolSampler(data, BATCH, SEED, self.dev)
+        sampler.start_epoch(1)
+        assert not torch.backends.cudnn.deterministic
+        diff = self._eager_repeat(cfg, "cps", sampler)
+        m = self.report.get("methods", {}).get("cps", {})
+        graph_ms = self.report["times"].get("method_cps_step_ms", {}).get(
+            "graph", {})
+        checks = {
+            "two eager steps from one state: the same gradients": not diff,
+            "phase 20's cps graph bit-equal, cuDNN's defaults": bool(
+                m.get("checks")) and all(m["checks"].values())
+            and m.get("cudnn_deterministic") is False}
+        res["cps"] = {"differ": diff, "graph_ms": graph_ms,
+                      "checks": checks}
+        card = self.report.get("nvidia_smi", "")
+        if graph_ms:
+            log(f"cps graphed with cuDNN's default algorithms ({card}): "
+                f"{graph_ms['median']:.3f} ms a step [{graph_ms['min']:.3f}, "
+                f"{graph_ms['max']:.3f}] (with cuDNN's f32 heads on an H100 "
+                f"at 700 W, PERF.md section 5: 69.310 with its default "
+                f"algorithms, 76.284 with its deterministic ones)")
+        for what, ok in checks.items():
+            log(f"  cps: {what}: {'ok' if ok else 'FAILED'}")
+        assert all(checks.values()), checks
 
 
 
@@ -4969,6 +5577,8 @@ def main() -> int:
                 s.method_training)
         s.phase("21 checkpoints, resume, eval and debug_nans",
                 s.resume_eval)
+        s.phase("22 real image files: the stream, host-fed graphs, train, "
+                "eval and serve CLIs, cps", s.real_images)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(s.report, f, indent=1, default=str)

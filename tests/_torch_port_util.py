@@ -13,8 +13,9 @@ tests/test_config_knobs.py, which bounds that run. One thread took two of
 the heaviest files from 238 to 212 CPU-s at the same wall time (8-core
 host, one process).
 
-The f64 JAX steps build at XLA's optimisation level 0 (`jit`,
-COMPILE_OPTIONS) unless their run is long (RUN_OPTIONS), and the fixtures
+The JAX functions the tests build (the f64 steps, most f32 forwards)
+build at XLA's optimisation level 0 (`jit`, COMPILE_OPTIONS) unless their
+run is long (RUN_OPTIONS), and the fixtures
 that need several of them build them one after the other (`jax_runs`):
 the JAX halves are most of these tests' CPU time, and neither choice
 changes what they compute.
@@ -37,7 +38,10 @@ TORCH_THREADS = 1
 # runs long (dct's 128 x 128 steps) takes RUN_OPTIONS, level 1, whose
 # build (~23 CPU-s for cct's step) costs less than level 0's slower run.
 # Level 0's results are ~1e-16 apart in f64 from the default build's, far
-# inside every tolerance here; the f32 comparisons keep the default build.
+# inside every tolerance here. The f32 forwards build at level 0 too where
+# their comparisons hold as they did (the eval-mode forwards, `jax_main_only`);
+# unet_f's train-mode forward keeps the default build, as level 0 moved two
+# elements of its f4 feature 1.3e-5, past that test's atol of 1e-5.
 COMPILE_OPTIONS = {"xla_backend_optimization_level": 0}
 RUN_OPTIONS = {"xla_backend_optimization_level": 1}
 
@@ -109,8 +113,7 @@ def seeded_variables(model, hw, seed, channels=3):
 def jax_main_only(model, variables, x):
     """JAX eval logits (NHWC, numpy): main_only where the model has it."""
     method = getattr(model, "main_only", None)
-    fn = jax.jit(lambda v, xx: model.apply(v, xx, train=False,
-                                           method=method))
+    fn = jit(lambda v, xx: model.apply(v, xx, train=False, method=method))
     return np.asarray(fn(variables, jnp.asarray(x)))
 
 

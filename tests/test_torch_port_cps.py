@@ -35,7 +35,7 @@ import torch
 
 from _torch_port_util import torch_threads  # noqa: F401 (autouse)
 from _torch_port_util import (Counts, check_method_steps, jax_method_runs,
-                              neu_config, open_gates, port_method_runs,
+                              jit, neu_config, open_gates, port_method_runs,
                               seeded_variables)
 from uaps_tpu.methods import cps as jcps
 from uaps_tpu.models import unet as junet
@@ -159,7 +159,7 @@ def test_perturbed_ds_forward_matches_jax(name, monkeypatch):
 
     monkeypatch.setattr(junet, "perturb_features", recorded)
 
-    @jax.jit
+    @jit
     def fwd(variables, xx):
         out = jm.apply(variables, xx, train=False,
                        rngs={"perturb": jax.random.key(5)})
@@ -338,10 +338,10 @@ def test_cps_step_routes_through_kernel_modules(monkeypatch):
     """One CPU cps step of two unet_f nets at the neu widths (encoder
     dropout on, the kernel gates opened at levels 0 and 1: `open_gates`)
     calls each kernel module as often as a step on the card launches it
-    (chip_smoke.py CPS_STEP_LAUNCHES): 8 convs a forward (in_conv, down1,
-    up3, up4 at JAX's NHWC levels), 7 dgrads, 8 wgrads, 5 dropouts and as
-    many backwards, for 4 forwards; 6 CE+Dice pairs; no pool kernel; with
-    conv_backend="xla" none."""
+    (chip_smoke.py CPS_STEP_LAUNCHES): 9 convs a forward (in_conv, down1,
+    up3, up4 at JAX's NHWC levels, and the f32 dp0 head), 8 dgrads, 9
+    wgrads, 5 dropouts and as many backwards, for 4 forwards; 6 CE+Dice
+    pairs; no pool kernel; with conv_backend="xla" none."""
     from uaps_tpu_torch.kernels import ce_dice as kce
     from uaps_tpu_torch.kernels import conv3x3_nchw as kconv
     from uaps_tpu_torch.kernels import perturb as kpt
@@ -361,9 +361,66 @@ def test_cps_step_routes_through_kernel_modules(monkeypatch):
         _, m = get_method("cps").make_train_step(cfg, model)(state, batch)
         assert np.isfinite([float(v) for v in m.values()]).all()
         assert counts.n == ({} if backend == "xla" else {
-            "conv3x3_nchw": 32, "conv3x3_nchw_dgrad": 28,
-            "conv3x3_nchw_wgrad": 32, "ce_dice_stats": 6, "ce_dice_bwd": 6,
+            "conv3x3_nchw": 36, "conv3x3_nchw_dgrad": 32,
+            "conv3x3_nchw_wgrad": 36, "ce_dice_stats": 6, "ce_dice_bwd": 6,
             "_dropout": 40})
+
+
+def test_cps_heads_deterministic(cps_runs, monkeypatch):
+    """The f32 dp0 heads on the conv kernel module (ROADMAP Queue C #5):
+    each net's step-1 head gradient (from Adam's first moment) against
+    JAX's at the moments' tolerance of check_method_steps, from step 0 and
+    past the ramp; and two CPU steps of both nets from one state (the
+    gates opened as on the card: every head's weight gradient goes
+    through `conv3x3_nchw_wgrad`, 4 a step) bit-equal: the gradients, the
+    metrics and both nets' state."""
+    from uaps_tpu_torch.kernels import conv3x3_nchw as kconv
+    cfg, jruns, jgrads, pruns = cps_runs
+    head = "decoder.out_conv.weight"
+    for s0, runs in pruns.items():
+        for net, jgrad in ((runs[0], jgrads[s0][head]),
+                           (runs[0]["second"],
+                            jruns[s0][0]["second"]["grad"][head])):
+            got = net["mu"][head] / (1 - cfg.optim.b1)
+            np.testing.assert_allclose(got, jgrad, rtol=1e-4,
+                                       atol=1e-5 * np.abs(jgrad).max())
+    open_gates(monkeypatch, HW[1])
+    heads = []
+    wgrad = kconv.conv3x3_nchw_wgrad
+
+    def counted(x, g):
+        heads.append(g.shape[1] == 4)
+        return wgrad(x, g)
+
+    monkeypatch.setattr(kconv, "conv3x3_nchw_wgrad", counted)
+    pcfg = _cfgs()[1]
+    method = get_method("cps")
+    state, model = method.init_state(pcfg, "cpu")
+    sd0 = [copy_sd(m) for m in (model, state.second.model)]
+    batch = {k: torch.from_numpy(v) for k, v in _batches()[0].items()}
+    out = []
+    for _ in range(2):
+        state, model = method.init_state(pcfg, "cpu")
+        nets = (model, state.second.model)
+        for net, sd in zip(nets, sd0):
+            net.load_state_dict(sd)
+        heads.clear()
+        _, m = method.make_train_step(pcfg, model)(state, batch)
+        assert sum(heads) == 4
+        out.append((m, [{n: p.grad.clone() for n, p in net.named_parameters()
+                         if p.grad is not None} for net in nets],
+                    [copy_sd(net) for net in nets]))
+    (m1, g1, s1), (m2, g2, s2) = out
+    for n in m1:
+        assert torch.equal(m1[n], m2[n]), n
+    for a, b in list(zip(g1, g2)) + list(zip(s1, s2)):
+        assert a.keys() == b.keys()
+        for n, t in a.items():
+            assert torch.equal(t, b[n]), n
+
+
+def copy_sd(module):
+    return {k: v.detach().clone() for k, v in module.state_dict().items()}
 
 
 def test_cps_eval_and_predict_read_dp0(unet_f_forward):
@@ -496,7 +553,9 @@ def test_conv_route_at_nhwc_levels_matches_jax(name, levels, monkeypatch):
     of the conv kernel module (`conv3x3_nchw`) in one forward equal the
     convs JAX's gate admits, at its NCHW levels (conv3x3_fast_nchw) and its
     NHWC levels (conv3x3_fast) alike: every ConvBlock conv at 256 and 128
-    px, and the logits head where level 0 is NCHW. The pool kernel and
+    px, and the logits head where level 0 is NCHW; unet_f's f32 dp0 head,
+    a flax conv in JAX, takes the kernel in the port (its deterministic
+    weight gradient, ROADMAP Queue C #5): one call more. The pool kernel and
     the block recipes still follow nchw_levels: the port's CUDA-pool calls
     equal JAX's Pallas-pool calls (none for unet_f), and with
     conv_backend="chain" the chain recipe sits at the levels below
@@ -526,7 +585,7 @@ def test_conv_route_at_nhwc_levels_matches_jax(name, levels, monkeypatch):
     heads = n_dec if levels else 0
     assert want == {"conv": 4 + 4 * n_dec + heads,
                     "pool": min(levels or 0, 2)}, want
-    assert got == want
+    assert got == {**want, "conv": want["conv"] + (name == "unet_f")}
     assert kpool.pool_pallas_ok(torch.zeros((1, 16, *hw)))
     if levels is not None:
         chain = tunet.UNet(4, nchw_levels=levels, conv_backend="chain", **kw)

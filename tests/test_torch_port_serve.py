@@ -21,7 +21,7 @@ import pytest
 import torch
 
 from _torch_port_util import torch_threads  # noqa: F401 (autouse)
-from _torch_port_util import neu_config, seeded_variables
+from _torch_port_util import jit, neu_config, seeded_variables
 from uaps_tpu import native
 from uaps_tpu.methods.base import build_model as jax_build_model
 from uaps_tpu.utils.config import preset
@@ -33,7 +33,8 @@ from uaps_tpu_torch.utils.weights import load_pth, state_dict_from_jax
 
 REPO = Path(__file__).resolve().parent.parent
 HW = (64, 64)
-FORBIDDEN = {"uaps_tpu", "jax", "jaxlib", "flax", "optax", "orbax"}
+FORBIDDEN = {"uaps_tpu", "jax", "jaxlib", "flax", "optax", "orbax",
+             "sklearn"}
 
 
 @pytest.fixture(scope="module")
@@ -58,7 +59,7 @@ def test_predict_matches_jax_serve(served):
     imgs = _images(5, 1)
     masks, probs = engine.predict(imgs)
 
-    @jax.jit
+    @jit
     def jax_predict(v, x):    # uaps_tpu/serve.py _predict, no TTA
         p = jax.nn.softmax(jm.apply(v, x, train=False,
                                     method=jm.main_only), axis=-1)
@@ -193,7 +194,7 @@ def _imports(path):
 
 def test_port_imports_no_jax():
     """No file of uaps_tpu_torch/ nor chip_smoke.py imports uaps_tpu, jax,
-    flax, optax or orbax (AST scan); and a fresh interpreter in which
+    flax, optax, orbax or sklearn (AST scan); and a fresh interpreter in which
     `import uaps_tpu` fails imports every port module and chip_smoke and
     loads none of them."""
     files = sorted((REPO / "uaps_tpu_torch").rglob("*.py"))

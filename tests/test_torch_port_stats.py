@@ -62,7 +62,7 @@ def _close_grad(got, ref, what, tol=1e-5):
 
 def _jax_vjp(fn, args, cts):
     """fn's outputs and their VJP at cts, as one compiled program."""
-    @jax.jit
+    @jit
     def run(a, c):
         out, vjp = jax.vjp(fn, *a)
         return out, vjp(c)

@@ -21,7 +21,7 @@ import pytest
 import torch
 
 from _torch_port_util import torch_threads  # noqa: F401 (autouse)
-from _torch_port_util import (check_method_steps, jax_runs,
+from _torch_port_util import (check_method_steps, jax_runs, jit,
                               neu_config, port_method_runs, seeded_variables)
 from uaps_tpu.methods import mt as jmt
 from uaps_tpu.methods import uamt as juamt
@@ -146,7 +146,7 @@ def test_uamt_t_pass_leaves_teacher_stats(v0):
         assert torch.equal(v, before[k]), k
     with jax.enable_x64(True):
         jm = _jax_model(jnp.float64)
-        logits, _ = jax.jit(lambda v, x: jm.apply(
+        logits, _ = jit(lambda v, x: jm.apply(
             v, x, train=True, mutable=["batch_stats"]))(v0, rep)
         soft = jax.nn.softmax(logits, -1)
         mean = jnp.mean(soft.reshape(T, B, *soft.shape[1:]), 0)

@@ -127,7 +127,7 @@ def runs():
     out = {"cfg": cfg, "v0": v0}
 
     # --- JAX
-    jlogits, jbs = jax.jit(functools.partial(
+    jlogits, jbs = jit(functools.partial(
         jbase.apply_train, _jax_model(jnp.float32), rngs={}))(
         v0["params"], v0["batch_stats"], batches[0]["image"])
     out["jax_f32"] = (np.asarray(jlogits), _running(_sd(v0["params"], jbs)))
@@ -336,13 +336,15 @@ def test_unported_run_knobs_raise(tmp_path, knob, value):
 
 def test_unported_paths_still_raise():
     """What the port does not have yet says so: --num_devices > 1
-    (Multi-GPU) and the real-image pipeline (DefectDataset)."""
+    (Multi-GPU). The real-image pipeline is ported: without an image root
+    make_data raises JAX's ValueError (tests/test_torch_port_data.py runs
+    it on image files)."""
     from uaps_tpu_torch import train
     with pytest.raises(NotImplementedError, match="Multi-GPU"):
         train.main(["--device", "cpu", "--num_devices", "2"])
     cfg = _cfgs()[1]
     cfg.data = dataclasses.replace(cfg.data, name="neu")
-    with pytest.raises(NotImplementedError, match="real-image pipeline"):
+    with pytest.raises(ValueError, match="needs data.image_root"):
         train.make_data(cfg)
 
 

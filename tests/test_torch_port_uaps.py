@@ -137,7 +137,7 @@ def test_fused_uncertainty_matches_pallas():
     def pallas(x):   # (var, pseudo as aux)
         return fused_uncertainty(x, jnp.asarray(w), force_pallas=True)
 
-    @jax.jit
+    @jit
     def jax_side(x, gv):
         var, vjp, ps = jax.vjp(pallas, x, has_aux=True)
         return var, ps, vjp(gv)[0], _reference_impl(x, jnp.asarray(w))
@@ -463,7 +463,7 @@ def test_losses_and_ramps_match_jax():
     lg = (rng.standard_normal((2, 8, 16, 4)) * 2).astype(np.float32)
     p = rng.dirichlet(np.ones(4), (2, 8, 16)).astype(np.float32)
     g = rng.standard_normal((2, 8, 16)).astype(np.float32)
-    @jax.jit
+    @jit
     def kl_vjp(a, b, gv):
         ref, vjp = jax.vjp(jkl, a, b)
         return ref, vjp(gv)
@@ -519,7 +519,7 @@ def forwards():
 
     rngs = {"perturb": jax.random.key(0)}
 
-    @jax.jit
+    @jit
     def both(v, xx):
         train, mut = jm.apply(v, xx, train=True, mutable=["batch_stats"],
                               rngs=rngs)

@@ -8,6 +8,10 @@ intensity/texture signature, so a working train step drives mIoU well
 above chance within a few hundred steps. `hard=True` overlaps the class
 signatures and adds strong jitter and noise, so that a small labelled pool
 underfits.
+
+`write_image_set` (the port's own) writes such images and masks as files
+in the layout scripts/prepare_data.py writes, for the real-image pipeline's
+tests and the card's smoke run.
 """
 from __future__ import annotations
 
@@ -226,3 +230,51 @@ class SyntheticDefects:
             yield synthetic_batch(rng, batch_size or d.batch_size,
                                   d.image_size, d.num_classes,
                                   d.in_channels, hard=self.hard)
+
+
+def write_image_set(root: str, dataset: str, n_train: int, n_test: int,
+                    hw: Tuple[int, int], num_classes: int, seed: int
+                    ) -> Dict[str, str]:
+    """Seeded defect images and masks as files under `root`, in the layout
+    scripts/prepare_data.py writes: images/ and annotations/, and with
+    `n_test` test_images/ and test_annotations/, named by index with the
+    extensions of `dataset`'s spec (data/specs.py): grey images where the
+    spec reads grey, masks of 0 / 255 where it binarises (num_classes 2),
+    else the class of each pixel. Returns the DataConfig roots
+    (image_root, mask_root, test_image_root, test_mask_root)."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+    from uaps_tpu_torch.data.augment import cv2
+    from uaps_tpu_torch.data.specs import SPECS
+    spec = SPECS[dataset]
+    h, w = hw
+    roots = {"image_root": os.path.join(root, "images"),
+             "mask_root": os.path.join(root, "annotations"),
+             "test_image_root": os.path.join(root, "test_images") if n_test
+             else "",
+             "test_mask_root": os.path.join(root, "test_annotations")
+             if n_test else ""}
+    for d in roots.values():
+        if d:
+            os.makedirs(d, exist_ok=True)
+    jobs = [(roots["image_root"], roots["mask_root"], f"{i:05d}")
+            for i in range(n_train)]
+    jobs += [(roots["test_image_root"], roots["test_mask_root"], f"t{i:05d}")
+             for i in range(n_test)]
+    seeds = np.random.default_rng(seed).integers(0, 2 ** 63, len(jobs))
+
+    def write(job):
+        (img_dir, mask_dir, stem), s = job
+        r = np.random.default_rng(int(s))
+        m = _defect_mask(r, h, w, num_classes)
+        img = np.round(255 * _render(r, m, 1 if spec.grayscale else 3))
+        img = img.astype(np.uint8)
+        if not spec.grayscale:
+            img = cv2().cvtColor(img, cv2().COLOR_RGB2BGR)
+        cv2().imwrite(os.path.join(img_dir, stem + spec.img_ext), img)
+        mask = (m * 255 if spec.binarize_mask else m).astype(np.uint8)
+        cv2().imwrite(os.path.join(mask_dir, stem + spec.mask_ext), mask)
+
+    with ThreadPoolExecutor() as pool:
+        list(pool.map(write, zip(jobs, seeds)))
+    return roots

@@ -5,8 +5,13 @@ protocol).
         --ckpt RUN_DIR [--split test|val] [--save_viz DIR] [--latest] \
         [--model2 | --eval_ema] [--tta] [--device cuda]
 
-Each image is predicted at batch 1 (the val split at the data's batch)
-through the main decoder (`main_only`; a deep-supervision net's dp0),
+The data is the synthetic fixture (`--dataset synthetic`) or image files
+(data/pipeline.py): the test split is the dedicated test directory
+(`--test_image_root`, `--test_mask_root`) where the dataset has one, else
+the ids the split protocol sets aside; `--split val` is the val split, its
+last batch short. Each image is predicted at batch 1 (the val split at
+the data's batch) through the main decoder (`main_only`; a
+deep-supervision net's dp0),
 scored with `segmentation_metrics` and `per_class_iou`, and the means over
 the images are returned with the p50 / p99 latency after the first image
 (host clock around the prediction and its copy to the host, which
@@ -36,7 +41,7 @@ from uaps_tpu_torch.ops.tta import flip_tta_softmax
 from uaps_tpu_torch.serve import uncertainty_map
 from uaps_tpu_torch.train import make_data
 from uaps_tpu_torch.utils import viz
-from uaps_tpu_torch.utils.checkpoint import CheckpointManager, load_module
+from uaps_tpu_torch.utils.checkpoint import load_module, restore_run
 from uaps_tpu_torch.utils.cli import parse_args
 
 MAX_VIZ = 16
@@ -70,16 +75,7 @@ def evaluate(cfg, ckpt_dir: str, split: str = "test", save_viz: str = "",
     dev = base.resolve_device(device)
     state, model = get_method(cfg.method.name).init_state(cfg, dev)
     net, prefix = _weights(cfg, state, model, which)
-    # a run dir holds checkpoints/, a checkpoint root numeric step dirs
-    sub = os.path.join(ckpt_dir, "checkpoints")
-    if os.path.isdir(sub) and not any(
-            e.isdigit() for e in os.listdir(ckpt_dir)):
-        ckpt_dir = sub
-    ckpt = CheckpointManager(ckpt_dir)
-    step = ckpt.best_step() if use_best else ckpt.latest_step()
-    tensors, _ = ckpt.restore(step)
-    if tensors is None:
-        raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
+    tensors, step, ckpt_dir = restore_run(ckpt_dir, use_best)
     load_module(net, tensors, prefix)
     net.eval()
     print(f"loaded checkpoint step {step} from {ckpt_dir}")

@@ -550,7 +550,10 @@ class Decoder(nn.Module):
     """4 up-stages + 3x3 logits head (UAPS_unet.py:119-153); returns NCHW
     f32 logits. The head runs the CUDA conv (compute-dtype inputs, f32
     out) when level 0 is NCHW and head_variant != "xla"; otherwise it is
-    the JAX `nn.Conv(dtype=f32)`: an f32 conv with f32 weights."""
+    the JAX `nn.Conv(dtype=f32)`: an f32 conv with f32 weights, on the f32
+    conv kernels where a subclass sets F32_HEAD_KERNEL."""
+
+    F32_HEAD_KERNEL = False
 
     def __init__(self, num_classes: int, features: Sequence[int],
                  dtype: torch.dtype, nchw_levels: int, conv_kernel: bool,
@@ -569,7 +572,9 @@ class Decoder(nn.Module):
                                     out_dtype=torch.float32,
                                     kernel=conv_kernel, variant=head_variant)
         else:
-            self.out_conv = Conv3x3(ft[0], num_classes, torch.float32)
+            self.out_conv = Conv3x3(
+                ft[0], num_classes, torch.float32,
+                kernel=conv_kernel and self.F32_HEAD_KERNEL)
 
     def forward(self, feats: Sequence[torch.Tensor]) -> torch.Tensor:
         x0, x1, x2, x3, x4 = feats
@@ -697,8 +702,15 @@ class DeepSupervisionDecoder(Decoder):
     default blocks, dropout 0, and the f32 logits head `out_conv`, dp0),
     and the coarser f32 heads `out_conv_dp3`, `_dp2` and `_dp1` on the
     first three up-stages, each resized to the input with nearest. The
-    heads are flax `nn.Conv(dtype=f32)`: plain f32 convs, never the
-    kernel."""
+    heads are flax `nn.Conv(dtype=f32)`: f32 convs. Where the conv kernel
+    is allowed and its shape gate holds (dp0 at 256 px, and dp1 at 128
+    px in `full` mode), a head runs the port's f32 conv kernels
+    (kernels/conv3x3_nchw.py), which JAX's XLA conv is not: their weight
+    gradient sums fixed per-strip partials in a fixed order, so a cps
+    step gives the same bits on every call, where cuDNN's default weight
+    gradient of the f32 dp0 head did not (ROADMAP Queue C #5)."""
+
+    F32_HEAD_KERNEL = True
 
     def __init__(self, num_classes: int, features: Sequence[int],
                  dtype: torch.dtype, conv_kernel: bool,
@@ -707,7 +719,8 @@ class DeepSupervisionDecoder(Decoder):
                          "taps", conv_backend, conv_variant)
         for i in (1, 2, 3):   # dp_i's head reads up(4 - i)'s ft[i] channels
             self.add_module(f"out_conv_dp{i}",
-                            Conv3x3(features[i], num_classes, torch.float32))
+                            Conv3x3(features[i], num_classes, torch.float32,
+                                    kernel=conv_kernel))
 
     def forward(self, feats: Sequence[torch.Tensor], full: bool = False):
         """dp0, NCHW f32 logits; with `full` JAX's dict: the bottleneck,

@@ -19,14 +19,34 @@ its `AsyncBatcher` and HTTP front in front of this engine.
 Weights come from a `.pth` (a reference checkpoint, one written by the
 port's trainer, or JAX weights written by the JAX package's `save_pth`) or
 from a state dict.
+
+The directory CLI (JAX serve.py:218-283) predicts every image of a
+directory:
+
+    python -m uaps_tpu_torch.serve --preset neu --method uaps \
+        --images DIR --out DIR [--ckpt RUN_DIR | --torch_ckpt PTH] \
+        [--uncertainty] [--tta] [--device cuda]
+
+Each file OpenCV decodes (in name order; others are skipped) is resized
+to the preset's image size with nearest, and the predictions go to
+`<stem>_mask.png` (the class of each pixel), `<stem>_viz.png` (the NEU
+palette, utils/viz.py) and, with `--uncertainty`, `<stem>_uncert.png`
+(the KL map scaled to 255, JET). `--ckpt` is a run directory of the
+port's Trainer (its best checkpoint by val mDice), by default
+`out_dir/checkpoints`. It prints the count and images/s of the
+prediction. `--export` raises: export is not ported.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import argparse
+import os
+import time
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from uaps_tpu_torch.data.augment import cv2, normalize
 from uaps_tpu_torch.methods.base import build_model, resolve_device
 from uaps_tpu_torch.ops import kl_divergence_map
 from uaps_tpu_torch.ops.tta import flip_tta_softmax
@@ -102,13 +122,8 @@ class InferenceEngine:
 
     # ------------------------------------------------------------------
     def _normalize(self, images: np.ndarray) -> np.ndarray:
-        if images.dtype == np.uint8:
-            # (x / 255 - mean) / std in f32, the same IEEE operations as
-            # numpy's, in torch's multi-threaded CPU ops (numpy's
-            # broadcast over C = 3 is ~10x slower)
-            x = torch.from_numpy(np.ascontiguousarray(images)).float()
-            x.div_(255.0).sub_(torch.tensor(self.cfg.data.mean))
-            return x.div_(torch.tensor(self.cfg.data.std)).numpy()
+        if images.dtype == np.uint8:   # the pipeline's normalisation
+            return normalize(images, self.cfg.data.mean, self.cfg.data.std)
         return images.astype(np.float32)
 
     def _microbatches(self, x: np.ndarray):
@@ -144,3 +159,86 @@ class InferenceEngine:
             masks.append(m[:n].cpu().numpy())
             probs.append(p[:n].cpu().numpy())
         return np.concatenate(masks), np.concatenate(probs)
+
+
+def read_images(directory: str, hw: Tuple[int, int], channels: int = 3
+                ) -> Tuple[list, np.ndarray]:
+    """(file names, uint8 images [N, H, W, channels]) of the files in
+    `directory` that OpenCV decodes, in name order, resized to `hw` with
+    nearest (RGB, or grey for one channel)."""
+    h, w = hw
+    names, imgs = [], []
+    for n in sorted(os.listdir(directory)):
+        path = os.path.join(directory, n)
+        if channels == 1:
+            img = cv2().imread(path, cv2().IMREAD_GRAYSCALE)
+        else:
+            img = cv2().imread(path)
+            if img is not None:
+                img = cv2().cvtColor(img, cv2().COLOR_BGR2RGB)
+        if img is None:
+            continue
+        img = cv2().resize(img, (w, h), interpolation=cv2().INTER_NEAREST)
+        imgs.append(img.reshape(h, w, channels))
+        names.append(n)
+    if not imgs:
+        raise FileNotFoundError(f"no image OpenCV can decode in "
+                                f"{directory!r}")
+    return names, np.stack(imgs)
+
+
+def main(argv=None) -> Dict[str, float]:
+    from uaps_tpu_torch.utils.checkpoint import module_tensors, restore_run
+    from uaps_tpu_torch.utils.cli import parse_args
+    from uaps_tpu_torch.utils.viz import colorize, jet
+    cfg, _ = parse_args(argv)
+    p = argparse.ArgumentParser()
+    p.add_argument("--images", default=None)
+    p.add_argument("--out", default=None)
+    p.add_argument("--export", default=None, metavar="PATH")
+    p.add_argument("--ckpt", default=None,
+                   help="a run directory of the port's Trainer")
+    p.add_argument("--torch_ckpt", default=None, help="a .pth checkpoint")
+    p.add_argument("--uncertainty", action="store_true")
+    p.add_argument("--tta", action="store_true",
+                   help="mean softmax over the 4 H/V flips")
+    p.add_argument("--device", default="cuda")
+    extra, _ = p.parse_known_args(argv)
+
+    kw = dict(tta=extra.tta, device=extra.device)
+    if extra.torch_ckpt:
+        engine = InferenceEngine.from_torch(cfg, extra.torch_ckpt, **kw)
+    else:
+        tensors, _, _ = restore_run(extra.ckpt or cfg.run.out_dir)
+        engine = InferenceEngine(cfg, state_dict=module_tensors(tensors),
+                                 **kw)
+    if extra.export:
+        engine.export(extra.export)
+    if not (extra.images and extra.out):
+        p.error("--images and --out are required")
+
+    os.makedirs(extra.out, exist_ok=True)
+    names, batch = read_images(extra.images, cfg.data.image_size,
+                               cfg.data.in_channels)
+    t0 = time.perf_counter()
+    masks, _ = engine.predict(batch)
+    dt = time.perf_counter() - t0
+    stems = [os.path.splitext(n)[0] for n in names]
+    for stem, m in zip(stems, masks):
+        cv2().imwrite(os.path.join(extra.out, f"{stem}_mask.png"),
+                      m.astype(np.uint8))
+        cv2().imwrite(os.path.join(extra.out, f"{stem}_viz.png"),
+                      cv2().cvtColor(colorize(m), cv2().COLOR_RGB2BGR))
+    if extra.uncertainty:
+        for stem, u in zip(stems, engine.uncertainty(batch)):
+            um = (255 * u / max(float(u.max()), 1e-8)).astype(np.uint8)
+            cv2().imwrite(os.path.join(extra.out, f"{stem}_uncert.png"),
+                          cv2().cvtColor(jet(um), cv2().COLOR_RGB2BGR))
+    print(f"processed {len(names)} images in {dt:.2f}s "
+          f"({len(names) / dt:.1f} imgs/s) -> {extra.out}")
+    return {"images": len(names), "seconds": dt,
+            "imgs_per_sec": len(names) / dt}
+
+
+if __name__ == "__main__":
+    main()

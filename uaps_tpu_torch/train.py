@@ -1,13 +1,16 @@
 """Training CLI and single-device Trainer: the port's `uaps_tpu/train.py`.
 
     python -m uaps_tpu_torch.train --preset neu --method M \
-        --dtype bfloat16 --dataset synthetic \
+        --dtype bfloat16 (--dataset synthetic | --image_root DIR \
+        --mask_root DIR [--test_image_root DIR --test_mask_root DIR]) \
         [--epochs 2 --iter_per_epoch 20] [--device cuda] \
         [--steps_per_dispatch K] [--device_pools] [--resume] \
         [--debug_nans]
 
 M is `uaps`, `baseline`, `cct`, `mt`, `uamt`, `cps`, `dct` or `ucc`
 (`ucc` trains on the weak / strong stream, `train_iter_weak_strong`). The
+data is the synthetic fixture or image files (data/pipeline.py: the
+preset's dataset, its splits and augmentations, decoded with OpenCV). The
 loop is the JAX one on one device: `iter_per_epoch` train steps, the
 epoch's metric means (the step metrics stay on the device until then), a
 validation sweep of the main decoder, the plateau scheduler on val mDice, a
@@ -47,10 +50,9 @@ Not ported yet: more than one device (ROADMAP.md Queue A, "Multi-GPU").
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import os
-import queue
-import threading
 import time
 from typing import Dict, Iterator
 
@@ -60,6 +62,7 @@ import torch
 from uaps_tpu_torch import dispatch
 from uaps_tpu_torch.data import DefectDataset, SyntheticDefects
 from uaps_tpu_torch.data import device_pool
+from uaps_tpu_torch.data.pipeline import PREFETCH, background
 from uaps_tpu_torch.methods import base, get_method
 from uaps_tpu_torch.utils.checkpoint import (CheckpointManager,
                                              load_state_tensors,
@@ -115,32 +118,25 @@ def nan_checked(step):
 
 
 def make_data(cfg, seed: int = 0):
-    """The synthetic fixture, or the real-image pipeline (which raises)."""
+    """The synthetic fixture, or the real-image pipeline (JAX
+    train.py:37-49): `ucc` on neu reads the same files through UCC's own
+    recipe (`ucc_neu`: its weak / strong views); without an image root it
+    raises ValueError."""
     if cfg.data.name == "synthetic":
         return SyntheticDefects(cfg.data, seed=seed)
-    return DefectDataset(cfg.data, seed=seed)
-
-
-def _prefetch(it: Iterator, size: int = 4) -> Iterator:
-    """Run a host iterator in a daemon thread with a bounded queue, so that
-    building the next batch overlaps the device's step."""
-    q: "queue.Queue" = queue.Queue(maxsize=size)
-
-    def worker():
-        for item in it:
-            q.put(item)
-
-    threading.Thread(target=worker, daemon=True).start()
-    while True:
-        yield q.get()
+    data_cfg = cfg.data
+    if cfg.method.name == "ucc" and data_cfg.name == "neu":
+        data_cfg = dataclasses.replace(data_cfg, name="ucc_neu")
+    return DefectDataset(data_cfg, seed=seed)
 
 
 def train_stream(data, weak_strong: bool) -> Iterator[Dict]:
-    """The host batches, built in a prefetch thread; with `weak_strong`
-    (`ucc`'s) they carry the strong view (JAX train.py `_train_stream`)."""
+    """The host batches, built in a prefetch thread (a fault there is
+    raised here); with `weak_strong` (`ucc`'s) they carry the strong view
+    (JAX train.py `_train_stream`)."""
     if weak_strong:
-        return _prefetch(data.train_iter_weak_strong())
-    return _prefetch(data.train_iter())
+        return background(data.train_iter_weak_strong(), PREFETCH)
+    return background(data.train_iter(), PREFETCH)
 
 
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str,

@@ -124,6 +124,32 @@ class CheckpointManager:
 
 
 # ------------------------------------------------------- a run as tensors
+def checkpoint_dir(path: str) -> str:
+    """The checkpoint root of `path`: a run directory's `checkpoints/`
+    where the run directory holds no step directory itself, else
+    `path`."""
+    sub = os.path.join(path, "checkpoints")
+    if os.path.isdir(sub) and not any(e.isdigit()
+                                      for e in os.listdir(path)):
+        return sub
+    return path
+
+
+def restore_run(path: str, use_best: bool = True
+                ) -> Tuple[Dict[str, torch.Tensor], int, str]:
+    """(tensors, step, checkpoint root) of the best checkpoint by val
+    mDice under `path` (a run directory or its `checkpoints/`), or with
+    `use_best=False` of the latest; FileNotFoundError where there is
+    none."""
+    root = checkpoint_dir(path)
+    manager = CheckpointManager(root)
+    step = manager.best_step() if use_best else manager.latest_step()
+    tensors, _ = manager.restore(step)
+    if tensors is None:
+        raise FileNotFoundError(f"no checkpoint under {root}")
+    return tensors, step, root
+
+
 def _module(out: Dict, prefix: str, module: torch.nn.Module) -> None:
     for k, v in module.state_dict().items():
         out[f"{prefix}.{k}"] = v
@@ -182,13 +208,19 @@ class _Reader:
                            f"for: {sorted(self.left)[:8]}")
 
 
+def module_tensors(tensors: Dict[str, torch.Tensor], prefix: str = "model"
+                   ) -> Dict[str, torch.Tensor]:
+    """One module's state dict out of a checkpoint's tensors."""
+    head = prefix + "."
+    return {k[len(head):]: v for k, v in tensors.items()
+            if k.startswith(head)}
+
+
 def load_module(module: torch.nn.Module, tensors: Dict[str, torch.Tensor],
                 prefix: str = "model") -> None:
     """Copy one module's parameters and buffers from a checkpoint's
     tensors, strict, in place."""
-    head = prefix + "."
-    module.load_state_dict({k[len(head):]: v for k, v in tensors.items()
-                            if k.startswith(head)})
+    module.load_state_dict(module_tensors(tensors, prefix))
 
 
 def _load_adam(reader: _Reader, prefix: str, optimizer) -> None:
