@@ -311,7 +311,41 @@ Phases (any failure: exit 1 and no result line):
      algorithms: two eager steps from one state give the same gradients
      bit for bit (the f32 heads on the port's conv kernels, ROADMAP
      Queue C #5), phase 20's graph of it passed its bit-equal checks
-     without cudnn.deterministic, and its graphed ms a step.
+     without cudnn.deterministic, and its graphed ms a step;
+ 23. export and BaseNet (serve.py `InferenceEngine.export`, artifact.py
+     `ExportedEngine`, the kernels' `uaps::` operators of
+     kernels/custom_ops.py, models/resnet.py): (a) phase 3's neu unet_uaps
+     bf16 engine (its checkpoint) exports its artifact; a fresh python3
+     process loads it with torch and the operators' module alone (no port
+     model, method, config, data or serve module and no jax in its
+     sys.modules) and predicts EXPORT_IMAGES uint8 images: its masks equal
+     the live engine's on the same input (the artifact's normalisation)
+     bit for bit, probs within EXPORT_PROBS_ATOL, and its launch counters
+     read 9 conv and 2 pool launches a batch; the same engine on the CPU
+     at batch 1 exports an artifact that runs on the card
+     (move_to_device_pass) with 9 conv and 2 pool launches, equal to a
+     live engine of batch 1 on the card; (b) the profiler's kernel
+     names of one exported predict (after the lead-in): 9
+     conv_fwd_mma_kernel, 2 max_pool_2x2_fwd_kernel, no CUDA-core conv,
+     and no PyTorch conv on 128 px or more; (c) the EXPORT_ENGINES
+     artifacts (unet_uaps --tta, chain, fused, fullh, and BASENET --tta
+     from seeded weights with random BN running stats) each against its
+     live engine on one batch (masks equal, probs within
+     EXPORT_PROBS_ATOL), their launches equal to the live forward's
+     `uaps::` operator calls (a TorchDispatchMode), each path's own
+     kernel among them (EXPORT_ROUTES); (d) BASENET's baseline step as
+     `python -m uaps_tpu_torch.train --preset neu --method baseline
+     --model basenet_resnet50 --dtype bfloat16` builds it: BASENET_EAGER
+     eager steps from device pools with finite losses and 1 + 1 CE+Dice
+     launches a step, one step against the plain route
+     (conv_backend="xla") within phase 7's gates, and a graph of 4 steps
+     held to 4 eager steps bit for bit under cudnn.deterministic, its
+     route from the profiler's names (_graph_bitwise), then Trainer.run
+     with its defaults and device pools, 1 epoch of 8 steps; (e) times: the
+     exported against the live predict of a batch of 16 in EXPORT_ROUNDS
+     alternating rounds, BASENET's TTA predict, and its graphed step with
+     cuDNN's default algorithms and peak memory, each printed with the
+     card's name and power limit.
 Before phase 1 it prints which image decoders import (cv2, PIL,
 torchvision.io; report["versions"]["image_decoders"]). It then prints
 {"kernels": [...]} (launches from phase 7 for the baseline
@@ -326,7 +360,9 @@ from __future__ import annotations
 import dataclasses
 import io
 import json
+import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -631,6 +667,29 @@ REAL_ROUNDS = (2, 12)
 REAL_PROFILED = 3
 REAL_DIR = os.path.join(OUT_DIR, "real_images")
 # the least time the card could take: published H100 SXM peaks
+# phase 23: the deployable artifacts and BaseNet. EXPORT_IMAGES uint8
+# images through the neu engine's artifact in a fresh process; the other
+# engines' artifacts, (key, label, InferenceEngine config keywords, tta),
+# each held to its live engine on one batch; the BaseNet trained and
+# served; the exported and live predicts in EXPORT_ROUNDS (rounds,
+# predicts a round and engine) alternating rounds
+EXPORT_IMAGES = 40
+EXPORT_DIR = os.path.join(ROOT, "runs", "chip_smoke", "export")
+BASENET = "basenet_resnet50"
+EXPORT_ENGINES = (
+    ("tta", "unet_uaps --tta", {}, True),
+    ("chain", "unet_uaps chain", {"conv_backend": "chain"}, False),
+    ("fused", "unet_uaps fused", {"conv_backend": "fused"}, False),
+    ("fullh", "unet_uaps fullh", {"conv_variant": "fullh"}, False),
+    ("basenet", f"{BASENET} --tta", {"name": BASENET}, True))
+# the counter each path's artifact must launch at least once
+EXPORT_ROUTES = {"tta": "conv3x3_nchw", "chain": "chain_conv_bnl",
+                 "fused": "conv3x3_bnl", "fullh": "conv3x3_nchw_fullh"}
+EXPORT_ROUNDS = (5, 3)
+BASENET_EAGER = 3
+# the exported program must equal the live engine on the same input: the
+# same kernels and library calls in the same order
+EXPORT_PROBS_ATOL = 1e-6
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
 
@@ -4625,6 +4684,338 @@ class Smoke:
             log(f"{label}: {res['seconds']:.1f} s")
         return bad
 
+    # ------------------------------------------------------------ phase 23
+    def export_basenet(self):
+        """The deployable artifacts and BaseNet (phase 23 in the module
+        docstring)."""
+        import gc
+        res = self.report["export"] = {}
+        os.makedirs(EXPORT_DIR, exist_ok=True)
+        try:
+            self._export_neu(res)
+            self._export_others(res)
+            self._basenet_training(res)
+        finally:
+            shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+            gc.collect()
+            self.torch.cuda.empty_cache()
+
+    @staticmethod
+    def _export_normalize(images, cfg):
+        """uint8 images as the artifact normalises them: (x - 255 mean) /
+        (255 std) in f32 (artifact.ExportedEngine._normalize)."""
+        import numpy as np
+        mean = np.asarray(cfg.data.mean, np.float32) * 255.0
+        std = np.asarray(cfg.data.std, np.float32) * 255.0
+        return (images.astype(np.float32) - mean) / std
+
+    def _op_calls(self, fn):
+        """{uaps:: operator: calls} of fn() (a TorchDispatchMode): what the
+        live forward sends to the kernels' operators."""
+        from collections import Counter
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        class Calls(TorchDispatchMode):
+            n = Counter()
+
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if func.namespace == "uaps":
+                    self.n[func.__name__.split(".")[0]] += 1
+                return func(*args, **(kwargs or {}))
+
+        with Calls() as calls:
+            fn()
+            self.sync()
+        return dict(calls.n)
+
+    def _export_neu(self, res):
+        """(a), (b) and (e) for the neu unet_uaps bf16 engine."""
+        import numpy as np
+        from uaps_tpu_torch.serve import ExportedEngine, InferenceEngine
+        torch = self.torch
+        if not hasattr(self, "pth"):
+            self.pth = self._write_checkpoint()
+        cfg = self._config("bfloat16")
+        live = InferenceEngine.from_torch(cfg, self.pth, device=self.dev)
+        path = os.path.join(EXPORT_DIR, "neu_uaps_bf16.uapsexport")
+        t0 = time.perf_counter()
+        size = live.export(path)
+        res["neu_export_s"] = time.perf_counter() - t0
+        images = np.random.default_rng(SEED + 23).integers(
+            0, 256, (EXPORT_IMAGES, HW, HW, 3), dtype=np.uint8)
+        np.save(os.path.join(EXPORT_DIR, "images.npy"), images)
+        out = os.path.join(EXPORT_DIR, "exported.npz")
+        code = f"""
+import json, sys, time
+import numpy as np
+from uaps_tpu_torch.artifact import ExportedEngine
+from uaps_tpu_torch.kernels import conv3x3_nchw as kc, pool_nchw as kp
+t0 = time.perf_counter()
+eng = ExportedEngine({path!r}, device="cuda")
+load_s = time.perf_counter() - t0
+images = np.load({os.path.join(EXPORT_DIR, "images.npy")!r})
+eng.predict(images[:1])     # loads the kernel libraries
+batches = -(-len(images) // eng.batch_size)
+kc.launches = kp.launches = 0
+masks, probs = eng.predict(images)
+np.savez({out!r}, masks=masks, probs=probs)
+bad = ("jax", "uaps_tpu", "uaps_tpu_torch.models", "uaps_tpu_torch.methods",
+       "uaps_tpu_torch.utils", "uaps_tpu_torch.data", "uaps_tpu_torch.serve")
+print(json.dumps({{"load_s": load_s, "batches": batches,
+                  "conv": kc.launches, "pool": kp.launches,
+                  "modules": [n for n in sys.modules
+                              if n.split(".")[0] in bad[:2]
+                              or n.startswith(bad[2:])]}}))
+"""
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                              capture_output=True, text=True, timeout=600)
+        sub_s = time.perf_counter() - t0
+        if proc.returncode:
+            raise RuntimeError(f"the loader process failed:\n{proc.stderr}")
+        sub = json.loads(proc.stdout.strip().splitlines()[-1])
+        got = np.load(out)
+        # the live engine on the same input (the artifact's normalisation)
+        want_m, want_p = live.predict(self._export_normalize(images, cfg))
+        n_diff = int((got["masks"] != want_m).sum())
+        p_err = float(np.abs(got["probs"] - want_p).max())
+        u8_m, _ = live.predict(images)
+        u8_agree = float((u8_m == got["masks"]).mean())
+        per_batch = (sub["conv"] / sub["batches"], sub["pool"] / sub["batches"])
+        res["neu"] = {"bytes": size, "loader_process_s": sub_s, **sub,
+                      "mask_pixels_differ": n_diff, "probs_max_abs_diff": p_err,
+                      "uint8_mask_agree_live_normalisation": u8_agree}
+        log(f"neu unet_uaps bf16 artifact: {size} bytes, exported in "
+            f"{res['neu_export_s']:.1f} s; a fresh process loaded it in "
+            f"{sub['load_s']:.1f} s ({sub_s:.1f} s in all) and predicted "
+            f"{EXPORT_IMAGES} uint8 images: {n_diff} mask pixels differ from "
+            f"the live engine on the same input, probs max abs diff "
+            f"{p_err:.3e} (atol {EXPORT_PROBS_ATOL}); launches a batch conv "
+            f"{per_batch[0]}, pool {per_batch[1]}; port model / config / "
+            f"jax modules loaded: {sub['modules']}; masks against the live "
+            f"engine's own uint8 normalisation agree on {u8_agree:.6f}")
+        assert n_diff == 0 and p_err <= EXPORT_PROBS_ATOL, res["neu"]
+        assert per_batch == (CONV_PER_BATCH, POOL_PER_BATCH), per_batch
+        assert not sub["modules"], sub["modules"]
+
+        # an artifact exported on the CPU (batch 1) runs on the card
+        # (move_to_device_pass), through the kernels, equal to a live
+        # engine of batch 1 there (cuDNN may take other algorithms, and
+        # round otherwise in bf16, at another batch)
+        cpu, live1 = (InferenceEngine.from_torch(cfg, self.pth, device=d,
+                                                 batch_size=1)
+                      for d in ("cpu", self.dev))
+        cpu_path = os.path.join(EXPORT_DIR, "neu_uaps_bf16_cpu.uapsexport")
+        cpu.export(cpu_path)
+        moved = ExportedEngine(cpu_path, device=self.dev)
+        one = self._export_normalize(images[:1], cfg)
+        reset_counters()
+        mm, mp = moved.predict(one)
+        moved_launches = {k: v for k, v in counters().items() if v}
+        lm, lp = live1.predict(one)
+        res["cpu_exported_on_card"] = {
+            "launches": moved_launches,
+            "mask_pixels_differ": int((mm != lm).sum()),
+            "probs_max_abs_diff": float(np.abs(mp - lp).max())}
+        log(f"the artifact exported on the CPU, run on the card: "
+            f"{json.dumps(res['cpu_exported_on_card'])}")
+        assert moved_launches == {"conv3x3_nchw": CONV_PER_BATCH,
+                                  "max_pool_2x2_nchw": POOL_PER_BATCH}, \
+            moved_launches
+        assert (mm == lm).all() and float(np.abs(mp - lp).max()) \
+            <= EXPORT_PROBS_ATOL, res["cpu_exported_on_card"]
+        del cpu, live1, moved
+
+        # (b) the route of one exported predict, from the profiler's names
+        exported = ExportedEngine(path, device=self.dev)
+        x = torch.from_numpy(self._export_normalize(
+            images[:BATCH], cfg)).to(self.dev)
+        exported.predict_device(x)
+        cuda = torch.autograd.DeviceType.CUDA
+        prof = self._profiled(lambda: exported.predict_device(x))
+        names = [(e.key, e.count) for e in prof.key_averages()
+                 if e.device_type == cuda]
+        fams = {fam: sum(n for k, n in names if fam in k)
+                for fam in ("conv_fwd_mma_kernel", "max_pool_2x2_fwd_kernel",
+                            "conv3x3_fwd_kernel")}
+        _, big = self._library_convs(lambda: exported.predict_device(x),
+                                     cfg.data.num_classes)
+        res["neu_route"] = {"kernels": fams, "library_convs_128px": big}
+        log(f"an exported predict's kernels (profiler): {json.dumps(fams)}; "
+            f"PyTorch convs on 128 px or more: {big}")
+        assert fams == {"conv_fwd_mma_kernel": CONV_PER_BATCH,
+                        "max_pool_2x2_fwd_kernel": POOL_PER_BATCH,
+                        "conv3x3_fwd_kernel": 0}, fams
+        assert not big, big
+
+        # (e) the exported against the live predict, a batch of 16
+        times = self._dispatch_rounds(
+            {"live": lambda: live.predict_device(x),
+             "exported": lambda: exported.predict_device(x)}, 1,
+            rounds=EXPORT_ROUNDS[0], reps=EXPORT_ROUNDS[1])
+        self.report["times"]["export_predict_ms"] = times
+        card = self.report.get("nvidia_smi", "")
+        log(f"predict of a batch of {BATCH} ({card}), alternating rounds: "
+            + "; ".join(f"{k} {v['median']:.3f} ms [{v['min']:.3f}, "
+                        f"{v['max']:.3f}]" for k, v in times.items()))
+
+    def _export_others(self, res):
+        """(c): the other engines' artifacts against their live engines,
+        and the BaseNet TTA predict's time."""
+        import numpy as np
+        from uaps_tpu_torch.methods.base import build_model
+        from uaps_tpu_torch.models.unet import BatchNorm
+        from uaps_tpu_torch.serve import ExportedEngine, InferenceEngine
+        torch = self.torch
+        images = np.random.default_rng(SEED + 24).integers(
+            0, 256, (BATCH, HW, HW, 3), dtype=np.uint8)
+        card = self.report.get("nvidia_smi", "")
+        for key, label, kw, tta in EXPORT_ENGINES:
+            cfg = self._config("bfloat16", **kw)
+            if key == "basenet":
+                cfg.method = dataclasses.replace(cfg.method, name="baseline")
+                g = torch.Generator().manual_seed(SEED)
+                model = build_model(cfg, "cpu", g)
+                with torch.no_grad():
+                    for m in model.modules():
+                        if isinstance(m, BatchNorm):
+                            m.running_mean.normal_(0.0, 0.1, generator=g)
+                            m.running_var.uniform_(0.5, 1.5, generator=g)
+                live = InferenceEngine(cfg, state_dict=model.state_dict(),
+                                       device=self.dev, tta=tta)
+                del model
+            else:
+                live = InferenceEngine.from_torch(cfg, self.pth,
+                                                  device=self.dev, tta=tta)
+            x = torch.from_numpy(self._export_normalize(images, cfg)).to(
+                self.dev)
+            path = os.path.join(EXPORT_DIR, f"{key}.uapsexport")
+            t0 = time.perf_counter()
+            size = live.export(path)
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            exported = ExportedEngine(path, device=self.dev)
+            load_s = time.perf_counter() - t0
+            calls = self._op_calls(lambda: live.predict_device(x))
+            want_m, want_p = live.predict_device(x)
+            reset_counters()
+            got_m, got_p = exported.predict_device(x)
+            self.sync()
+            launched = {k: v for k, v in counters().items() if v}
+            n_diff = int((got_m != want_m).sum())
+            p_err = float((got_p - want_p).abs().max())
+            r = res[key] = {"bytes": size, "export_s": export_s,
+                            "load_s": load_s, "op_calls": calls,
+                            "launches": launched,
+                            "mask_pixels_differ": n_diff,
+                            "probs_max_abs_diff": p_err}
+            log(f"{label} artifact: {size} bytes, exported in "
+                f"{export_s:.1f} s, loaded in {load_s:.1f} s; against the "
+                f"live engine on one batch: {n_diff} mask pixels differ, "
+                f"probs max abs diff {p_err:.3e}; launches "
+                f"{json.dumps(launched)}, the live forward's operator calls "
+                f"{json.dumps(calls)}")
+            assert n_diff == 0 and p_err <= EXPORT_PROBS_ATOL, r
+            assert launched == calls, (launched, calls)
+            if key in EXPORT_ROUTES:
+                assert launched.get(EXPORT_ROUTES[key], 0) >= 1, launched
+            if key == "basenet":
+                assert not calls, calls   # the trunk is cuDNN's
+                s = got_p.sum(-1)
+                assert bool(torch.isfinite(got_p).all()) and float(
+                    (s - 1).abs().max()) < 1e-4
+                times = self._dispatch_rounds(
+                    {"live": lambda: live.predict_device(x),
+                     "exported": lambda: exported.predict_device(x)}, 1,
+                    rounds=3, reps=2)
+                self.report["times"]["basenet_tta_predict_ms"] = times
+                log(f"{label} predict of a batch of {BATCH} ({card}): "
+                    + "; ".join(f"{k} {v['median']:.3f} ms [{v['min']:.3f}"
+                                f", {v['max']:.3f}]"
+                                for k, v in times.items()))
+            del live, exported, x
+
+    def _basenet_training(self, res):
+        """(d) and the graphed step's time in (e): basenet_resnet50
+        baseline at neu, bf16."""
+        from uaps_tpu_torch import dispatch
+        from uaps_tpu_torch.data import SyntheticDefects
+        from uaps_tpu_torch.data.device_pool import PoolSampler
+        from uaps_tpu_torch.methods import get_method
+        torch = self.torch
+        cfg = self._train_config(name=BASENET)
+        plain_cfg = self._train_config(name=BASENET, conv_backend="xla")
+        per_step = {**{n: 0 for n in counters()},
+                    "ce_dice_fwd": 1, "ce_dice_bwd": 1}
+        data = SyntheticDefects(cfg.data, seed=SEED,
+                                labeled_pool=GRAPH_PATH_POOLS[0],
+                                unlabeled_pool=GRAPH_PATH_POOLS[1],
+                                val_pool=BATCH)
+        sampler = PoolSampler(data, BATCH, SEED, self.dev)
+        sampler.start_epoch(1)
+        method = get_method("baseline")
+        state, model = method.init_state(
+            cfg, self.dev, torch.Generator().manual_seed(SEED))
+        init_sd = {k: v.detach().clone() for k, v in
+                   model.state_dict().items()}
+        step = method.make_train_step(cfg, model)
+        reset_counters()
+        losses = []
+        for _ in range(BASENET_EAGER):
+            state, m = step(state, sampler.sample())
+            losses.append(float(m["loss"]))
+        launched = counters()
+        r = res["basenet_train"] = {"eager_losses": losses}
+        log(f"{BASENET} baseline, {BASENET_EAGER} eager steps: losses "
+            f"{losses}; launches "
+            f"{json.dumps({k: v for k, v in launched.items() if v})}")
+        assert all(math.isfinite(v) for v in losses), losses
+        assert launched == {n: BASENET_EAGER * v
+                            for n, v in per_step.items()}, launched
+        del state, model, step
+
+        # one step against the plain route from the same weights and batch
+        batch = sampler.sample()
+        (km, kmet, _), (pm, pmet, _) = self._step_pair(
+            method, cfg, plain_cfg, init_sd, batch, per_step)
+        r["kernel_vs_plain"] = self._compare_steps(
+            km, pm, kmet, pmet, init_sd, cfg.optim.base_lr,
+            terms=("loss", "ce_loss", "dice_loss"),
+            label=f"{BASENET} kernel vs plain")
+        del km, pm
+
+        # the graph against its eager steps, bit for bit under cuDNN's
+        # deterministic algorithms; then its time with the default ones
+        torch.backends.cudnn.deterministic = True
+        try:
+            checks = self._graph_bitwise("basenet_deterministic", BASENET,
+                                         cfg, "baseline", sampler, per_step,
+                                         r)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        method = get_method("baseline")
+        state, model = method.init_state(
+            cfg, self.dev, torch.Generator().manual_seed(SEED))
+        graphed = dispatch.GraphedSteps(method.make_train_step(cfg, model),
+                                        dispatch.AUTO_STEPS_CUDA, self.dev,
+                                        sampler)
+        torch.cuda.reset_peak_memory_stats()
+        state, _ = graphed(state)
+        times = self._dispatch_rounds({"graph": lambda: graphed(state)},
+                                      dispatch.AUTO_STEPS_CUDA, rounds=3,
+                                      reps=2)["graph"]
+        r["graph_default_cudnn_ms"] = times
+        r["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        self.report["times"]["basenet_graph_step_ms"] = times
+        card = self.report.get("nvidia_smi", "")
+        log(f"{BASENET} step as a graph of {dispatch.AUTO_STEPS_CUDA}, "
+            f"cuDNN's default algorithms ({card}): {times['median']:.3f} ms "
+            f"a step [{times['min']:.3f}, {times['max']:.3f}]; peak memory "
+            f"{r['peak_mem_gib']:.3f} GiB")
+        assert all(checks.values()), checks
+        del state, model, graphed
+        self._graph_trainer(data, cfg, (1, 8), r)   # Trainer.run, K = 4
+
 # the kernels line: (launch counter, CUDA source, the TPU kernel replaced)
 
     # ------------------------------------------------------------ phase 21
@@ -5579,6 +5970,7 @@ def main() -> int:
                 s.resume_eval)
         s.phase("22 real image files: the stream, host-fed graphs, train, "
                 "eval and serve CLIs, cps", s.real_images)
+        s.phase("23 export and BaseNet", s.export_basenet)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(s.report, f, indent=1, default=str)

@@ -311,7 +311,8 @@ def test_serve_directory_cli(image_sets, tmp_path, monkeypatch):
     --torch_ckpt PTH --uncertainty --device cpu` on 5 test images: the
     masks it writes equal InferenceEngine.predict of the same decoded
     batch, the viz is the palette of the masks, an uncertainty PNG an
-    image, the count printed; --export raises."""
+    image, the count printed; with --export it writes the artifact
+    instead (artifact.py) and returns its size."""
     import shutil
     from uaps_tpu_torch import serve
     from uaps_tpu_torch.methods import base
@@ -346,5 +347,8 @@ def test_serve_directory_cli(image_sets, tmp_path, monkeypatch):
                            cv2.COLOR_BGR2RGB)
         np.testing.assert_array_equal(viz, colorize(m))
         assert (tmp_path / "out" / f"{stem}_uncert.png").exists()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.main(argv + ["--export", str(tmp_path / "x")])
+    res = serve.main(argv + ["--export", str(tmp_path / "x")])
+    from uaps_tpu_torch import artifact
+    meta, _ = artifact.read(str(tmp_path / "x"))
+    assert (tmp_path / "x").stat().st_size == res["bytes"]
+    assert (meta["image_size"], meta["device"]) == ([256, 256], "cpu")

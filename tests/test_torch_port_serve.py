@@ -27,7 +27,7 @@ from uaps_tpu.methods.base import build_model as jax_build_model
 from uaps_tpu.utils.config import preset
 from uaps_tpu_torch.methods.base import build_model
 from uaps_tpu_torch.ops.tta import flip_tta_softmax
-from uaps_tpu_torch.serve import InferenceEngine
+from uaps_tpu_torch.serve import ExportedEngine, InferenceEngine
 from uaps_tpu_torch.server import AsyncBatcher, serve_http
 from uaps_tpu_torch.utils.weights import load_pth, state_dict_from_jax
 
@@ -128,7 +128,7 @@ def test_pth_roundtrip_strict(served, tmp_path):
         InferenceEngine(cfg, state_dict=bad, device="cpu")
 
 
-def test_engine_contract_errors(served):
+def test_engine_contract_errors(served, tmp_path):
     cfg, _, _, sd = served
     with pytest.raises(ValueError, match="exactly one"):
         InferenceEngine(cfg, device="cpu")
@@ -141,8 +141,6 @@ def test_engine_contract_errors(served):
     np.testing.assert_array_equal(probs, want.numpy())
     np.testing.assert_array_equal(masks, want.argmax(-1).numpy())
     engine = InferenceEngine(cfg, state_dict=sd, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.export("x")
     # uncertainty() is ported: one KL map per image, repeatable
     u = engine.uncertainty(_images(1, 0))
     assert u.shape == (1, *HW) and u.dtype == np.float32
@@ -151,6 +149,13 @@ def test_engine_contract_errors(served):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             InferenceEngine(cfg, state_dict=sd, device="cuda")
+        # export is ported (tests/test_torch_port_export.py); its loader
+        # refuses a card that is not there before it reads the program
+        head = json.dumps({"device": "cpu"}).encode()
+        path = tmp_path / "header_only.export"
+        path.write_bytes(len(head).to_bytes(8, "little") + head)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            ExportedEngine(str(path), device="cuda")
 
 
 @pytest.mark.parametrize("argv,method,data,model", [
@@ -206,6 +211,11 @@ def test_port_imports_no_jax():
         ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(
             ".__init__")
         for p in files if p.parent.name != "" and "uaps_tpu_torch" in p.parts]
+    # the kernels' operators, the artifact's loader, the ResNet BaseNets
+    # and the step timer are among them
+    assert {"uaps_tpu_torch.kernels.custom_ops", "uaps_tpu_torch.artifact",
+            "uaps_tpu_torch.models.resnet",
+            "uaps_tpu_torch.step_times"} <= set(modules)
     code = ("import importlib, sys\n"
             "sys.modules['uaps_tpu'] = None\n"
             f"for m in {modules!r}:\n"

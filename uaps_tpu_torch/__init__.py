@@ -24,14 +24,16 @@ inside; public functions keep the JAX layouts (NHWC images in, NHWC
 probs/logits out).
 
 Layout:
-  kernels/    _build (nvcc + ctypes), conv3x3_nchw, pool_nchw, ce_dice
+  kernels/    _build (nvcc + ctypes), custom_ops (the kernels' forwards as
+              `uaps::` operators), conv3x3_nchw, pool_nchw, ce_dice, ...
   csrc/       the CUDA sources
-  models/     unet (U-Net family), factory (net_factory)
+  models/     unet (U-Net family), resnet (BaseNet), factory (net_factory)
   methods/    base (model, optimizer, losses, eval step), baseline
   ops/        losses, metrics
   data/       synthetic (SyntheticDefects), device_pool (resident pools)
   utils/      config, cli, weights, logging_utils
   serve.py    InferenceEngine     server.py   AsyncBatcher + HTTP
+  artifact.py the export artifact (ExportedEngine)
   train.py    Trainer + training CLI
   dispatch.py K steps a dispatch: one CUDA graph on the GPU
 """

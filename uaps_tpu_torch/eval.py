@@ -22,7 +22,9 @@ teacher (`--eval_ema`). `--save_viz` writes up to 16 triples of PNGs: the
 prediction and the ground truth in the NEU palette, and the uncertainty
 map (the main decoder's KL from the decoders' mean, scaled to 255) in
 JET (utils/viz.py: no OpenCV). `--tta` scores the mean softmax over the 4
-H/V flips (ops/tta.py). Runs on `cuda` unless `--device cpu` is given.
+H/V flips (ops/tta.py); a BaseNet scores its multi-scale flip sum
+(models/resnet.py; JAX eval.py:101-102). Runs on `cuda` unless `--device
+cpu` is given.
 """
 from __future__ import annotations
 
@@ -82,9 +84,14 @@ def evaluate(cfg, ckpt_dir: str, split: str = "test", save_viz: str = "",
     forward = getattr(net, "main_only", net)
     n_classes = cfg.data.num_classes
 
+    basenet = cfg.model.name.startswith("basenet")
+
     def predict(image):
-        """Class scores [B, H, W, C]: logits, or the flips' mean softmax."""
+        """Class scores [B, H, W, C]: logits, or under TTA the flips' mean
+        softmax (a BaseNet: its multi-scale flip sum)."""
         with torch.inference_mode():
+            if tta and basenet:
+                return net(image, tta=True)
             if tta:
                 return flip_tta_softmax(forward, image)
             return forward(image)
@@ -156,7 +163,9 @@ def evaluate(cfg, ckpt_dir: str, split: str = "test", save_viz: str = "",
 
 def main(argv=None):
     cfg, _ = parse_args(argv)
-    p = argparse.ArgumentParser()
+    # no abbreviations: the config's `--model NAME` is not `--model2`
+    # (JAX's eval CLI reads it as `--model2`)
+    p = argparse.ArgumentParser(allow_abbrev=False)
     p.add_argument("--ckpt", default=None)
     p.add_argument("--split", default="test", choices=["test", "val"])
     p.add_argument("--save_viz", default="")
@@ -166,7 +175,8 @@ def main(argv=None):
     p.add_argument("--eval_ema", action="store_true",
                    help="evaluate the MT/UAMT EMA teacher weights")
     p.add_argument("--tta", action="store_true",
-                   help="mean softmax over the 4 H/V flips")
+                   help="mean softmax over the 4 H/V flips (a BaseNet: its "
+                        "multi-scale flip sum)")
     p.add_argument("--device", default="cuda")
     extra, _ = p.parse_known_args(argv)
     which = ("model2" if extra.model2

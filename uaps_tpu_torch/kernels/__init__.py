@@ -9,4 +9,8 @@ wrapper enqueues its kernel: also while a CUDA graph captures the launch,
 though nothing runs then, and never when the graph replays it, since no
 Python runs then. So a graphed step (uaps_tpu_torch/dispatch.py) is counted
 from the profiler's kernel names (chip_smoke.py phase 19), not here.
+
+Importing the package registers the kernels' forwards as the `uaps::`
+operators of `custom_ops`, through which every wrapper calls them.
 """
+from uaps_tpu_torch.kernels import custom_ops  # noqa: F401

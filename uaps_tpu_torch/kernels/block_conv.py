@@ -42,7 +42,9 @@ to w's dtype.
 
 Dispatch: a CPU tensor goes to the plain versions (`chain_plain_ref`,
 `chain_bnl_ref`, `chain_bwd_plain`); a CUDA tensor launches the kernels or
-raises. Launch counts, one per wrapper call: `plain_launches`,
+raises. The forwards go through the operators `uaps::chain_conv_plain` and
+`uaps::chain_conv_bnl` on both devices (kernels/custom_ops.py), the seed
+and rate as their arguments. Launch counts, one per wrapper call: `plain_launches`,
 `bnl_launches` (forwards), `plain_bwd_launches`, `bnl_bwd_launches`.
 """
 from __future__ import annotations
@@ -318,21 +320,14 @@ def kernel_bwd(g: torch.Tensor, y, ds1, ds2, x: torch.Tensor,
 
 
 def _forward(x, f, s, w, seed, rate):
-    """(y, s1, s2) of the plain chain conv (f None) or the bnl one."""
-    global plain_launches, bnl_launches
-    pro = f is not None
-    what = "chain_conv_bnl" if pro else "chain_conv_plain"
-    if not kernel_path(x, what):
-        with torch.no_grad():
-            if pro:
-                return chain_bnl_ref(x, f, s, w, seed, rate)
-            return chain_plain_ref(x, w)
-    y, mom = kernel_fwd(x.contiguous(), w9(w, x.dtype), f, s, seed, rate,
-                        True, what)
-    if pro:
-        bnl_launches += 1
+    """(y, s1, s2) of the plain chain conv (f None) or the bnl one, through
+    its operator (kernels/custom_ops.py)."""
+    if f is None:
+        kernel_path(x, "chain_conv_plain")   # a device with no kernel raises
+        y, mom = torch.ops.uaps.chain_conv_plain.default(x, w)
     else:
-        plain_launches += 1
+        kernel_path(x, "chain_conv_bnl")
+        y, mom = torch.ops.uaps.chain_conv_bnl.default(x, f, s, w, seed, rate)
     return y, mom[0], mom[1]
 
 

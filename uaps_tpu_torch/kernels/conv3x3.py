@@ -16,7 +16,9 @@ its in/out channels swapped, dW = `conv3x3_wgrad(x, g)` cast to w's dtype.
 
 Dispatch: a CPU tensor goes to the plain versions
 (`conv3x3_forward_plain`, `conv3x3_wgrad_plain`); a CUDA tensor launches
-the kernels or raises, never falls back. Launch counts: `nhwc_launches`
+the kernels or raises, never falls back. The forward goes through the
+operator `uaps::conv3x3_nhwc` on both devices (kernels/custom_ops.py); the
+dgrad and weight gradient launch from here. Launch counts: `nhwc_launches`
 (forward and dgrad), `nhwc_wgrad_launches`.
 """
 from __future__ import annotations
@@ -124,14 +126,10 @@ def conv3x3_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [B, H, W, Cin], w [3, 3, Cin, Cout] -> [B, H, W, Cout] in x's
     dtype (JAX `conv3x3_forward`). Not differentiable (`conv3x3_small`
     is)."""
-    global nhwc_launches
     _check(x, w, "conv3x3_forward")
     w = w.to(x.dtype)
-    if not kernel_path(x, "conv3x3_forward"):
-        return conv3x3_forward_plain(x, w)
-    y = _launch(x, w, flipped=False)
-    nhwc_launches += 1
-    return y
+    kernel_path(x, "conv3x3_forward")   # a device with no kernel raises
+    return torch.ops.uaps.conv3x3_nhwc.default(x, w)
 
 
 def conv3x3_dgrad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

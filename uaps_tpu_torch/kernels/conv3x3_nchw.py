@@ -41,7 +41,11 @@ dW is the f32 weight gradient cast to w's dtype.
 Dispatch: a CPU tensor goes to the plain versions (`conv3x3_nchw_plain`,
 `conv3x3_nchw_dgrad_plain`, `conv3x3_nchw_wgrad_plain`; the stats entries
 block_conv.py's `chain_plain_ref` and `chain_bwd_plain`); a CUDA tensor
-launches the kernels or raises, never falls back. Launch counts:
+launches the kernels or raises, never falls back. The forwards go through
+the operators `uaps::conv3x3_nchw`, `uaps::conv3x3_nchw_fullh` and
+`uaps::conv3x3_nchw_stats` on both devices (kernels/custom_ops.py, whose
+CUDA implementations launch and count); the backwards launch from here.
+Launch counts:
 `launches` (forward), `dgrad_launches`, `wgrad_launches`; for fullh
 `fullh_launches`, `fullh_dgrad_launches`, `fullh_wgrad_launches`; for
 stats `stats_launches`, `stats_bwd_launches` (one per call).
@@ -209,12 +213,8 @@ def kernel_path(t: torch.Tensor, what: str) -> bool:
 
 
 def _forward(x, w, out_dtype):
-    global launches
-    if not kernel_path(x, "conv3x3_nchw"):
-        return conv3x3_nchw_plain(x, w, out_dtype)
-    y = _launch(x, w, out_dtype, flipped=False)
-    launches += 1
-    return y
+    kernel_path(x, "conv3x3_nchw")   # a device with no kernel raises
+    return torch.ops.uaps.conv3x3_nchw.default(x, w, out_dtype)
 
 
 def conv3x3_nchw_dgrad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -233,13 +233,9 @@ def conv3x3_nchw_fullh(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """JAX `conv3x3_nchw_fullh`: x [B, Cin, H, W], w [3, 3, Cin, Cout]
     (cast to x's dtype) -> [B, Cout, H, W] in x's dtype; the forward
     kernel, counted in `fullh_launches`."""
-    global fullh_launches
     w = w.to(x.dtype)
-    if not kernel_path(x, "conv3x3_nchw_fullh"):
-        return conv3x3_nchw_plain(x, w)
-    y = _launch(x, w, x.dtype, flipped=False)
-    fullh_launches += 1
-    return y
+    kernel_path(x, "conv3x3_nchw_fullh")
+    return torch.ops.uaps.conv3x3_nchw_fullh.default(x, w)
 
 
 def conv3x3_nchw_dgrad_fullh(g: torch.Tensor,
@@ -384,15 +380,9 @@ def conv3x3_nchw_stats(x: torch.Tensor, w: torch.Tensor):
     (cast to x's dtype) -> (y [B, Cout, H, W] in x's dtype, no bias; s1,
     s2 [Cout] f32, the sums of y and y^2 over (B, H, W)). Not
     differentiable (`conv3x3_fast_nchw_stats` is)."""
-    global stats_launches
-    kbc = _block_conv()
     _check_stats(x, w)
-    if not kernel_path(x, "conv3x3_nchw_stats"):
-        with torch.no_grad():
-            return kbc.chain_plain_ref(x, w)
-    y, mom = kbc.kernel_fwd(x.contiguous(), kbc.w9(w, x.dtype), None, None,
-                            None, 0.0, True, "conv3x3_nchw_stats")
-    stats_launches += 1
+    kernel_path(x, "conv3x3_nchw_stats")
+    y, mom = torch.ops.uaps.conv3x3_nchw_stats.default(x, w)
     return y, mom[0], mom[1]
 
 

@@ -16,7 +16,9 @@ unfolded; the plain versions are `conv3x3_bnl_ref` (forward) and
 block_conv's `chain_bwd_plain` (backward).
 
 Dispatch: a CPU tensor goes to the plain versions; a CUDA tensor launches
-the kernels (output dtype y's) or raises. Launch counts, one per call:
+the kernels (output dtype y's) or raises. The forward goes through the
+operator `uaps::conv3x3_bnl` on both devices (kernels/custom_ops.py).
+Launch counts, one per call:
 `fwd_launches`, `bwd_launches`.
 """
 from __future__ import annotations
@@ -40,17 +42,8 @@ def conv3x3_bnl_ref(y: torch.Tensor, f: torch.Tensor, s: torch.Tensor,
 
 
 def _forward(y, f, s, w, out_dtype):
-    global fwd_launches
-    if not bc.kernel_path(y, "conv3x3_bnl"):
-        with torch.no_grad():
-            return conv3x3_bnl_ref(y, f, s, w, out_dtype)
-    if out_dtype != y.dtype:
-        raise TypeError(f"conv3x3_bnl: the kernel writes y's dtype "
-                        f"{y.dtype}; asked for {out_dtype}")
-    out, _ = bc.kernel_fwd(y.contiguous(), bc.w9(w, y.dtype), f, s, None, 0.0,
-                           False, "conv3x3_bnl")
-    fwd_launches += 1
-    return out
+    bc.kernel_path(y, "conv3x3_bnl")   # a device with no kernel raises
+    return torch.ops.uaps.conv3x3_bnl.default(y, f, s, w, out_dtype)
 
 
 def _backward(g, y, f, s, w):

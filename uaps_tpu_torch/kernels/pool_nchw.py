@@ -10,8 +10,10 @@ window whose max is NaN routes nothing.
 
 Dispatch: a CPU tensor goes to the plain versions
 (`max_pool_2x2_nchw_plain`, `max_pool_2x2_nchw_bwd_plain`); a CUDA tensor
-launches the kernels or raises. Launch counts: `launches` (forward),
-`bwd_launches`.
+launches the kernels or raises. The forward goes through the operator
+`uaps::max_pool_2x2_nchw` on both devices (kernels/custom_ops.py, whose
+CUDA implementation is `_launch_fwd`). Launch counts: `launches`
+(forward), `bwd_launches`.
 """
 from __future__ import annotations
 
@@ -135,11 +137,10 @@ def max_pool_2x2_nchw_bwd(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 
 def _forward(x: torch.Tensor) -> torch.Tensor:
-    if x.device.type == "cpu":
-        return max_pool_2x2_nchw_plain(x)
-    if x.device.type == "cuda":
-        return _launch_fwd(x)
-    raise ValueError(f"max_pool_2x2_nchw: no kernel for device {x.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"max_pool_2x2_nchw: no kernel for device "
+                         f"{x.device}")
+    return torch.ops.uaps.max_pool_2x2_nchw.default(x)
 
 
 class _MaxPool2x2(torch.autograd.Function):

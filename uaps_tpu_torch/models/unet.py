@@ -119,6 +119,12 @@ UNET_DROPOUT: Tuple[float, ...] = (0.05, 0.1, 0.2, 0.3, 0.5)
 SKIPS = 5   # skip tensors the encoder hands to each decoder
 
 
+def cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """t in `dtype`; t itself where it is already (no cast in an exported
+    program's graph)."""
+    return t if t.dtype == dtype else t.to(dtype)
+
+
 def draw_seeds(generator: Optional[torch.Generator], n: int,
                device: torch.device) -> torch.Tensor:
     """n int64 seeds in [0, 2^31) on `device`, one draw from `generator`
@@ -159,8 +165,8 @@ class Conv3x3(nn.Module):
         conv); return_stats=True returns (out, s1, s2, n): the f32 sum and
         sum of squares of the biased output over its n = B * H * W pixels
         per channel (JAX `Conv3x3(return_stats=True)`)."""
-        x = x.to(self.dtype)
-        w = self.weight.to(self.dtype)
+        x = cast(x, self.dtype)
+        w = cast(self.weight, self.dtype)
         cout, cin = w.shape[:2]
         use_k = self.kernel and conv_kernel_ok(x.shape[2], x.shape[3], cin,
                                                cout)
@@ -175,11 +181,11 @@ class Conv3x3(nn.Module):
                              variant=self.variant)
         else:
             # the JAX fallback: a plain conv in the wider of the two dtypes
-            y = F.conv2d(x.to(self.out_dtype), w.to(self.out_dtype),
+            y = F.conv2d(cast(x, self.out_dtype), cast(w, self.out_dtype),
                          padding=1)
         if not apply_bias:
             return y
-        out = y + self.bias.to(y.dtype)[:, None, None]
+        out = y + cast(self.bias, y.dtype).view(-1, 1, 1)
         if not return_stats:
             return out
         n = y.shape[0] * y.shape[2] * y.shape[3]
@@ -202,7 +208,8 @@ class BatchNorm(nn.BatchNorm2d):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.to(torch.promote_types(x.dtype, torch.float32))  # as flax
+        xf = cast(x, torch.float64 if x.dtype == torch.float64
+                  else torch.float32)   # at least f32, as flax
         if self.training:
             mean = xf.mean((0, 2, 3))
             var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean,
@@ -211,9 +218,10 @@ class BatchNorm(nn.BatchNorm2d):
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
-        y = ((xf - mean[:, None, None]) * mul[:, None, None]
-             + self.bias[:, None, None])
-        return y.to(self.dtype)
+        # per-channel [C, 1, 1] views: one node each in an exported program
+        y = ((xf - mean.view(-1, 1, 1)) * mul.view(-1, 1, 1)
+             + self.bias.view(-1, 1, 1))
+        return cast(y, self.dtype)
 
     def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
         """running = 0.9 running + 0.1 batch (flax momentum 0.9)."""
@@ -468,9 +476,9 @@ class PointwiseConv(nn.Module):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        k = self.weight[:, :, 0, 0].to(self.dtype)
-        y = torch.einsum("bchw,dc->bdhw", x.to(self.dtype), k)
-        return y + self.bias.to(y.dtype)[:, None, None]
+        k = cast(self.weight[:, :, 0, 0], self.dtype)
+        y = torch.einsum("bchw,dc->bdhw", cast(x, self.dtype), k)
+        return y + cast(self.bias, y.dtype).view(-1, 1, 1)
 
 
 class UpBlock(nn.Module):

@@ -10,7 +10,9 @@ one padded by repeating its last image, run through the main decoder (a
 deep-supervision net's forward gives its dp0 head, as JAX's `_forward`
 takes `out["dp0"]`), softmaxed in f32 and argmaxed; it returns int32
 masks [N, H, W] and f32 probs [N, H, W, C]; with `tta` the probs are the
-mean softmax over the 4 H/V flips (`ops/tta.py`, JAX serve.py:77-82).
+mean softmax over the 4 H/V flips (`ops/tta.py`, JAX serve.py:77-82), or,
+for a BaseNet, its multi-scale flip sum divided by its sum over the
+classes (models/resnet.py, JAX serve.py:77-79).
 `uncertainty` (serve.py:171-178) returns the main decoder's KL map
 against the mean of every decoder's softmax, the aux decoders seeing
 perturbed features. For concurrent traffic, `uaps_tpu_torch.server` puts
@@ -34,7 +36,14 @@ palette, utils/viz.py) and, with `--uncertainty`, `<stem>_uncert.png`
 (the KL map scaled to 255, JET). `--ckpt` is a run directory of the
 port's Trainer (its best checkpoint by val mDice), by default
 `out_dir/checkpoints`. It prints the count and images/s of the
-prediction. `--export` raises: export is not ported.
+prediction.
+
+`InferenceEngine.export(path)` writes the deployable artifact
+(uaps_tpu_torch/artifact.py: JAX's container around a `torch.export`
+program of `predict_device`, TTA included, the weights baked in), and
+`ExportedEngine(path, device="cuda")` (re-exported here) runs it with torch
+and the kernels' operators alone. `--export PATH` on the CLI writes it,
+prints its path and size and exits (JAX serve.py:245-249).
 """
 from __future__ import annotations
 
@@ -46,6 +55,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from uaps_tpu_torch import artifact
+from uaps_tpu_torch.artifact import ExportedEngine  # noqa: F401 (public)
 from uaps_tpu_torch.data.augment import cv2, normalize
 from uaps_tpu_torch.methods.base import build_model, resolve_device
 from uaps_tpu_torch.ops import kl_divergence_map
@@ -70,6 +81,20 @@ def uncertainty_map(model: torch.nn.Module, x: torch.Tensor
         return kl_divergence_map(outs[0], preds)
 
 
+class _Predictor(torch.nn.Module):
+    """An engine's `predict_device` as a module (the exported program): one
+    normalised NHWC batch -> (int32 masks, f32 probs)."""
+
+    def __init__(self, engine: "InferenceEngine"):
+        super().__init__()
+        self.model = engine.model
+        self._probs = engine._probs
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        probs = self._probs(x)
+        return torch.argmax(probs, dim=-1).to(torch.int32), probs
+
+
 class InferenceEngine:
     """Fixed-batch predictor over the main decoder, with the padding
     micro-batcher."""
@@ -92,16 +117,33 @@ class InferenceEngine:
         self.model = model.to(self.device).eval()
         self._forward = getattr(self.model, "main_only", self.model)
         self.tta = tta
+        self.basenet = cfg.model.name.startswith("basenet")
 
     @classmethod
     def from_torch(cls, cfg, pth_path: str, **kw) -> "InferenceEngine":
         """Serve a reference (or `save_pth`) .pth checkpoint."""
         return cls(cfg, ckpt=pth_path, **kw)
 
-    def export(self, path: str) -> None:
-        raise NotImplementedError(
-            "export is not ported yet: ROADMAP.md Queue A, 'The rest of "
-            "serving'")
+    def export(self, path: str) -> int:
+        """Write the deployable artifact of `predict_device` at batch_size
+        (artifact.py): `torch.export` under no_grad of one f32 NHWC batch
+        -> (masks, probs), TTA included, the weights and the models'
+        interpolation matrices baked in (a predict first fills those
+        caches, so they export as constants). Returns its size in bytes."""
+        h, w = self.cfg.data.image_size
+        x = torch.zeros((self.batch_size, h, w, self.cfg.data.in_channels),
+                        device=self.device)
+        self.predict_device(x)
+        with torch.no_grad():
+            program = torch.export.export(_Predictor(self), (x,),
+                                          strict=False)
+        d = self.cfg.data
+        return artifact.write(path, {
+            "batch_size": self.batch_size, "image_size": [h, w],
+            "in_channels": d.in_channels, "mean": list(d.mean),
+            "std": list(d.std), "num_classes": d.num_classes,
+            "model": self.cfg.model.name, "device": self.device.type,
+            "dtype": self.cfg.model.compute_dtype}, program)
 
     def uncertainty(self, images: np.ndarray) -> np.ndarray:
         """images [N,H,W,C] uint8 or normalized float32 -> f32 [N,H,W] KL
@@ -136,15 +178,21 @@ class InferenceEngine:
                     [chunk, np.repeat(chunk[-1:], pad, axis=0)])
             yield chunk, bs - pad
 
+    def _probs(self, x: torch.Tensor) -> torch.Tensor:
+        """f32 class probabilities [B, H, W, C] of a normalised batch."""
+        if self.tta and self.basenet:
+            scores = self.model(x, tta=True)
+            return scores / scores.sum(-1, keepdim=True)
+        if self.tta:
+            return flip_tta_softmax(self._forward, x)
+        return torch.softmax(self._forward(x).float(), dim=-1)
+
     def predict_device(self, x: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One normalised NHWC batch already on the device -> (masks int32
         [B, H, W], probs f32 [B, H, W, C]) on the device."""
         with torch.inference_mode():
-            if self.tta:
-                probs = flip_tta_softmax(self._forward, x)
-            else:
-                probs = torch.softmax(self._forward(x).float(), dim=-1)
+            probs = self._probs(x)
             return torch.argmax(probs, dim=-1).to(torch.int32), probs
 
     def predict(self, images: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -195,13 +243,16 @@ def main(argv=None) -> Dict[str, float]:
     p = argparse.ArgumentParser()
     p.add_argument("--images", default=None)
     p.add_argument("--out", default=None)
-    p.add_argument("--export", default=None, metavar="PATH")
+    p.add_argument("--export", default=None, metavar="PATH",
+                   help="write the deployable artifact (artifact.py) and "
+                        "exit")
     p.add_argument("--ckpt", default=None,
                    help="a run directory of the port's Trainer")
     p.add_argument("--torch_ckpt", default=None, help="a .pth checkpoint")
     p.add_argument("--uncertainty", action="store_true")
     p.add_argument("--tta", action="store_true",
-                   help="mean softmax over the 4 H/V flips")
+                   help="mean softmax over the 4 H/V flips (a BaseNet: its "
+                        "multi-scale flip harness)")
     p.add_argument("--device", default="cuda")
     extra, _ = p.parse_known_args(argv)
 
@@ -213,9 +264,12 @@ def main(argv=None) -> Dict[str, float]:
         engine = InferenceEngine(cfg, state_dict=module_tensors(tensors),
                                  **kw)
     if extra.export:
-        engine.export(extra.export)
+        size = engine.export(extra.export)
+        print(f"exported deployment artifact -> {extra.export} ({size} "
+              "bytes)")
+        return {"bytes": size}
     if not (extra.images and extra.out):
-        p.error("--images and --out are required")
+        p.error("--images and --out are required (or use --export)")
 
     os.makedirs(extra.out, exist_ok=True)
     names, batch = read_images(extra.images, cfg.data.image_size,

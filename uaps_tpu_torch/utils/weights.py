@@ -3,9 +3,10 @@
   * `state_dict_from_jax(params, batch_stats)`: the JAX package's flax
     trees (nested dicts of numpy arrays) -> a torch state dict under the
     reference's names, for `unet` (top modules `encoder`, `decoder`), the
-    multi-decoder nets (`encoder`, `main_decoder`, `aux_decoderN`) and the
+    multi-decoder nets (`encoder`, `main_decoder`, `aux_decoderN`), the
     deep-supervision nets (flax `main_decoder`, holding `out_conv_dp1..3`,
-    is torch `decoder`, m_unet.py:277);
+    is torch `decoder`, m_unet.py:277) and the BaseNets (`net`, `head`:
+    torchvision's names, models/resnet.py);
   * `load_jax_params(model, params, batch_stats)`: load those, strict;
   * `load_pth(model, path)`: a `.pth` file, either a raw state dict or the
     reference's training dict `{'state_dict': ...}`, with or without
@@ -15,7 +16,10 @@
 Name translation (flax -> torch): a ConvBlock's Conv_0 / BatchNorm_0 /
 Conv_1 / BatchNorm_1 are `conv_conv.{0,1,4,5}`, `downI/ConvBlock_0` is
 `downI.maxpool_conv.1`, `upI/Conv_0` is `upI.conv1x1` and `upI/ConvBlock_0`
-is `upI.conv`. Conv kernels go HWIO -> OIHW; BN scale/bias become
+is `upI.conv`; a BaseNet's `net/layerS_B/conv1` is `net.layerS.B.conv1`,
+its `down_conv` / `down_bn` are `downsample.0` / `.1`, and FCNHead's
+Conv_0 / BatchNorm_0 / Conv_1 are `head.0` / `.1` / `.3`. Conv kernels go
+HWIO -> OIHW (a conv without a bias has none); BN scale/bias become
 weight/bias and the batch stats mean/var running_mean/running_var (with
 `num_batches_tracked` 0, which flax does not keep).
 """
@@ -60,10 +64,30 @@ def _ds_decoder(prefix: str) -> Dict:
     return m
 
 
+def _resnet(tree) -> Dict:
+    """The trunk's flax names (conv1, bn1, layerS_B/...) -> torchvision's."""
+    m = {"conv1": "net.conv1", "bn1": "net.bn1"}
+    block = {"conv1": "conv1", "bn1": "bn1", "conv2": "conv2", "bn2": "bn2",
+             "conv3": "conv3", "bn3": "bn3", "down_conv": "downsample.0",
+             "down_bn": "downsample.1"}
+    for k in tree:
+        if k.startswith("layer"):
+            stage, b = k[len("layer"):].split("_")
+            m[k] = {n: f"net.layer{stage}.{b}.{t}" for n, t in block.items()}
+    return m
+
+
+_FCN_HEAD = {"Conv_0": "head.0", "BatchNorm_0": "head.1", "Conv_1": "head.3"}
+
+
 def _name_map(params) -> Dict:
     m = {}
     for top in params:
-        if top == "encoder":
+        if top == "net":
+            m[top] = _resnet(params[top])
+        elif top == "head":
+            m[top] = _FCN_HEAD
+        elif top == "encoder":
             m[top] = _encoder()
         elif top == "main_decoder" and "out_conv_dp1" in params[top]:
             m[top] = _ds_decoder("decoder")
@@ -95,7 +119,8 @@ def state_dict_from_jax(params, batch_stats) -> Dict[str, torch.Tensor]:
             if "kernel" in v:                           # Conv
                 out[f"{entry}.weight"] = t(
                     np.transpose(np.asarray(v["kernel"]), (3, 2, 0, 1)))
-                out[f"{entry}.bias"] = t(v["bias"])
+                if "bias" in v:
+                    out[f"{entry}.bias"] = t(v["bias"])
             elif "scale" in v:                          # BatchNorm
                 out[f"{entry}.weight"] = t(v["scale"])
                 out[f"{entry}.bias"] = t(v["bias"])
