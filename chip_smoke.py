@@ -92,13 +92,16 @@ Phases (any failure: exit 1 and no result line):
      of UAPS_STEP_LAUNCHES per step; one step of the kernel path and one
      of the plain path past the ramp (w1 = w2 = 0.1) from the same weights,
      batch, seeds and mix_w (every perturbation on), within the bf16
-     tolerances of Smoke._compare_steps, each loss term too; peak memory;
+     tolerances of Smoke._compare_steps, each loss term too; the same
+     bf16 step against the step in f32 (Smoke._bf16_vs_f32: each loss
+     term within BF16_F32_LOSS_REL, >= BF16_F32_DELTA_SHARE of the Adam
+     deltas within lr/2; a regression check); peak memory;
      InferenceEngine.uncertainty on the trained weights;
  11. UAPS times: per new kernel and step shape, ms (L2 flushed), the plain
      version's, the library call's (F.dropout; none for the others) and
      the bound (feature dropout: x read, out and the attention written;
      its backward: g and the attention read, dx written), summed per step
-     by launches; a profile of 2 UAPS steps, whose kernel names must show
+     by launches; a profile of a UAPS step, whose kernel names must show
      phase 8's route and 10 fdrop_att_kernel and 10 + 10
      fdrop_apply_kernel a step (no feature_dropout_max_kernel);
  12. fused-block kernels: chain_conv_plain, chain_conv_bnl (at each level's
@@ -127,8 +130,8 @@ Phases (any failure: exit 1 and no result line):
      the library composite's (cuDNN F.conv2d; for bnl with the torch
      normalise, leaky and dropout before it; backwards: autograd of the
      composite) and the bound, summed per step by launches; the UAPS step of
-     the auto, chain and fused paths in alternating rounds; a profile of 2
-     chain steps and of 2 fused steps, each with phase 8's route proof;
+     the auto, chain and fused paths in alternating rounds; a profile of a
+     chain step and of a fused step, each with phase 8's route proof;
  15. the fused pseudo-label kernel against its plain version at the logits
      of each preset's UAPS step (PSEUDO_GEOMS: 4 x [16, 256, 256, 4 / 7 /
      6] and 4 x [12, 256, 512, 2]), f32 and bf16, as NHWC views of NCHW
@@ -145,7 +148,7 @@ Phases (any failure: exit 1 and no result line):
      ops, the pseudo-label kernel): 3 warm-up and 10 timed steps with finite
      losses and UNFUSED_STEP_LAUNCHES per step; one step against the plain
      path past the ramp within phase 10's gates; peak memory; this step and
-     the auto step in alternating rounds; a profile of 2 steps;
+     the auto step in alternating rounds; a profile of a step;
      (b) the dagm, mtiles and kosdd2 presets as `python -m
      uaps_tpu_torch.train --preset NAME --dataset synthetic --dtype
      bfloat16` builds them (PRESETS: 1 input channel and 7 classes; 6
@@ -176,7 +179,7 @@ Phases (any failure: exit 1 and no result line):
      one step against the plain path (conv_backend="xla", the same
      StatsBatchNorm) past the ramp within phase 10's gates (on a miss the
      same pair in f32 is reported, and the phase fails), this step and the
-     auto step in alternating rounds, peak memory, a profile of 2 steps;
+     auto step in alternating rounds, peak memory, a profile of a step;
      (b) ConvBlock(bn_stats=True) at the neu level-0 and level-1 shapes in
      train mode, forward and backward, against the default ConvBlock with
      the same weights, f32 (tolerances in Smoke._stats_blocks); (c)
@@ -198,8 +201,8 @@ Phases (any failure: exit 1 and no result line):
      and an eager step between replays draws what the next replay's first
      step draws from the same generator state; a profiled replay (after
      the lead-in) holds 4 x the step's launches of every kernel family
-     (bf16_route and GRAPH_FAMILIES), as do 4 eager steps and 4 eager
-     steps with a float-lr, non-capturable Adam; at lr 0 a replay leaves
+     (bf16_route and GRAPH_FAMILIES), as do an eager step and an eager
+     step with a float-lr, non-capturable Adam 1 x; at lr 0 a replay leaves
      every parameter equal (the BN buffers move); the CE+Dice ticket at 0;
      graph, eager and non-capturable eager dispatches in alternating
      rounds (ms a step), device busy and idle share of each, a replay on
@@ -345,7 +348,30 @@ Phases (any failure: exit 1 and no result line):
      exported against the live predict of a batch of 16 in EXPORT_ROUNDS
      alternating rounds, BASENET's TTA predict, and its graphed step with
      cuDNN's default algorithms and peak memory, each printed with the
-     card's name and power limit.
+     card's name and power limit;
+ 24. data parallelism (uaps_tpu_torch/parallel/): (a) an NCCL process
+     group of one rank (this process, a localhost store): phase 10's UAPS
+     slice through train.Trainer in shard_map mode from the host stream
+     (graphs of 4 steps, NCCL_DISPATCHES dispatches an epoch), epoch 1
+     with its validation and rank 0's checkpoint, then a fresh Trainer
+     resumed from it for epoch 2, against the same two Trainers without a
+     group: the restored state bit-equal to the saved one, the final state
+     (parameters, BN stats, Adam, counters, generators), the metrics
+     lines, the checkpoints and the launches equal, each epoch launching
+     at least 2 x 4 x UAPS_STEP_LAUNCHES (warm-up and capture) through
+     the wrappers; a profiled replay of the group's Trainer's graph holds
+     4 x NCCL_STEP_COLLECTIVES NCCL kernels beside 4 x the UAPS route of
+     every kernel family; both Trainers' graphs in NCCL_ROUNDS alternating
+     rounds (ms a step), a replay on CUDA events, and the gradients'
+     all-reduce alone beside its bound; (b)
+     RANK_WORLD gloo ranks as processes sharing the card (NCCL refuses two
+     ranks on one device), 8 + 8 images each: RANK_STEPS eager shard_map
+     steps, both ranks bit-equal after each and UAPS_STEP_LAUNCHES a step
+     a rank, with their ms; from the shared state each rank's step on the
+     kernel route against the plain route within phase 10's gates; (c)
+     GSPMD mode over the same ranks (sync BN, the plain convs) against one
+     process's step on the 16 + 16 global batch, within phase 10's
+     gates.
 Before phase 1 it prints which image decoders import (cv2, PIL,
 torchvision.io; report["versions"]["image_decoders"]). It then prints
 {"kernels": [...]} (launches from phase 7 for the baseline
@@ -548,13 +574,18 @@ BLOCK_FWD_PASSES = ("chain_conv_plain", "chain_conv_bnl", "conv3x3_bnl",
 # chain_conv_plain backwards a chain step without a dgrad: in_conv's first
 # conv, whose input is the image, in the labelled and unlabelled forwards
 CHAIN_PLAIN_NO_DX = 2
-# calls of phase 12's routed backward that one profile counts
+# calls of phase 12's routed backward that one profile counts, and the
+# eager steps that profile_steps profiles (the profiler's cost grows with
+# the host's operators, ~7 s a UAPS step on a slow host)
 ROUTE_CALLS = 3
+PROFILED_STEPS = 1
 # kernels launched first in each profile that proves a route (phase 12's
 # and the steps' of phases 8, 11, 14 and 18), left uncounted; profiler
-# windows a route proof may take (Smoke._profiled)
+# windows a route proof may take (Smoke._profiled), each retry's lead-in
+# LEAD_IN_GROWTH times the one before (more adds, a longer spin)
 ROUTE_LEAD_IN = 64
 LEAD_IN_TRIES = 3
+LEAD_IN_GROWTH = 4
 # phase 19: the steps as CUDA graphs (uaps_tpu_torch/dispatch.py) sampling
 # from device pools of GRAPH_POOLS (labelled, unlabelled) synthetic images,
 # GRAPH_VAL_POOL validation images for the Trainer's run of GRAPH_TRAINER
@@ -661,10 +692,10 @@ REAL_KOSDD2 = (64, 0, (640, 232))
 REAL_STREAM_BATCHES = 20
 REAL_STAGE_IMAGES = 64
 REAL_SAME_BATCHES = 3
-REAL_TRAINER = (2, 20)
+REAL_TRAINER = (1, 20)
 REAL_SERVE_IMAGES = 64
-REAL_ROUNDS = (2, 12)
-REAL_PROFILED = 3
+REAL_ROUNDS = (2, 8)
+REAL_PROFILED = 1
 REAL_DIR = os.path.join(OUT_DIR, "real_images")
 # the least time the card could take: published H100 SXM peaks
 # phase 23: the deployable artifacts and BaseNet. EXPORT_IMAGES uint8
@@ -692,6 +723,26 @@ BASENET_EAGER = 3
 EXPORT_PROBS_ATOL = 1e-6
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
+# phase 24: ranks on the one card. (a) the UAPS Trainer's dispatches of
+# 4 steps an epoch with an NCCL group of one rank and without a group
+# (and the timing rounds); (b, c) gloo ranks as processes sharing the card
+# (NCCL refuses two ranks on one device), their eager steps, and how long
+# the parent waits for them
+NCCL_DISPATCHES = 2
+NCCL_ROUNDS = 2
+RANK_WORLD = 2
+RANK_STEPS = 3
+RANK_TIMEOUT_S = 400
+# the NCCL kernels of a replay: every collective of a step (pmean_'s two:
+# the gradients with the BN running stats, then the metrics), as kernel
+# names holding one of these
+NCCL_KERNELS = ("nccl", "oneRankReduce")
+NCCL_STEP_COLLECTIVES = 2
+# phase 10's bf16 UAPS step against the same step in f32 from the same
+# weights, batch, seeds and mix_w, past the ramp (ROADMAP Queue C #3): a
+# regression check at what the tree met on the card (PERF.md section 6)
+BF16_F32_LOSS_REL = 3e-3
+BF16_F32_DELTA_SHARE = 0.90
 
 
 def log(*a):
@@ -2071,7 +2122,8 @@ class Smoke:
 
     def profile_steps(self, key, label, step, state, batch, step_ms,
                       per_step=None):
-        """Device time by kernel over 2 steps of `step`, beside the step's
+        """Device time by kernel over PROFILED_STEPS steps of `step`, beside
+        the step's
         host-clock time `step_ms`: times[key + "_device_busy_ms"],
         "_device_idle_share" and "_device_top_ms" (the 20 largest device
         entries a step: name, ms, count), the operator table in
@@ -2084,7 +2136,7 @@ class Smoke:
         t = self.report["times"]
         try:
             prof = self._profiled(lambda: [step(state, batch)
-                                           for _ in range(2)])
+                                           for _ in range(PROFILED_STEPS)])
             events = prof.key_averages()
             table = events.table(sort_by="cuda_time_total", row_limit=40)
         except RuntimeError as exc:
@@ -2096,18 +2148,21 @@ class Smoke:
                         key=lambda e: -e.self_device_time_total)
         if per_step is not None:
             got = route_of([(e.key, e.count) for e in device])
-            want = bf16_route(per_step, 2)
+            want = bf16_route(per_step, PROFILED_STEPS)
             self.report.setdefault("route", {})[key] = got
-            log(f"route over 2 {label} steps (profiler): {json.dumps(got)} "
+            log(f"route over {PROFILED_STEPS} {label} steps (profiler): "
+                f"{json.dumps(got)} "
                 f"{'ok' if got == want else 'MISMATCH'} (want "
                 f"{json.dumps(want)})")
             assert got == want, (got, want)
-        busy = sum(e.self_device_time_total for e in device) / 2 / 1e3
+        busy = (sum(e.self_device_time_total for e in device)
+                / PROFILED_STEPS / 1e3)
         t[f"{key}_device_busy_ms"] = busy
         t[f"{key}_device_idle_share"] = 1.0 - busy / step_ms
         # the device's own entries (kernels, copies, memsets), by time
         t[f"{key}_device_top_ms"] = [
-            [e.key, e.self_device_time_total / 2 / 1e3, e.count // 2]
+            [e.key, e.self_device_time_total / PROFILED_STEPS / 1e3,
+             e.count // PROFILED_STEPS]
             for e in device[:20]]
         with open(os.path.join(OUT_DIR, f"chip_smoke_profile_{key}.txt"),
                   "w") as f:
@@ -2513,6 +2568,43 @@ class Smoke:
             terms=("loss", "sup_loss", "ps_loss", "uncertainty_loss"),
             label=label)
 
+    def _bf16_vs_f32(self, cfg, init_sd, batch):
+        """The bf16 UAPS step (`cfg`, the kernel route) against the same
+        step in f32 past the ramp, from the same weights, batch, seeds and
+        mix_w: each loss term within BF16_F32_LOSS_REL relative and >=
+        BF16_F32_DELTA_SHARE of the Adam deltas within lr/2 (ROADMAP Queue
+        C #3: a regression check at what the tree meets); the worst
+        gradient cosine is reported, not gated (the plain pair's is below
+        phase 10's 0.98)."""
+        from uaps_tpu_torch.methods import base, get_method
+        torch = self.torch
+        mcfg = cfg.method
+        batch = dict(batch, mix_w=torch.tensor([0.4, 0.3, 0.2, 0.1],
+                                               device=self.dev))
+        out = []
+        for c in (cfg, self._uaps_config(compute_dtype="float32")):
+            model = base.build_model(c, self.dev)
+            model.load_state_dict(init_sd)
+            state = base.init_model_state(c, model)
+            state.step = int(mcfg.ramp_iters * mcfg.consistency_rampup)
+            _, m = get_method("uaps").make_train_step(c, model)(state, batch)
+            self.sync()
+            out.append((model, {k: float(v) for k, v in m.items()}))
+        res = self._compare_steps(
+            out[0][0], out[1][0], out[0][1], out[1][1], init_sd,
+            cfg.optim.base_lr,
+            terms=("loss", "sup_loss", "ps_loss", "uncertainty_loss"),
+            gate="none", label="bf16 vs f32 (measured)")
+        ok = (res["loss_rel_diff"] <= BF16_F32_LOSS_REL
+              and res["delta_agree_share"] >= BF16_F32_DELTA_SHARE)
+        log(f"bf16 vs f32 UAPS step: loss terms within "
+            f"{res['loss_rel_diff']:.3e} (max {BF16_F32_LOSS_REL}), Adam "
+            f"deltas within lr/2 {res['delta_agree_share']:.5f} (min "
+            f"{BF16_F32_DELTA_SHARE}), worst gradient cosine "
+            f"{res['worst_grad_cosine']:.5f} {'ok' if ok else 'MISMATCH'}")
+        assert ok, res
+        return res
+
     def _uaps_config(self, **model_kw):
         """The UAPS slice as `python -m uaps_tpu_torch.train --preset neu
         --method uaps --dtype bfloat16 --dataset synthetic` builds it, with
@@ -2557,6 +2649,8 @@ class Smoke:
         self.report["uaps"]["kernel_vs_plain"] = self._pair_past_ramp(
             cfg, self._uaps_config(conv_backend="xla"), init_sd,
             batches[-1], UAPS_STEP_LAUNCHES, "kernel vs plain")
+        self.report["uaps"]["bf16_vs_f32"] = self._bf16_vs_f32(
+            cfg, init_sd, batches[-1])
 
         engine = InferenceEngine(cfg, state_dict=model.state_dict(),
                                  device=self.dev)
@@ -2577,7 +2671,7 @@ class Smoke:
         """Per UAPS kernel and step shape (bf16 perturbations, f32
         uncertainty): ms with the L2 flushed before each call, the plain
         version's and the library call's, and the bound; the kernels' rows
-        sum them per step by launches. Then a profile of 2 UAPS steps."""
+        sum them per step by launches. Then a profile of a UAPS step."""
         import torch.nn.functional as F
         from uaps_tpu_torch.kernels import perturb as kpt
         from uaps_tpu_torch.kernels import uncertainty as kun
@@ -2853,31 +2947,33 @@ class Smoke:
         if bad:
             raise AssertionError(f"fused-block kernel mismatches: {bad}")
 
-    def _lead_in(self):
+    def _lead_in(self, scale=1):
         """Inside a profiler window, before the kernels it counts:
-        ROUTE_LEAD_IN int16 adds and a ~2 ms spin (no idle gap after them).
-        On the H100 the profiler missed the first 1-3 kernels after it
-        started, the counted ones when they came first (PERF.md section 7);
-        lead_in_kernel tells these apart."""
+        scale x ROUTE_LEAD_IN int16 adds and a spin of scale x ~2 ms (no
+        idle gap after them). On the H100 the profiler missed the first
+        1-3 kernels after it started, the counted ones when they came first
+        (PERF.md section 7), and late in a full run (PR 20) more than the
+        64 adds and the spin; lead_in_kernel tells these apart."""
         torch = self.torch
         lead = torch.zeros(1, dtype=torch.int16, device=self.dev)
-        for _ in range(ROUTE_LEAD_IN):
+        for _ in range(ROUTE_LEAD_IN * scale):
             lead.add_(1)
-        torch.cuda._sleep(1 << 22)
+        torch.cuda._sleep((1 << 22) * scale)
 
     def _profiled(self, fn):
         """The torch.profiler window of the lead-in, then fn(). Where the
         profiler recorded no kernel of the lead-in's end (its spin), what
         it missed at the window's start may reach past the lead-in into
         the counted kernels (one run lost 11 of the 64 adds, another a
-        step's first conv forward): the window runs again, up to
-        LEAD_IN_TRIES times in all, and the last is returned."""
+        step's first conv forward): the window runs again with a lead-in
+        LEAD_IN_GROWTH times longer, up to LEAD_IN_TRIES times in all, and
+        the last is returned."""
         from torch.profiler import ProfilerActivity, profile
         cuda = self.torch.autograd.DeviceType.CUDA
         for attempt in range(1, LEAD_IN_TRIES + 1):
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
-                self._lead_in()
+                self._lead_in(LEAD_IN_GROWTH ** (attempt - 1))
                 fn()
                 self.sync()
             if any(e.device_type == cuda and "spin_kernel" in e.key
@@ -3195,7 +3291,7 @@ class Smoke:
             self.profile_steps(b, f"{b} UAPS", step, state, batch,
                                t["step_rounds"][b]["median"], per_step)
 
-    def step_rounds(self, t, key, paths, rounds=3, reps=2):
+    def step_rounds(self, t, key, paths, rounds=3, reps=1):
         """The UAPS steps of `paths` ({label: (step, state, batch)}) in
         alternating rounds (the order rotates each round), so that drift in
         the host's or the card's speed falls on all of them: per round and
@@ -4029,15 +4125,22 @@ class Smoke:
             return dispatch.run_steps(step, pre, lambda i: sampler.sample(),
                                       k)
 
-        # the route and device busy: one profiled replay, K eager steps and
-        # K eager steps with that optimizer (after the lead-in)
+        # the route and device busy (after the lead-in): one profiled
+        # replay of K steps, and one eager step of each eager path (the
+        # profiler's cost grows with the host's operators: K eager UAPS
+        # steps took it ~30 s)
         paths = {"graph": lambda: graphed(state), "eager": eager_steps,
                  "eager_adam_not_capturable": eager_pre}
         eager_pre()   # its Adam moments
+        profiled = {"graph": (paths["graph"], k),
+                    "eager": (lambda: dispatch.run_steps(
+                        step, state, lambda i: sampler.sample(), 1), 1),
+                    "eager_adam_not_capturable": (lambda: dispatch.run_steps(
+                        step, pre, lambda i: sampler.sample(), 1), 1)}
         busy = {}
-        for path, fn in paths.items():
+        for path, (fn, n) in profiled.items():
             ok, got, _, busy[path] = self._graph_route(
-                fn, per_step, k, f"{label} {path} dispatch",
+                fn, per_step, n, f"{label} {path} dispatch",
                 f"graph_{key}_{path}")
             checks[f"route of the {path} dispatch"] = ok
             res.setdefault("route", {})[path] = got
@@ -4062,7 +4165,7 @@ class Smoke:
 
         # times: graph and eager dispatches in alternating rounds
         t = self.report["times"]
-        rounds = self._dispatch_rounds(paths, k)
+        rounds = self._dispatch_rounds(paths, k, reps=1)
         t[f"graph_{key}_step_ms"] = rounds
         # a replay's time on the device's clock (CUDA events), unprofiled
         res["replay_event_ms"] = self.time_ms(lambda: graphed(state),
@@ -4175,7 +4278,7 @@ class Smoke:
                 "eager": {n: em[n].tolist() for n in terms},
                 "graph": {n: gm[n].tolist() for n in terms}, "ok": ok}
 
-    def _graph_route(self, fn, per_step, k, label, key):
+    def _graph_route(self, fn, per_step, k, label, key, extra=None):
         """Profile fn() (k steps) after the lead-in: whether its kernels
         are k x per_step of every family (bf16_route's and
         GRAPH_FAMILIES'), the counts, the wanted counts and the device busy
@@ -4185,11 +4288,15 @@ class Smoke:
         every time, so where the counts differ fn() is profiled again,
         up to LEAD_IN_TRIES windows in all: the profiler once dropped 4
         kernels of ~8000 deep inside a window of cps's graph on the H100,
-        as it misses some at a window's start."""
+        as it misses some at a window's start. `extra` ({label: (name
+        substrings, launches wanted)}) counts more kernels: those whose
+        name holds one of the substrings."""
         cuda = self.torch.autograd.DeviceType.CUDA
+        extra = extra or {}
         want = bf16_route(per_step, k)
         want.update({fam: k * per_step[c]
                      for fam, c in GRAPH_FAMILIES.items()})
+        want.update({lab: n for lab, (_, n) in extra.items()})
         for attempt in range(1, LEAD_IN_TRIES + 1):
             prof = self._profiled(fn)
             events = prof.key_averages()
@@ -4199,6 +4306,9 @@ class Smoke:
             got = route_of(entries)
             got.update({fam: sum(n for name, n in entries if fam in name)
                         for fam in GRAPH_FAMILIES})
+            got.update({lab: sum(n for name, n in entries
+                                 if any(sub in name for sub in subs))
+                        for lab, (subs, _) in extra.items()})
             if got == want:
                 break
             log(f"route of a {label}: the profiler counted "
@@ -5828,6 +5938,316 @@ print(json.dumps({{"load_s": load_s, "batches": batches,
 
 
 
+    # ------------------------------------------------------------ phase 24
+    def multi_rank(self):
+        """Data-parallel training on the one card (see phase 24 in the
+        module docstring)."""
+        res = self.report["multi_rank"] = {}
+        bad = []
+        if not self._nccl_one_rank(res.setdefault("nccl_one_rank", {})):
+            bad.append("(a) one NCCL rank")
+        bad += self._gloo_ranks(res.setdefault("gloo_ranks", {}))
+        assert not bad, f"phase 24 failed: {bad}"
+
+    def _nccl_one_rank(self, res):
+        """(a): the UAPS Trainer over an NCCL group of one rank (shard_map
+        mode) against the same Trainer without a group; returns whether
+        every check passed."""
+        import gc
+        import socket
+        import torch.distributed as dist
+        from uaps_tpu_torch import dispatch
+        from uaps_tpu_torch.data import SyntheticDefects
+        from uaps_tpu_torch.parallel import mesh
+        from uaps_tpu_torch.train import Trainer
+        from uaps_tpu_torch.utils.checkpoint import state_tensors
+        torch = self.torch
+        k = dispatch.AUTO_STEPS_CUDA
+        root = os.path.join(ROOT, "runs", "chip_smoke_ranks")
+        shutil.rmtree(root, ignore_errors=True)
+
+        def trainer(out, epochs):
+            cfg = self._uaps_config()
+            cfg.run = dataclasses.replace(
+                cfg.run, epochs=epochs, iter_per_epoch=NCCL_DISPATCHES * k,
+                seed=SEED, device_pools=False, save_every=1,
+                keep_checkpoints=2, out_dir=out)
+            tr = Trainer(cfg, device=self.dev)
+            assert (tr.k_dispatch == k and tr.graphed is not None
+                    and tr.pools is None), (tr.k_dispatch, tr.graphed)
+            return tr
+
+        def state_of(tr):
+            return state_tensors(tr.state, tr.model)
+
+        def run(name):
+            """Epoch 1 by one Trainer, epoch 2 by a fresh one resumed from
+            its checkpoint: that Trainer (kept for the replays), its final
+            state, whether it restored epoch 1's state bit for bit, the
+            launches of each epoch and the metrics lines."""
+            out = os.path.join(root, name)
+            reset_counters()
+            first = trainer(out, 1)
+            first.run()
+            self.sync()
+            launched = [counters()]
+            saved = {n: t.detach().to("cpu", copy=True)
+                     for n, t in state_of(first).items()}
+            del first
+            gc.collect()
+            torch.cuda.empty_cache()
+            reset_counters()
+            second = trainer(out, 2)
+            second.maybe_resume()
+            restored = {n: t.detach().to("cpu", copy=True)
+                        for n, t in state_of(second).items()}
+            second.run(resume=True)
+            self.sync()
+            launched.append(counters())
+            return {"trainer": second, "state": state_of(second),
+                    "restored": restored.keys() == saved.keys() and all(
+                        torch.equal(restored[n], t) for n, t in saved.items()),
+                    "launched": launched, "lines": self._epoch_lines(out),
+                    "checkpoints": second.ckpt.steps()}
+
+        runs = {"no group": run("no group")}
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        mesh.init_group(0, 1, f"tcp://localhost:{port}", self.dev)
+        checks = {}
+        try:
+            runs["NCCL group of one"] = run("nccl")
+            a, b = runs.values()
+            want = {n: 2 * k * v for n, v in UAPS_STEP_LAUNCHES.items()}
+            for name, r in runs.items():
+                checks[f"{name}: each epoch's warm-up and capture through "
+                       "every wrapper of the UAPS route"] = all(
+                    all(ln.get(n, 0) >= v for n, v in want.items())
+                    for ln in r["launched"])
+                checks[f"{name}: the resumed Trainer restored epoch 1's "
+                       "state bit for bit"] = r["restored"]
+            checks["the group's launches those of no group"] = (
+                a["launched"] == b["launched"])
+            checks["the group's state after 2 epochs bit-equal to no "
+                   "group's (parameters, BN stats, Adam, counters, "
+                   "generators)"] = (a["state"].keys() == b["state"].keys()
+                                     and all(torch.equal(t, b["state"][n])
+                                             for n, t in a["state"].items()))
+            checks["the group's metrics lines (train and validation) and "
+                   "checkpoints those of no group"] = (
+                a["lines"] == b["lines"] and len(a["lines"]) == 2
+                and a["checkpoints"] == b["checkpoints"])
+            checks["finite metrics"] = all(
+                math.isfinite(v) for line in a["lines"].values()
+                for v in line.values() if isinstance(v, float))
+            res["metrics_lines"] = a["lines"]
+            res["launched"] = a["launched"]
+            ta, tb = a["trainer"], b["trainer"]
+            it = SyntheticDefects(ta.cfg.data, seed=SEED).train_iter()
+            host = [next(it) for _ in range(k)]
+            ok, got, want, busy = self._graph_route(
+                lambda: tb.graphed(tb.state, host), UAPS_STEP_LAUNCHES,
+                k, "UAPS replay with an NCCL group of one", "nccl_one_rank",
+                extra={"nccl": (NCCL_KERNELS, k * NCCL_STEP_COLLECTIVES)})
+            checks["a profiled replay holds the NCCL all-reduces and every "
+                   "kernel of the UAPS route"] = ok
+            res["route"], res["route_want"] = got, want
+            paths = {"no group": lambda: ta.graphed(ta.state, host),
+                     "NCCL group of one": lambda: tb.graphed(tb.state, host)}
+            res["graph_step_ms"] = self._dispatch_rounds(paths, k,
+                                                         NCCL_ROUNDS)
+            res["replay_event_ms"] = {
+                name: self.time_ms(fn, iters=2, rounds=2, warmup=1) / k
+                for name, fn in paths.items()}
+            # the step's gradient all-reduce alone: unet_uaps's parameters
+            # and BN running stats in one f32 buffer
+            n = sum(t.numel() for t in ta.model.parameters())
+            n += sum(t.numel() for nm, t in ta.model.named_buffers()
+                     if "running" in nm)
+            flat = torch.ones(n, device=self.dev)
+            res["allreduce_elements"] = n
+            res["allreduce_ms"] = self.time_ms(lambda: dist.all_reduce(
+                flat, op=dist.ReduceOp.AVG))
+            res["allreduce_bound_ms"] = bound(8 * n, n, "f32")[0]
+            res["busy_ms"] = busy
+        finally:
+            dist.destroy_process_group()
+            runs.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+            shutil.rmtree(root, ignore_errors=True)
+        res["checks"] = checks
+        card = self.report.get("nvidia_smi", "")
+        r = res["graph_step_ms"]
+        log(f"(a) UAPS graphs of {k} steps, NCCL group of one vs no group "
+            f"({card}): " + "; ".join(
+                f"{p} {r[p]['median']:.3f} ms a step [{r[p]['min']:.3f}, "
+                f"{r[p]['max']:.3f}], replay on CUDA events "
+                f"{res['replay_event_ms'][p]:.3f}" for p in r)
+            + f"; the all-reduce of {res['allreduce_elements']} f32 alone "
+            f"{res['allreduce_ms']:.4f} ms (bound "
+            f"{res['allreduce_bound_ms']:.4f})")
+        for name, ok in checks.items():
+            log(f"  (a) check: {name}: {'ok' if ok else 'FAILED'}")
+        return all(checks.values())
+
+    def _gloo_ranks(self, res):
+        """(b, c): RANK_WORLD gloo ranks as processes sharing the card
+        (_gloo_rank); returns the names of the failed checks."""
+        import tempfile
+        torch = self.torch
+        torch.cuda.empty_cache()   # the ranks share the card's memory
+        out = tempfile.mkdtemp(prefix="ranks-", dir=OUT_DIR)
+        t0 = time.perf_counter()
+        ctx = torch.multiprocessing.start_processes(
+            _gloo_rank, args=(RANK_WORLD, os.path.join(out, "store"), out),
+            nprocs=RANK_WORLD, join=False, start_method="spawn")
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() - t0 > RANK_TIMEOUT_S:
+                    raise TimeoutError(f"the ranks ran past "
+                                       f"{RANK_TIMEOUT_S} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.terminate()
+        res["seconds"] = time.perf_counter() - t0
+        ranks = []
+        for r in range(RANK_WORLD):
+            with open(os.path.join(out, f"{r}.json")) as f:
+                ranks.append(json.load(f))
+        shutil.rmtree(out)
+        res["ranks"] = ranks
+        bad = []
+        for r in ranks:
+            steps = r["shard_map_steps"]
+            if not all(st["launches_ok"] for st in steps):
+                bad.append(f"(b) rank {r['rank']}: launches a step")
+            if not all(st["ranks_equal"] for st in steps):
+                bad.append(f"(b) rank {r['rank']}: ranks bit-equal")
+            if not all(st["finite"] for st in steps):
+                bad.append(f"(b) rank {r['rank']}: finite metrics")
+            log(f"(b) rank {r['rank']} ({self.report.get('nvidia_smi', '')}"
+                f"): {len(steps)} eager shard_map steps of "
+                f"{r['local_batch']} + {r['local_batch']} images, ms "
+                f"{[round(st['ms'], 3) for st in steps]}, losses "
+                f"{[round(st['loss'], 5) for st in steps]}, launches a step "
+                f"{'ok' if all(st['launches_ok'] for st in steps) else 'MISMATCH'}"
+                f", both ranks bit-equal after each step "
+                f"{all(st['ranks_equal'] for st in steps)}")
+        log(f"(b, c) {RANK_WORLD} gloo ranks in {res['seconds']:.1f} s")
+        return bad
+
+    def rank_work(self, rank, world):
+        """One gloo rank's part of phase 24 (b, c), in its own process (its
+        results as JSON)."""
+        import hashlib
+        import torch.distributed as dist
+        from uaps_tpu_torch.data import SyntheticDefects
+        from uaps_tpu_torch.methods import base, get_method
+        from uaps_tpu_torch.parallel.mesh import (local_batch_shard,
+                                                  replicate_state)
+        from uaps_tpu_torch.parallel.shardmap_step import \
+            make_sharded_train_step
+        from uaps_tpu_torch.train import to_device
+        torch = self.torch
+        world_group = dist.group.WORLD
+        cfg = self._uaps_config()
+        method = get_method("uaps")
+        it = SyntheticDefects(cfg.data, seed=SEED).train_iter()
+        host = [next(it) for _ in range(RANK_STEPS + 1)]
+        local = [to_device(local_batch_shard(b, rank, world), self.dev)
+                 for b in host]
+        res = {"rank": rank, "local_batch": int(local[0]["image"].shape[0])}
+
+        # (b) shard_map mode: eager steps, the ranks bit-equal after each
+        state, model = method.init_state(
+            cfg, self.dev, torch.Generator().manual_seed(SEED))
+        replicate_state(state, model)
+        step = make_sharded_train_step(method, cfg, model, world_group)
+        steps = []
+        for b in local[:RANK_STEPS]:
+            reset_counters()
+            self.sync()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            self.sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            launched = counters()
+            h = hashlib.sha256()
+            for v in model.state_dict().values():
+                h.update(v.detach().cpu().numpy().tobytes())
+            digests = [None] * world
+            dist.all_gather_object(digests, h.hexdigest())
+            steps.append({"ms": ms, "launched": launched,
+                          "launches_ok": launched == UAPS_STEP_LAUNCHES,
+                          "ranks_equal": len(set(digests)) == 1,
+                          "loss": float(m["loss"]),
+                          "finite": all(bool(torch.isfinite(v).all())
+                                        for v in m.values())})
+        res["shard_map_steps"] = steps
+
+        # (b) each rank's step from the shared state, kernel against plain
+        # route, and (c) GSPMD mode against one process's step on the
+        # global batch: phase 10's gates, past the ramp
+        shared = {n: v.detach().clone() for n, v in model.state_dict().items()}
+        mix_w = torch.tensor([0.4, 0.3, 0.2, 0.1], device=self.dev)
+        ramp_end = int(cfg.method.ramp_iters * cfg.method.consistency_rampup)
+        terms = ("loss", "sup_loss", "ps_loss", "uncertainty_loss")
+
+        def one_step(c, group, batch, sharded=False):
+            net = base.build_model(c, self.dev)
+            net.load_state_dict(shared)
+            st = base.init_model_state(c, net)
+            st.step = ramp_end
+            fn = (make_sharded_train_step(method, c, net, group) if sharded
+                  else method.make_train_step(c, net, group=group))
+            reset_counters()
+            _, m = fn(st, dict(batch, mix_w=mix_w))
+            self.sync()
+            return net, {k: float(v) for k, v in m.items()}, counters()
+
+        plain_cfg = self._uaps_config(conv_backend="xla")
+        km, kmet, kl = one_step(cfg, world_group, local[-1], sharded=True)
+        pm, pmet, pl = one_step(plain_cfg, world_group, local[-1],
+                                sharded=True)
+        assert kl == UAPS_STEP_LAUNCHES and not any(pl.values()), (kl, pl)
+        res["kernel_vs_plain"] = self._compare_steps(
+            km, pm, kmet, pmet, shared, cfg.optim.base_lr, terms=terms,
+            label=f"rank {rank}: kernel vs plain")
+        del km, pm
+        gspmd_cfg = dataclasses.replace(plain_cfg, run=dataclasses.replace(
+            plain_cfg.run, use_shard_map=False))
+        gm, gmet, _ = one_step(gspmd_cfg, world_group, local[-1])
+        om, omet, _ = one_step(gspmd_cfg, None, to_device(host[-1], self.dev))
+        res["gspmd_vs_one_process"] = self._compare_steps(
+            gm, om, gmet, omet, shared, cfg.optim.base_lr, terms=terms,
+            label=f"rank {rank}: GSPMD mode vs one process's step on the "
+            "global batch")
+        return res
+
+
+def _gloo_rank(rank, world, store, out):
+    """One rank of phase 24 (b, c): a process on cuda:0 beside the other
+    ranks, which join over gloo (NCCL refuses two ranks on one device, so
+    the backend is named here); Smoke.rank_work's results to
+    out/<rank>.json."""
+    import torch
+    import torch.distributed as dist
+    from uaps_tpu_torch.parallel import mesh
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    mesh.init_group(rank, world, f"file://{store}", dev, backend="gloo")
+    try:
+        res = Smoke(torch, dev).rank_work(rank, world)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out, f"{rank}.json"), "w") as f:
+        json.dump(res, f, default=str)
+
+
 KERNELS = [
     ("conv3x3_nchw", "conv3x3_nchw", "uaps_tpu/pallas/conv3x3_nchw.py:289"),
     ("conv3x3_nchw_dgrad", "conv3x3_nchw",
@@ -5971,6 +6391,8 @@ def main() -> int:
         s.phase("22 real image files: the stream, host-fed graphs, train, "
                 "eval and serve CLIs, cps", s.real_images)
         s.phase("23 export and BaseNet", s.export_basenet)
+        s.phase("24 data parallelism: an NCCL group of one in the graph, "
+                "two gloo ranks on the card, GSPMD mode", s.multi_rank)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(s.report, f, indent=1, default=str)

@@ -28,6 +28,8 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_ranks import (  # noqa: F401  (re-exported)
+    open_gates, port_method_runs)
 from uaps_tpu.utils.config import preset
 
 TORCH_THREADS = 1
@@ -199,7 +201,7 @@ def _jax_grad(record, cfg):
 
 
 def jax_method_runs(jmethod, cfg, jmodel, v0, batches, starts,
-                    teacher=False, second=None, options=None):
+                    teacher=False, second=None, options=None, shards=1):
     """JAX's steps of `jmethod` (one jit) on `batches`, from each step count
     of `starts`, from the weights v0 (the teacher, with `teacher`, a copy
     of them; a second net, cps's `state.second`, from the weights
@@ -208,14 +210,28 @@ def jax_method_runs(jmethod, cfg, jmodel, v0, batches, starts,
     state after it as {torch name: numpy}: "sd" (params and BN stats),
     "ema" (the teacher's, or None), Adam's "mu" and "nu", and "second"
     (net 2's "sd", "mu", "nu" and its step-1 gradient "grad", or None).
-    The step builds with `options` (`jit`). Call under
-    jax.enable_x64(True) with an f64 model."""
+    The step builds with `options` (`jit`). With `shards` > 1 the step is
+    JAX's shard_map step in vmap form: the method's step with
+    axis_name="data" under jax.vmap over the batches' `shards` row blocks
+    (the state shared, `mix_w` given to every block), its replicated
+    results read from block 0. Call under jax.enable_x64(True) with an
+    f64 model."""
     from uaps_tpu.methods import base as jbase
     tx = jbase.make_optimizer(cfg.optim)
-    train_step = jmethod.make_train_step(cfg, jmodel, tx)
+    if shards > 1:
+        train_step = jax.vmap(
+            jmethod.make_train_step(cfg, jmodel, tx, axis_name="data"),
+            in_axes=(None, 0), axis_name="data")
+        batches = [{k: np.stack([v] * shards) if k == "mix_w"
+                    else v.reshape(shards, -1, *v.shape[1:])
+                    for k, v in b.items()} for b in batches]
+    else:
+        train_step = jmethod.make_train_step(cfg, jmodel, tx)
 
     def step_fn(state, b):
         new, m = train_step(state, b)
+        if shards > 1:
+            new, m = jax.tree.map(lambda x: x[0], (new, m))
         return keep_dtypes(new, state), m
 
     step = jit(step_fn, options)
@@ -260,123 +276,6 @@ def jax_runs(jobs):
     for name, (args, kw) in jobs.items():
         with jax.enable_x64(True):
             yield name, jax_method_runs(*args, **kw)
-
-
-def _load(module, sd):
-    """Copy {torch name: numpy} into the module's tensors of those names."""
-    with torch.no_grad():
-        for k, t in module.state_dict().items():
-            if k in sd:
-                t.copy_(torch.from_numpy(np.asarray(sd[k])))
-
-
-def _load_adam(optimizer, named, mu, nu):
-    """Adam's moments from {torch name: numpy}. A parameter that has had no
-    gradient yet has no torch state; JAX's moments of it are zeros (the
-    deep-supervision heads that cps never reads)."""
-    with torch.no_grad():
-        for k, p in named.items():
-            st = optimizer.state[p]
-            if "exp_avg" not in st:
-                assert not mu[k].any() and not nu[k].any(), k
-                continue
-            st["exp_avg"].copy_(torch.from_numpy(mu[k]))
-            st["exp_avg_sq"].copy_(torch.from_numpy(nu[k]))
-
-
-def _port_net_record(module, optimizer):
-    """The port's net as _jax_net_record's: its state dict and Adam's
-    moments (zeros for a parameter with no torch state yet)."""
-    named = dict(module.named_parameters())
-    moments = {"mu": {}, "nu": {}}
-    for k, p in named.items():
-        st = optimizer.state[p]
-        for moment, name in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
-            moments[moment][k] = (st[name].numpy().copy() if name in st
-                                  else np.zeros(tuple(p.shape), np.float64))
-    return {"sd": {k: v.detach().clone().numpy()
-                   for k, v in module.state_dict().items()}, **moments}
-
-
-def port_method_runs(pmethod, pcfg, make_model, batches, starts, jax_runs,
-                     teacher=False, make_second=None):
-    """The port's steps of `pmethod` on `batches` from each step count of
-    `starts`, a fresh `make_model()` each time (and, with `teacher`, the
-    mean teacher as its copy; with `make_second`, cps's net 2 as
-    `make_second()` with its own Adam), with the kernel shape gates opened
-    at the images' levels 0 and 1 (`open_gates`), so that their convs and
-    pools go through the kernel modules (their plain versions on the CPU)
-    as at 256 and 128 px on the GPU: {start: [one record a step, as
-    jax_method_runs's]}.
-
-    Every step after the first starts from JAX's state after the step
-    before (`jax_runs`: params, BN stats, the teacher, net 2, Adam's
-    moments), once the port's own state after that step is recorded (and
-    compared by check_method_steps). Run on from its own state, the port
-    drifted from JAX at step 2 beyond check_params' tolerances in places
-    (cct past the ramp, ucc from step 0): the f32 logits heads of both
-    packages leave gradient noise that decides Adam's step-1 update of the
-    elements whose gradient is near Adam's eps, and the parameters that
-    differ so move some LeakyReLU input of step 2 across its kink at 2 x
-    16 x 128."""
-    from uaps_tpu_torch.methods import base
-
-    runs = {}
-    with pytest.MonkeyPatch.context() as mp:
-        open_gates(mp, next(v for k, v in batches[0].items()
-                            if k in ("image", "mix_img_l")).shape[2])
-        for start in starts:
-            model = make_model()
-            state = base.init_model_state(pcfg, model)
-            if teacher:
-                state.ema_model = base.make_teacher(model)
-            nets = [(model, lambda: state.optimizer, "")]
-            if make_second is not None:
-                m2 = make_second()
-                state.second = base.SecondNet(m2, base.make_optimizer(
-                    m2.parameters(), pcfg.optim, "cpu"))
-                nets.append((m2, lambda: state.second.optimizer, "second"))
-            state.step = start
-            step = pmethod.make_train_step(pcfg, model)
-            runs[start] = []
-            for i, b in enumerate(batches):
-                if i:
-                    prev = jax_runs[start][i - 1]
-                    if teacher:
-                        _load(state.ema_model, prev["ema"])
-                    for net, opt, key in nets:
-                        rec = prev[key] if key else prev
-                        _load(net, rec["sd"])
-                        _load_adam(opt(), dict(net.named_parameters()),
-                                   rec["mu"], rec["nu"])
-                state, m = step(state, {k: torch.from_numpy(v)
-                                        for k, v in b.items()})
-                runs[start].append({
-                    "metrics": {k: float(v) for k, v in m.items()},
-                    **_port_net_record(model, state.optimizer),
-                    "ema": ({k: v.detach().clone().numpy() for k, v in
-                             state.ema_model.state_dict().items()}
-                            if teacher else None),
-                    "second": (_port_net_record(state.second.model,
-                                                state.second.optimizer)
-                               if make_second is not None else None)})
-            assert state.step == int(state.counter) == start + len(batches)
-    return runs
-
-
-def open_gates(mp, width=0):
-    """Open the kernel shape gates (`conv_kernel_ok`, `pool_pallas_ok`) of
-    the port's model through the monkeypatch `mp`: the conv gate for
-    inputs at least width / 2 wide within its channel limits, so that in a
-    net on images `width` wide levels 0 and 1 pass, as JAX's gate admits
-    the 256 and 128 px levels on the card and no deeper one (width 0: a
-    lone block passes); a conv there goes through the kernel module (its
-    plain version on the CPU). The pools still follow nchw_levels."""
-    from uaps_tpu_torch.kernels.conv3x3_nchw import MAX_COUT
-    from uaps_tpu_torch.models import unet as tunet
-    mp.setattr(tunet, "conv_kernel_ok", lambda h, w, cin, cout: (
-        w >= width // 2 and cout <= MAX_COUT and cin <= 64))
-    mp.setattr(tunet, "pool_pallas_ok", lambda x: True)
 
 
 def _check_net(where, jr, pr, jgrad, lr):

@@ -211,11 +211,12 @@ def test_port_imports_no_jax():
         ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(
             ".__init__")
         for p in files if p.parent.name != "" and "uaps_tpu_torch" in p.parts]
-    # the kernels' operators, the artifact's loader, the ResNet BaseNets
-    # and the step timer are among them
+    # the kernels' operators, the artifact's loader, the ResNet BaseNets,
+    # the step timer and the data-parallel modules are among them
     assert {"uaps_tpu_torch.kernels.custom_ops", "uaps_tpu_torch.artifact",
-            "uaps_tpu_torch.models.resnet",
-            "uaps_tpu_torch.step_times"} <= set(modules)
+            "uaps_tpu_torch.models.resnet", "uaps_tpu_torch.step_times",
+            "uaps_tpu_torch.parallel.mesh", "uaps_tpu_torch.parallel.ranks",
+            "uaps_tpu_torch.parallel.shardmap_step"} <= set(modules)
     code = ("import importlib, sys\n"
             "sys.modules['uaps_tpu'] = None\n"
             f"for m in {modules!r}:\n"

@@ -335,13 +335,15 @@ def test_unported_run_knobs_raise(tmp_path, knob, value):
 
 
 def test_unported_paths_still_raise():
-    """What the port does not have yet says so: --num_devices > 1
-    (Multi-GPU). The real-image pipeline is ported: without an image root
-    make_data raises JAX's ValueError (tests/test_torch_port_data.py runs
-    it on image files)."""
+    """--num_devices takes one GPU a rank: asking for more ranks than the
+    visible GPUs (none here) raises before anything runs, with no fallback
+    to gloo, a shared card or the CPU (tests/test_torch_port_parallel.py
+    trains on ranks). The real-image pipeline is ported: without an image
+    root make_data raises JAX's ValueError (tests/test_torch_port_data.py
+    runs it on image files)."""
     from uaps_tpu_torch import train
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
-        train.main(["--device", "cpu", "--num_devices", "2"])
+    with pytest.raises(RuntimeError, match="visible GPUs"):
+        train.main(["--num_devices", "2"])
     cfg = _cfgs()[1]
     cfg.data = dataclasses.replace(cfg.data, name="neu")
     with pytest.raises(ValueError, match="needs data.image_root"):

@@ -36,4 +36,7 @@ Layout:
   artifact.py the export artifact (ExportedEngine)
   train.py    Trainer + training CLI
   dispatch.py K steps a dispatch: one CUDA graph on the GPU
+  parallel/   data-parallel training over ranks: mesh (the group, rows,
+              replicated state), ranks (a step's draws and sums on a
+              rank), shardmap_step
 """

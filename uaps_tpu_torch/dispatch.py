@@ -25,7 +25,11 @@ graph and replays it, so that the host enqueues K steps with one launch:
     samples them inside the graph, replays, advances the host step count
     by K and returns a copy of the graph's [K] metrics.
 
-A failed capture raises: nothing runs the eager steps in its place.
+On a rank of data-parallel training (uaps_tpu_torch/parallel/) the step's
+NCCL all-reduces are captured with it and replay with it; the process
+group must be NCCL's, joined with the capture environment set
+(parallel/mesh.py `init_group`). A failed capture raises: nothing runs
+the eager steps in its place.
 """
 from __future__ import annotations
 

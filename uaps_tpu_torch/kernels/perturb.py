@@ -101,12 +101,16 @@ def _keep_threshold(rate: float) -> int:
 
 # ------------------------------------------------------------------- draws
 def dropout_keep(seed: torch.Tensor, shape: Sequence[int],
-                 rate: float) -> torch.Tensor:
-    """bool keep mask of `shape`, P(keep) = 1 - rate, per element."""
+                 rate: float, offset: int = 0) -> torch.Tensor:
+    """bool keep mask of `shape`, P(keep) = 1 - rate, per element; the
+    elements' flat indices start at `offset` (a rank's rows of a larger
+    tensor's mask)."""
     n = 1
     for d in shape:
         n *= d
     idx = torch.arange(n, dtype=torch.int64, device=seed.device)
+    if offset:
+        idx = idx + offset
     return (random_bits(seed, idx) < _keep_threshold(rate)).reshape(shape)
 
 
@@ -182,10 +186,10 @@ def feature_dropout_apply(x: torch.Tensor,
 
 # ----------------------------------------------------------- plain versions
 def dropout_plain(x: torch.Tensor, seed: torch.Tensor,
-                  rate: float) -> torch.Tensor:
+                  rate: float, offset: int = 0) -> torch.Tensor:
     """The dropout kernel's plain version (its backward is the same call
-    on the cotangent)."""
-    return dropout_apply(x, dropout_keep(seed, x.shape, rate), rate)
+    on the cotangent); `offset` as in dropout_keep."""
+    return dropout_apply(x, dropout_keep(seed, x.shape, rate, offset), rate)
 
 
 def feature_noise_plain(x: torch.Tensor, seed: torch.Tensor,

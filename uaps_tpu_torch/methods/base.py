@@ -4,8 +4,10 @@
 second net), Adam with a settable learning rate and the host-side plateau
 scheduler, the train-mode forward, the mean teacher (its copy of the
 student and its EMA update), the supervised CE + Dice pair (the fused
-kernel where JAX's gate sends it there), the ramped consistency weight and
-the main-decoder eval step.
+kernel where JAX's gate sends it there), the ramped consistency weight,
+the main-decoder eval step, and the collectives of a step on ranks
+(`step_ranks`, `pmean_`, `pmean_step_`, `pmean_metrics`: JAX's
+`pmean_if`; `in_scope` runs a step on its ranks, parallel/ranks.py).
 
 Where JAX threads an immutable state pytree through a jitted step, the port
 keeps the parameters and BN running stats in the `nn.Module`, which the
@@ -17,10 +19,12 @@ import copy
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from uaps_tpu_torch.kernels.ce_dice import fused_ce_dice
 from uaps_tpu_torch.models import net_factory
+from uaps_tpu_torch.parallel.ranks import Ranks, in_scope
 from uaps_tpu_torch.ops import (cross_entropy_loss, mean_dice,
                                 segmentation_metrics, sigmoid_rampup,
                                 softmax_dice_loss)
@@ -285,6 +289,77 @@ def ramp_weight(cmax: float, step, ramp_iters: int,
     epoch = torch.div(torch.as_tensor(step), ramp_iters,
                       rounding_mode="floor")
     return cmax * sigmoid_rampup(epoch, rampup_length)
+
+
+def step_ranks(cfg, group) -> Optional[Ranks]:
+    """The Ranks a method's step runs on: None without a process group;
+    with one, GSPMD mode where cfg.run.use_shard_map is False, else
+    shard_map mode (JAX's auto rule: shard_map on more than one device).
+    GSPMD mode on more than one rank takes the plain route only
+    (conv_backend="xla", as JAX routes it): the CE+Dice kernel sums and
+    the dropout kernel draws over a rank's rows alone."""
+    if group is None:
+        return None
+    ranks = Ranks.of(group, sync=cfg.run.use_shard_map is False)
+    if ranks.sync and cfg.model.conv_backend != "xla":
+        raise ValueError("GSPMD mode runs the plain route: set "
+                         "ModelConfig.conv_backend='xla' (the Trainer "
+                         "does)")
+    return ranks
+
+
+def pmean_(tensors, ranks: Optional[Ranks]) -> None:
+    """Each tensor, in place, the mean of its values over the ranks (JAX's
+    pmean), one all-reduce of a flat buffer for each dtype: NCCL's average
+    (each rank's value times 1 / world, summed: the bits of the sum over
+    world for 1 and 2 ranks), else the sum divided by world. Nothing
+    without ranks."""
+    if ranks is None:
+        return
+    avg = dist.get_backend(ranks.group) == "nccl"
+    by_dtype: Dict[torch.dtype, list] = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for ts in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in ts])
+        dist.all_reduce(flat, group=ranks.group, op=dist.ReduceOp.AVG
+                        if avg else dist.ReduceOp.SUM)
+        if not avg:
+            flat.div_(ranks.world)
+        torch._foreach_copy_(ts, [f.view_as(t) for f, t in zip(
+            flat.split([t.numel() for t in ts]), ts)])
+
+
+def _running_stats(nets) -> list:
+    return [b for net in nets for m in net.modules()
+            if isinstance(m, nn.BatchNorm2d)
+            for b in (m.running_mean, m.running_var)]
+
+
+def pmean_step_(ranks: Optional[Ranks], optimizers, nets=()) -> None:
+    """Between the backward and the optimizers' steps: the gradients of
+    the optimizers' parameters averaged over the ranks (JAX's pmean of the
+    grads) and, in shard_map mode, the BN running stats of `nets` (the
+    student's, the teacher's, net 2's: JAX's pmean of batch_stats), in one
+    all-reduce. GSPMD mode's running stats agree already (sync BN). Nothing
+    without ranks."""
+    if ranks is None:
+        return
+    grads = [p.grad for opt in optimizers for group in opt.param_groups
+             for p in group["params"] if p.grad is not None]
+    pmean_(grads + ([] if ranks.sync else _running_stats(nets)), ranks)
+
+
+def pmean_metrics(metrics: Dict[str, torch.Tensor],
+                  ranks: Optional[Ranks]) -> Dict[str, torch.Tensor]:
+    """The step's metrics averaged over the ranks in shard_map mode (JAX's
+    pmean); GSPMD mode's are the global batch's already, and without ranks
+    they are returned as they are."""
+    if ranks is None or ranks.sync:
+        return metrics
+    out = {k: v.detach().clone() for k, v in metrics.items()}
+    pmean_(list(out.values()), ranks)
+    return out
 
 
 def make_eval_step(cfg, model: nn.Module) -> Callable:

@@ -18,11 +18,14 @@ from uaps_tpu_torch.ops import segmentation_metrics
 init_state = base.init_state
 
 
-def make_train_step(cfg, model: nn.Module):
+def make_train_step(cfg, model: nn.Module, group=None):
     """(state, batch) -> (state, metrics); batch holds device tensors
     "image" [B, H, W, C] f32 and "label" [B, H, W] int32. The metrics stay
     on the device, and the step makes no host sync (a CUDA graph can
-    capture it)."""
+    capture it). With a process group (`group`) it is this rank's step
+    (methods/base.py `step_ranks`): the gradients, BN running stats and
+    metrics averaged over the ranks where JAX's pmean_if sits."""
+    ranks = base.step_ranks(cfg, group)
     n_classes = cfg.data.num_classes
     backend = cfg.model.conv_backend
 
@@ -33,12 +36,14 @@ def make_train_step(cfg, model: nn.Module):
         loss = 0.5 * (ce + dice)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        base.pmean_step_(ranks, [state.optimizer], [model])
         state.optimizer.step()
         with torch.no_grad():
             m = segmentation_metrics(logits, batch["label"], n_classes)
         state.tick()
-        return state, {"loss": loss.detach(), "ce_loss": ce.detach(),
-                       "dice_loss": dice.detach(), "train_miou": m["miou"],
-                       "train_mdice": m["mdice"]}
+        return state, base.pmean_metrics(
+            {"loss": loss.detach(), "ce_loss": ce.detach(),
+             "dice_loss": dice.detach(), "train_miou": m["miou"],
+             "train_mdice": m["mdice"]}, ranks)
 
-    return train_step
+    return base.in_scope(train_step, ranks)

@@ -25,9 +25,14 @@ from uaps_tpu_torch.ops import segmentation_metrics, symmetric_mse_loss
 init_state = base.init_state
 
 
-def make_train_step(cfg, model: nn.Module):
+def make_train_step(cfg, model: nn.Module, group=None):
     """(state, batch) -> (state, metrics); batch holds device tensors
-    "image" and "uimage" [B, H, W, C] f32 and "label" [B, H, W] int32."""
+    "image" and "uimage" [B, H, W, C] f32 and "label" [B, H, W] int32.
+    With a process group (`group`) it is
+    this rank's step (methods/base.py `step_ranks`): the gradients, BN
+    running stats and metrics averaged over the ranks where JAX's pmean_if
+    sits."""
+    ranks = base.step_ranks(cfg, group)
     mcfg = cfg.method
     n_classes = cfg.data.num_classes
     backend = cfg.model.conv_backend
@@ -50,14 +55,15 @@ def make_train_step(cfg, model: nn.Module):
 
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        base.pmean_step_(ranks, [state.optimizer], [model])
         state.optimizer.step()
         with torch.no_grad():
             m = segmentation_metrics(outs[0], labels, n_classes)
         state.tick()
-        return state, {
+        return state, base.pmean_metrics({
             "loss": loss.detach(), "ce_loss": (sum(ces) / len(ces)).detach(),
             "dice_loss": (sum(dices) / len(dices)).detach(),
             "consistency_loss": cons.detach(), "consistency_w1": w,
-            "train_miou": m["miou"], "train_mdice": m["mdice"]}
+            "train_miou": m["miou"], "train_mdice": m["mdice"]}, ranks)
 
-    return train_step
+    return base.in_scope(train_step, ranks)

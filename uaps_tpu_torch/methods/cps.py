@@ -45,9 +45,15 @@ def init_state(cfg, device="cuda",
     return state, model
 
 
-def make_train_step(cfg, model: nn.Module):
+def make_train_step(cfg, model: nn.Module, group=None):
     """(state, batch) -> (state, metrics); batch holds device tensors
-    "image" and "uimage" [B, H, W, C] f32 and "label" [B, H, W] int32."""
+    "image" and "uimage" [B, H, W, C] f32 and "label" [B, H, W] int32.
+    With a process group (`group`) it is
+    this rank's step (methods/base.py `step_ranks`): the gradients, BN
+    running stats and metrics averaged over the ranks where JAX's pmean_if
+    sits. Both nets' gradients go in one
+    all-reduce."""
+    ranks = base.step_ranks(cfg, group)
     mcfg = cfg.method
     n_classes = cfg.data.num_classes
     backend = cfg.model.conv_backend
@@ -83,15 +89,16 @@ def make_train_step(cfg, model: nn.Module):
         for opt in opts:
             opt.zero_grad(set_to_none=True)
         loss.backward()
+        base.pmean_step_(ranks, opts, [model, net2])
         for opt in opts:
             opt.step()
         with torch.no_grad():
             m = segmentation_metrics(o1, labels, n_classes)
         state.tick()
-        return state, {
+        return state, base.pmean_metrics({
             "loss": loss.detach(), "sup_loss": sup.detach(),
             "labeled_cps_loss": labeled_cps.detach(),
             "unlabeled_cps_loss": unl_cps.detach(), "consistency_w1": w,
-            "train_miou": m["miou"], "train_mdice": m["mdice"]}
+            "train_miou": m["miou"], "train_mdice": m["mdice"]}, ranks)
 
-    return train_step
+    return base.in_scope(train_step, ranks)

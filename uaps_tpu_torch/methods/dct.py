@@ -23,6 +23,7 @@ import torch.nn as nn
 
 from uaps_tpu_torch.methods import base
 from uaps_tpu_torch.ops import segmentation_metrics
+from uaps_tpu_torch.parallel.ranks import batch_mean
 
 
 init_state = base.init_state
@@ -36,10 +37,14 @@ def rot_k(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return rots.index_select(0, k.reshape(1).to(torch.int64)).squeeze(0)
 
 
-def make_train_step(cfg, model: nn.Module):
+def make_train_step(cfg, model: nn.Module, group=None):
     """(state, batch) -> (state, metrics); batch holds device tensors
     "image" and "uimage" [B, H, W, C] f32, "label" [B, H, W] int32 and
-    optionally "rot_k" (an integer in 0..3)."""
+    optionally "rot_k" (an integer in 0..3). With a process group
+    (`group`) it is this rank's step (methods/base.py `step_ranks`): the
+    gradients, BN running stats and metrics averaged over the ranks where
+    JAX's pmean_if sits."""
+    ranks = base.step_ranks(cfg, group)
     h, w = cfg.data.image_size
     if h != w:
         raise ValueError(
@@ -62,7 +67,7 @@ def make_train_step(cfg, model: nn.Module):
                                       state.generator)
         ce, dice = base.supervised_ce_dice(logits, batch["label"], backend)
         sup = 0.5 * (ce + dice)
-        cons = torch.mean((torch.softmax(rot_logits, -1)
+        cons = batch_mean((torch.softmax(rot_logits, -1)
                            - rot_k(torch.softmax(un_logits, -1), k)) ** 2)
         wt = base.ramp_weight(mcfg.consistency1, state.counter, 150,
                               mcfg.consistency_rampup)
@@ -70,14 +75,15 @@ def make_train_step(cfg, model: nn.Module):
 
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        base.pmean_step_(ranks, [state.optimizer], [model])
         state.optimizer.step()
         with torch.no_grad():
             m = segmentation_metrics(logits, batch["label"], n_classes)
         state.tick()
-        return state, {
+        return state, base.pmean_metrics({
             "loss": loss.detach(), "ce_loss": ce.detach(),
             "dice_loss": dice.detach(), "consistency_loss": cons.detach(),
             "consistency_w1": wt, "train_miou": m["miou"],
-            "train_mdice": m["mdice"]}
+            "train_mdice": m["mdice"]}, ranks)
 
-    return train_step
+    return base.in_scope(train_step, ranks)

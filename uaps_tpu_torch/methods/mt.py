@@ -25,6 +25,7 @@ import torch.nn as nn
 
 from uaps_tpu_torch.methods import base
 from uaps_tpu_torch.ops import segmentation_metrics
+from uaps_tpu_torch.parallel.ranks import batch_mean, rows
 
 
 def init_state(cfg, device="cuda",
@@ -37,11 +38,20 @@ def init_state(cfg, device="cuda",
     return state, model
 
 
-def teacher_noise(generator: torch.Generator,
-                  x: torch.Tensor) -> torch.Tensor:
-    """x + clamp(N(0, 0.1), -0.2, 0.2), drawn from `generator`."""
-    n = torch.randn(x.shape, generator=generator, device=x.device,
-                    dtype=x.dtype)
+def teacher_noise(generator: torch.Generator, x: torch.Tensor,
+                  samples: int = 1) -> torch.Tensor:
+    """x + clamp(N(0, 0.1), -0.2, 0.2), drawn from `generator`; x holds
+    `samples` copies of the batch, sample-major (uamt's T-pass). On ranks,
+    the rank's rows of the draw over the global batch (parallel/ranks.py
+    `rows`)."""
+    b, tail = x.shape[0] // samples, x.shape[1:]
+
+    def draw(nb):
+        return torch.randn((samples * nb, *tail), generator=generator,
+                           device=x.device, dtype=x.dtype).view(
+                               samples, nb, *tail)
+
+    n = rows(draw, b, dim=1).reshape(x.shape)
     return x + torch.clamp(n * 0.1, -0.2, 0.2)
 
 
@@ -53,10 +63,15 @@ def teacher_softmax(state: base.TrainState, x: torch.Tensor) -> torch.Tensor:
                                               state.generator), -1)
 
 
-def make_train_step(cfg, model: nn.Module):
+def make_train_step(cfg, model: nn.Module, group=None):
     """(state, batch) -> (state, metrics); batch holds device tensors
     "image" and "uimage" [B, H, W, C] f32, "label" [B, H, W] int32 and
-    optionally "tnoise" [B, H, W, C] f32."""
+    optionally "tnoise" [B, H, W, C] f32. With a process group (`group`) it is
+    this rank's step (methods/base.py `step_ranks`): the gradients, BN
+    running stats and metrics averaged over the ranks where JAX's pmean_if
+    sits. The teacher's
+    running stats are averaged with the student's."""
+    ranks = base.step_ranks(cfg, group)
     mcfg = cfg.method
     n_classes = cfg.data.num_classes
     backend = cfg.model.conv_backend
@@ -72,7 +87,7 @@ def make_train_step(cfg, model: nn.Module):
         un_logits = base.apply_train(model, uimage, state.generator)
         ce, dice = base.supervised_ce_dice(logits, batch["label"], backend)
         sup = 0.5 * (ce + dice)
-        cons = torch.mean((torch.softmax(un_logits, -1) - ema_soft) ** 2)
+        cons = batch_mean((torch.softmax(un_logits, -1) - ema_soft) ** 2)
         cons = torch.where(state.counter < mcfg.consistency_start_iter,
                            0.0, cons)
         w = base.ramp_weight(mcfg.consistency1, state.counter, 150,
@@ -81,16 +96,17 @@ def make_train_step(cfg, model: nn.Module):
 
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        base.pmean_step_(ranks, [state.optimizer], [model, state.ema_model])
         state.optimizer.step()
         base.ema_update(model, state.ema_model, mcfg.ema_decay,
                         state.counter)
         with torch.no_grad():
             m = segmentation_metrics(logits, batch["label"], n_classes)
         state.tick()
-        return state, {
+        return state, base.pmean_metrics({
             "loss": loss.detach(), "ce_loss": ce.detach(),
             "dice_loss": dice.detach(), "consistency_loss": cons.detach(),
             "consistency_w1": w, "train_miou": m["miou"],
-            "train_mdice": m["mdice"]}
+            "train_mdice": m["mdice"]}, ranks)
 
-    return train_step
+    return base.in_scope(train_step, ranks)

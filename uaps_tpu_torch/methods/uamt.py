@@ -29,6 +29,7 @@ from uaps_tpu_torch.methods import base
 from uaps_tpu_torch.methods.mt import (init_state, teacher_noise,  # noqa: F401
                                        teacher_softmax)
 from uaps_tpu_torch.ops import segmentation_metrics
+from uaps_tpu_torch.parallel.ranks import batch_mean, batch_sum
 
 
 def uncertainty_samples(state: base.TrainState, rep: torch.Tensor,
@@ -44,9 +45,14 @@ def uncertainty_samples(state: base.TrainState, rep: torch.Tensor,
     return -(mean_soft * torch.log(mean_soft + 1e-6)).sum(-1)
 
 
-def make_train_step(cfg, model: nn.Module):
+def make_train_step(cfg, model: nn.Module, group=None):
     """(state, batch) -> (state, metrics); batch as methods/mt.py's, with
-    optionally "tnoise_T" [T B, H, W, C] f32."""
+    optionally "tnoise_T" [T B, H, W, C] f32. With a process group
+    (`group`) it is this rank's step (methods/base.py `step_ranks`): the
+    gradients, BN running stats and metrics averaged over the ranks where
+    JAX's pmean_if sits. The teacher's running stats are averaged with the
+    student's."""
+    ranks = base.step_ranks(cfg, group)
     mcfg = cfg.method
     n_classes = cfg.data.num_classes
     backend = cfg.model.conv_backend
@@ -60,7 +66,7 @@ def make_train_step(cfg, model: nn.Module):
         ema_soft = teacher_softmax(state, ema_in)
         rep = uimage.repeat(t, 1, 1, 1)
         rep = (rep + batch["tnoise_T"] if "tnoise_T" in batch
-               else teacher_noise(state.generator, rep))
+               else teacher_noise(state.generator, rep, t))
         uncertainty = uncertainty_samples(state, rep, t)
 
         logits = base.apply_train(model, batch["image"], state.generator)
@@ -72,21 +78,23 @@ def make_train_step(cfg, model: nn.Module):
         dist = (torch.softmax(un_logits, -1) - ema_soft) ** 2
         threshold = (0.75 + 2.5 * w) * math.log(2.0)
         mask = (uncertainty < threshold).to(dist.dtype)[..., None]
-        cons = torch.sum(mask * dist) / (2.0 * torch.sum(mask) + 1e-16)
+        cons = (batch_sum(torch.sum(mask * dist))
+                / (2.0 * batch_sum(torch.sum(mask)) + 1e-16))
         loss = sup + w * cons
 
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        base.pmean_step_(ranks, [state.optimizer], [model, state.ema_model])
         state.optimizer.step()
         base.ema_update(model, state.ema_model, mcfg.ema_decay,
                         state.counter)
         with torch.no_grad():
             m = segmentation_metrics(logits, batch["label"], n_classes)
         state.tick()
-        return state, {
+        return state, base.pmean_metrics({
             "loss": loss.detach(), "ce_loss": ce.detach(),
             "dice_loss": dice.detach(), "consistency_loss": cons.detach(),
-            "consistency_w1": w, "mean_uncertainty": uncertainty.mean(),
-            "train_miou": m["miou"], "train_mdice": m["mdice"]}
+            "consistency_w1": w, "mean_uncertainty": batch_mean(uncertainty),
+            "train_miou": m["miou"], "train_mdice": m["mdice"]}, ranks)
 
-    return train_step
+    return base.in_scope(train_step, ranks)

@@ -42,6 +42,7 @@ from uaps_tpu_torch.kernels.uncertainty import fused_uncertainty
 from uaps_tpu_torch.methods import base
 from uaps_tpu_torch.ops import (kl_divergence_map, segmentation_metrics,
                                 symmetric_mse_loss)
+from uaps_tpu_torch.parallel.ranks import batch_mean
 
 
 init_state = base.init_state
@@ -55,13 +56,17 @@ def dirichlet_weights(generator: torch.Generator, n: int,
     return e / e.sum()
 
 
-def make_train_step(cfg, model: nn.Module):
+def make_train_step(cfg, model: nn.Module, group=None):
     """(state, batch) -> (state, metrics); batch holds device tensors
     "image" and "uimage" [B, H, W, C] f32, "label" [B, H, W] int32 and
     optionally "mix_w" [1 + n_aux] f32. The metrics stay on the device.
     The step reads no host value and makes no host sync (the ramp weights
     come from the state's device counter), so K of them can be captured as
-    one CUDA graph (uaps_tpu_torch/dispatch.py)."""
+    one CUDA graph (uaps_tpu_torch/dispatch.py). With a process group
+    (`group`) it is this rank's step (methods/base.py `step_ranks`): the
+    gradients, BN running stats and metrics averaged over the ranks where
+    JAX's pmean_if sits."""
+    ranks = base.step_ranks(cfg, group)
     mcfg = cfg.method
     n_classes = cfg.data.num_classes
     n_dec = 1 + cfg.model.n_aux
@@ -100,12 +105,12 @@ def make_train_step(cfg, model: nn.Module):
         if fused:
             var_stack, pseudo = fused_uncertainty(un_outs, w)
             variances = list(var_stack)
-            l_uncert = var_stack.mean()
+            l_uncert = batch_mean(var_stack)
         else:
             softmaxes = [torch.softmax(o, -1) for o in un_outs]
             preds = sum(softmaxes) / n_dec
             variances = [kl_divergence_map(o, preds) for o in un_outs]
-            l_uncert = torch.mean(sum(variances) / n_dec)
+            l_uncert = batch_mean(sum(variances) / n_dec)
             if kernels:
                 pseudo = fused_pseudo_label(un_outs, w)
             else:
@@ -117,7 +122,7 @@ def make_train_step(cfg, model: nn.Module):
             ps_ce, ps_dice = base.supervised_ce_dice(o, pseudo, backend)
             ps = 0.5 * (ps_ce + ps_dice)
             if mcfg.uncertainty_gate:
-                ps = ps * torch.mean(torch.exp(-var))
+                ps = ps * batch_mean(torch.exp(-var))
             ps_terms.append(ps)
         ps_loss = sum(ps_terms) / n_dec
 
@@ -135,17 +140,18 @@ def make_train_step(cfg, model: nn.Module):
 
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        base.pmean_step_(ranks, [state.optimizer], [model])
         state.optimizer.step()
         with torch.no_grad():
             m = segmentation_metrics(outs[0], labels, n_classes)
         state.tick()
-        return state, {
+        return state, base.pmean_metrics({
             "loss": loss.detach(), "sup_loss": sup.detach(),
             "ce_loss": (sum(ces) / n_dec).detach(),
             "dice_loss": (sum(dices) / n_dec).detach(),
             "ps_loss": ps_loss.detach(),
             "uncertainty_loss": l_uncert.detach(),
             "consistency_w1": w1, "consistency_w2": w2,
-            "train_miou": m["miou"], "train_mdice": m["mdice"]}
+            "train_miou": m["miou"], "train_mdice": m["mdice"]}, ranks)
 
-    return train_step
+    return base.in_scope(train_step, ranks)

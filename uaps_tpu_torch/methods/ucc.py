@@ -32,6 +32,7 @@ from uaps_tpu_torch.methods import base
 from uaps_tpu_torch.ops import kl_divergence_map, segmentation_metrics
 from uaps_tpu_torch.ops.cutmix import generate_crossmix_data, \
     generate_mix_data
+from uaps_tpu_torch.parallel.ranks import batch_mean
 
 
 init_state = base.init_state
@@ -50,10 +51,15 @@ def mixed_batch(state: base.TrainState, batch):
     return img_l, lab_l, wk, st
 
 
-def make_train_step(cfg, model: nn.Module):
-    """(state, batch) -> (state, metrics); batch holds device tensors
-    "image", "uimage" and "uimage_strong" [B, H, W, C] f32 and "label"
-    [B, H, W] int32 (or the four mix hooks)."""
+def make_train_step(cfg, model: nn.Module, group=None):
+    """(state, batch) -> (state, metrics); batch holds device tensors "image",
+    "uimage" and "uimage_strong" [B, H, W, C] f32 and "label" [B, H, W]
+    int32 (or the four mix hooks). With a process group (`group`) it is
+    this rank's step (methods/base.py `step_ranks`): the gradients, BN
+    running stats and metrics averaged over the ranks where JAX's pmean_if
+    sits. CutMix pastes within a rank's rows in both modes (JAX's shard_map
+    mode does so within a device's)."""
+    ranks = base.step_ranks(cfg, group)
     mcfg = cfg.method
     n_classes = cfg.data.num_classes
     backend = cfg.model.conv_backend
@@ -79,10 +85,10 @@ def make_train_step(cfg, model: nn.Module):
         var_2 = kl_divergence_map(u1_st, s2_wk)
         pseudo_1 = s2_wk.detach().argmax(-1).to(torch.int32)
         pseudo_2 = s1_wk.detach().argmax(-1).to(torch.int32)
-        ps_1 = (ce_dice(u1_st, pseudo_1)[2] * torch.mean(torch.exp(-var_1))
-                + torch.mean(var_1))
-        ps_2 = (ce_dice(u2_st, pseudo_2)[2] * torch.mean(torch.exp(-var_2))
-                + torch.mean(var_2))
+        ps_1 = (ce_dice(u1_st, pseudo_1)[2] * batch_mean(torch.exp(-var_1))
+                + batch_mean(var_1))
+        ps_2 = (ce_dice(u2_st, pseudo_2)[2] * batch_mean(torch.exp(-var_2))
+                + batch_mean(var_2))
         ps_loss = ps_1 + ps_2
         w = base.ramp_weight(mcfg.consistency1, state.counter, 150,
                              mcfg.consistency_rampup)
@@ -90,16 +96,17 @@ def make_train_step(cfg, model: nn.Module):
 
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        base.pmean_step_(ranks, [state.optimizer], [model])
         state.optimizer.step()
         with torch.no_grad():
             m = segmentation_metrics(o1, lab_l, n_classes)
         state.tick()
-        return state, {
+        return state, base.pmean_metrics({
             "loss": loss.detach(), "sup_loss": sup.detach(),
             "ps_loss": ps_loss.detach(),
             "ce_loss": ((ce1 + ce2) / 2).detach(),
             "dice_loss": ((dice1 + dice2) / 2).detach(),
             "consistency_w1": w, "train_miou": m["miou"],
-            "train_mdice": m["mdice"]}
+            "train_mdice": m["mdice"]}, ranks)
 
-    return train_step
+    return base.in_scope(train_step, ranks)

@@ -111,6 +111,7 @@ from uaps_tpu_torch.kernels.perturb import fused_dropout
 from uaps_tpu_torch.kernels.pool_nchw import (max_pool_2x2_nchw,
                                               pool_pallas_ok)
 from uaps_tpu_torch.ops.perturbations import dropout, perturb_features
+from uaps_tpu_torch.parallel import ranks
 
 # Reference channel/dropout schedule (UAPS_unet.py:192-197)
 UNET_FEATURES: Tuple[int, ...] = (16, 32, 64, 128, 256)
@@ -128,13 +129,15 @@ def cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 def draw_seeds(generator: Optional[torch.Generator], n: int,
                device: torch.device) -> torch.Tensor:
     """n int64 seeds in [0, 2^31) on `device`, one draw from `generator`
-    (no host sync: the kernels read them through a pointer)."""
+    (no host sync: the kernels read them through a pointer), with a
+    shard_map rank's rank folded in (parallel/ranks.py `device_seeds`)."""
     if generator is None:
         raise ValueError("train-mode dropout and the perturbations need a "
                          "torch.Generator (flax's 'dropout' and 'perturb' "
                          "rngs)")
-    return torch.randint(0, 2 ** 31 - 1, (n,), generator=generator,
-                         device=device)
+    return ranks.device_seeds(torch.randint(0, 2 ** 31 - 1, (n,),
+                                            generator=generator,
+                                            device=device))
 
 
 class Conv3x3(nn.Module):
@@ -200,8 +203,10 @@ class BatchNorm(nn.BatchNorm2d):
     """BN as flax computes it: (x - mean) * (rsqrt(var + eps) * scale)
     + bias in f32, cast to the compute dtype; the running stats in eval
     mode, the batch stats (biased variance) in train mode, which also
-    updates the running stats. The buffers and parameters are
-    nn.BatchNorm2d's, so state dicts load unchanged."""
+    updates the running stats; in GSPMD mode (parallel/ranks.py) the batch
+    stats are the global batch's, from the ranks' summed moments (sync BN).
+    The buffers and parameters are nn.BatchNorm2d's, so state dicts load
+    unchanged."""
 
     def __init__(self, c: int, dtype: torch.dtype):
         super().__init__(c, eps=1e-5, momentum=0.1)
@@ -210,7 +215,14 @@ class BatchNorm(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = cast(x, torch.float64 if x.dtype == torch.float64
                   else torch.float32)   # at least f32, as flax
-        if self.training:
+        if self.training and ranks.gspmd():
+            s1, s2, n = ranks.batch_moments(xf.sum((0, 2, 3)),
+                                            (xf * xf).sum((0, 2, 3)),
+                                            xf.numel() // xf.shape[1])
+            mean = s1 / n
+            var = torch.clamp(s2 / n - mean * mean, min=0.0)
+            self.update_running(mean, var)
+        elif self.training:
             mean = xf.mean((0, 2, 3))
             var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean,
                               min=0.0)
@@ -238,12 +250,17 @@ class BNFactorShift(BatchNorm):
     Train mode: mean = s1 / n, var = max(s2 / n - mean^2, 0), factor =
     rsqrt(var + eps) * scale, shift = bias - mean * factor (b cancels); the
     running mean takes mean + b. Eval mode: the running stats with b folded
-    in. The parameters and buffers are nn.BatchNorm2d's."""
+    in. The parameters and buffers are nn.BatchNorm2d's. Its moments are
+    the rank's own: GSPMD mode routes no fused block (ROADMAP.md Queue A)."""
 
     def factor_shift(self, s1: torch.Tensor, s2: torch.Tensor, n: int,
                      conv_bias: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         b = conv_bias.to(torch.float32)
+        if self.training and ranks.gspmd():
+            raise NotImplementedError(
+                "sync BN inside the fused ConvBlocks is not ported: GSPMD "
+                "mode trains with conv_backend='xla' (ROADMAP.md Queue A)")
         if self.training:
             mean = s1 / n
             var = torch.clamp(s2 / n - mean * mean, min=0.0)
@@ -258,7 +275,8 @@ class StatsBatchNorm(BatchNorm):
     """BN from precomputed batch moments (JAX `StatsBatchNorm`): s1, s2 the
     f32 sum and sum of squares of x over its n pixels per channel. Train
     mode: mean = s1 / n, var = max(s2 / n - mean^2, 0) (biased), the
-    running stats updated with them; eval mode: the running stats. Then
+    running stats updated with them (in GSPMD mode s1, s2 and n summed over
+    the ranks first: sync BN); eval mode: the running stats. Then
     factor = rsqrt(var + eps) * scale and shift = bias - mean * rsqrt(var +
     eps) * scale, both cast to the compute dtype, and x * factor + shift in
     that dtype. The parameters and buffers are nn.BatchNorm2d's."""
@@ -266,6 +284,7 @@ class StatsBatchNorm(BatchNorm):
     def forward(self, x: torch.Tensor, s1: torch.Tensor, s2: torch.Tensor,
                 n: int) -> torch.Tensor:
         if self.training:
+            s1, s2, n = ranks.batch_moments(s1, s2, n)
             mean = s1 / n
             var = torch.clamp(s2 / n - mean * mean, min=0.0)
             self.update_running(mean, var)
@@ -282,7 +301,9 @@ class Dropout(nn.Module):
     """flax nn.Dropout in train mode (keep with probability 1 - p, scale by
     1 / (1 - p)), the identity in eval mode or at p = 0. `backend` "auto"
     and "pallas" run the fused dropout module, "xla" the plain ops (the
-    Encoder turns "auto" into "xla" where the conv kernels are off)."""
+    Encoder turns "auto" into "xla" where the conv kernels are off). In
+    GSPMD mode the mask is the rank's rows of the global batch's
+    (parallel/ranks.py `row_offset`), which only the plain ops draw."""
 
     def __init__(self, rate: float, backend: str):
         super().__init__()
@@ -293,8 +314,13 @@ class Dropout(nn.Module):
                 seed: Optional[torch.Tensor]) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
+        offset = ranks.row_offset(x)
         if self.backend == "xla":
-            return dropout(seed, x, self.rate)
+            return dropout(seed, x, self.rate, offset)
+        if ranks.gspmd():
+            raise ValueError("GSPMD mode draws dropout over the global "
+                             "batch with the plain ops: dropout_backend "
+                             "'auto' or 'xla' with conv_backend='xla'")
         return fused_dropout(x, seed, self.rate)
 
 

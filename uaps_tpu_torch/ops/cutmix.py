@@ -9,6 +9,8 @@ rectangle is drawn as JAX draws it (per sample): width w ~ U{W/ratio + 1,
 x0 ~ U{0, ..., W - w}, y0 ~ U{0, ..., max(H - h, 0)}. The integers come
 from f64 uniforms floored (torch.randint takes host bounds, and w sets the
 others' bounds), all from the caller's generator; the bits are not JAX's.
+On ranks a sample's draws are its row of the draw over the global batch
+(parallel/ranks.py `rows`).
 
 Mask convention (the reference's): 1 outside the rectangle, 0 inside, so
 `a * mask + b * (1 - mask)` pastes a rectangle of b into a; the mixes below
@@ -20,6 +22,8 @@ from typing import Tuple
 
 import torch
 
+from uaps_tpu_torch.parallel.ranks import rows
+
 
 def _below(u: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     """floor(u * n) for f64 u in [0, 1) and int64 n >= 1, capped at n - 1:
@@ -30,8 +34,9 @@ def _below(u: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
 def _rectangles(generator: torch.Generator, b: int, im_h: int, im_w: int,
                 ratio: int, device) -> torch.Tensor:
     """[b, H, W] bool, True inside each sample's rectangle."""
-    u = torch.rand((3, b), generator=generator, device=device,
-                   dtype=torch.float64)
+    u = rows(lambda n: torch.rand((3, n), generator=generator,
+                                  device=device, dtype=torch.float64),
+             b, dim=1)
     w_lo = im_w // ratio + 1
     w = w_lo + _below(u[0], torch.full_like(u[0], im_w - w_lo,
                                            dtype=torch.int64))
@@ -56,7 +61,8 @@ def cutout_mask(generator: torch.Generator, b: int, im_h: int, im_w: int,
 def _gates(generator: torch.Generator, b: int, p: float,
            device) -> torch.Tensor:
     """[b] bool, each True with probability p."""
-    return torch.rand((b,), generator=generator, device=device) < p
+    return rows(lambda n: torch.rand((n,), generator=generator,
+                                     device=device), b) < p
 
 
 def generate_mix_data(generator: torch.Generator, images: torch.Tensor,

@@ -5,10 +5,14 @@ is not used; `kl_divergence_map` is the plain uncertainty map beside the
 fused uncertainty kernel.
 
 Conventions (as in JAX): logits [..., C] float, labels [...] integer.
+The batch means and sums are the global batch's in GSPMD mode
+(parallel/ranks.py `batch_mean`, `batch_sum`), the local ones otherwise.
 """
 from __future__ import annotations
 
 import torch
+
+from uaps_tpu_torch.parallel.ranks import batch_mean, batch_sum
 
 
 def _one_hot(labels: torch.Tensor, c: int, dtype) -> torch.Tensor:
@@ -24,7 +28,7 @@ def cross_entropy_loss(logits: torch.Tensor,
     c = logits.shape[-1]
     log_probs = torch.log_softmax(logits, dim=-1)
     one_hot = _one_hot(labels.clamp(0, c - 1), c, log_probs.dtype)
-    return -(log_probs * one_hot).sum(-1).mean()
+    return batch_mean(-(log_probs * one_hot).sum(-1))
 
 
 def softmax_dice_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -35,15 +39,15 @@ def softmax_dice_loss(logits: torch.Tensor, labels: torch.Tensor,
     probs = torch.softmax(logits, dim=-1)
     one_hot = _one_hot(labels, logits.shape[-1], logits.dtype)
     dims = tuple(range(probs.ndim - 1))
-    intersection = (probs * one_hot).sum(dims)
-    cardinality = (probs + one_hot).sum(dims)
+    intersection = batch_sum((probs * one_hot).sum(dims))
+    cardinality = batch_sum((probs + one_hot).sum(dims))
     return 1.0 - torch.mean(2.0 * intersection / (cardinality + eps))
 
 
 def symmetric_mse_loss(input1: torch.Tensor,
                        input2: torch.Tensor) -> torch.Tensor:
     """mean((a - b)^2), gradients to both sides."""
-    return torch.mean((input1 - input2) ** 2)
+    return batch_mean((input1 - input2) ** 2)
 
 
 def kl_divergence_map(logits: torch.Tensor,

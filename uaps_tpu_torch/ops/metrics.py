@@ -2,7 +2,9 @@
 
 As in JAX: the prediction is the argmax over classes; a class absent from
 the label map contributes NaN, and the mean over classes 1..C-1 (background
-excluded) ignores NaN; smooth = 1e-10 in numerator and denominator.
+excluded) ignores NaN; smooth = 1e-10 in numerator and denominator. The
+class counts and the pixel accuracy are the global batch's in GSPMD mode
+(parallel/ranks.py), as the validation of several ranks takes them.
 """
 from __future__ import annotations
 
@@ -10,13 +12,15 @@ from typing import Dict
 
 import torch
 
+from uaps_tpu_torch.parallel.ranks import batch_mean, batch_sum
+
 
 def _class_counts(pred: torch.Tensor, label: torch.Tensor, n: int):
     """Per-class (intersection, pred count, label count), f32 [n] each."""
     classes = torch.arange(n, device=pred.device)
     p = (pred.reshape(-1, 1) == classes).float()
     lab = (label.reshape(-1, 1) == classes).float()
-    return (p * lab).sum(0), p.sum(0), lab.sum(0)
+    return batch_sum(torch.stack([(p * lab).sum(0), p.sum(0), lab.sum(0)]))
 
 
 def _iou(intersect, pred_count, label_count, smooth):
@@ -55,4 +59,4 @@ def segmentation_metrics(logits: torch.Tensor, label: torch.Tensor,
     dice, iou = _dice(*counts, smooth), _iou(*counts, smooth)
     return {"miou": torch.nanmean(iou[1:]),
             "mdice": torch.nanmean(dice[1:]),
-            "pixel_acc": (pred == label).float().mean()}
+            "pixel_acc": batch_mean((pred == label).float())}

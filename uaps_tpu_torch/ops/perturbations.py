@@ -21,6 +21,7 @@ from uaps_tpu_torch.kernels.perturb import (  # noqa: F401  (re-exported)
     dropout_apply, dropout_plain, feature_dropout_apply, feature_dropout_plain,
     feature_noise_apply, feature_noise_plain, fused_dropout,
     fused_feature_dropout, fused_feature_noise)
+from uaps_tpu_torch.parallel.ranks import gspmd, row_offset
 
 # aux1 <- feature noise, aux2 <- dropout, aux3 <- feature dropout
 PERTURBATIONS = ("feature_noise", "dropout", "feature_dropout")
@@ -33,11 +34,12 @@ def feature_noise(seed: torch.Tensor, x: torch.Tensor,
     return feature_noise_plain(x, seed, uniform_range)
 
 
-def dropout(seed: torch.Tensor, x: torch.Tensor,
-            rate: float = 0.5) -> torch.Tensor:
+def dropout(seed: torch.Tensor, x: torch.Tensor, rate: float = 0.5,
+            offset: int = 0) -> torch.Tensor:
     """Inverted dropout: zero with probability `rate`, survivors scaled by
-    1 / (1 - rate); masks differ per example."""
-    return dropout_plain(x, seed, rate)
+    1 / (1 - rate); masks differ per example. The elements' flat indices
+    start at `offset` (a GSPMD rank's rows of the global batch)."""
+    return dropout_plain(x, seed, rate, offset)
 
 
 def feature_dropout(seed: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -47,7 +49,8 @@ def feature_dropout(seed: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return feature_dropout_plain(x, seed)
 
 
-_PLAIN = {"feature_noise": feature_noise, "dropout": dropout,
+_PLAIN = {"feature_noise": feature_noise,
+          "dropout": lambda s, f: dropout(s, f, offset=row_offset(f)),
           "feature_dropout": feature_dropout}
 _FUSED = {"feature_noise": lambda s, f: fused_feature_noise(f, s),
           "dropout": lambda s, f: fused_dropout(f, s),
@@ -60,10 +63,17 @@ def perturb_features(seeds: torch.Tensor, features: Sequence[torch.Tensor],
     """Apply one perturbation kind to every skip tensor, seeds[i] to
     features[i]. backend != "xla" routes to the kernel module (the kernels
     on the GPU, their plain versions on the CPU); "xla" to the plain
-    functions. 'none' returns the features unchanged."""
+    functions. 'none' returns the features unchanged. In GSPMD mode
+    (parallel/ranks.py) the dropout kind takes the rank's rows of the
+    global batch's masks, which the kernel route does not draw: it raises
+    there. Feature noise and feature dropout need no offset: the noise and
+    the scale are shared across the batch, the attention is per example."""
     if kind == "none":
         return list(features)
     if kind not in _PLAIN:
         raise ValueError(f"unknown perturbation kind: {kind!r}")
+    if kind == "dropout" and backend != "xla" and gspmd():
+        raise ValueError("GSPMD mode perturbs with the plain ops: "
+                         "conv_backend='xla'")
     fn = (_FUSED if backend != "xla" else _PLAIN)[kind]
     return [fn(s, f) for s, f in zip(seeds, features)]

@@ -1,11 +1,11 @@
-"""Training CLI and single-device Trainer: the port's `uaps_tpu/train.py`.
+"""Training CLI and Trainer: the port's `uaps_tpu/train.py`.
 
     python -m uaps_tpu_torch.train --preset neu --method M \
         --dtype bfloat16 (--dataset synthetic | --image_root DIR \
         --mask_root DIR [--test_image_root DIR --test_mask_root DIR]) \
         [--epochs 2 --iter_per_epoch 20] [--device cuda] \
         [--steps_per_dispatch K] [--device_pools] [--resume] \
-        [--debug_nans]
+        [--debug_nans] [--num_devices N [--shard_map | --gspmd]]
 
 M is `uaps`, `baseline`, `cct`, `mt`, `uamt`, `cps`, `dct` or `ucc`
 (`ucc` trains on the weak / strong stream, `train_iter_weak_strong`). The
@@ -45,7 +45,24 @@ autograd's anomaly mode, with a forward hook on every module that raises
 FloatingPointError naming the first module whose output holds a NaN; the
 kernels stay on the path.
 
-Not ported yet: more than one device (ROADMAP.md Queue A, "Multi-GPU").
+Data parallelism (uaps_tpu_torch/parallel/): one process per device, a
+rank. `--num_devices N` spawns N local ranks on cuda:0..N-1 (NCCL; with
+`--device cpu`, N CPU ranks over gloo); under a launcher that sets RANK,
+WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT (torchrun) each
+process joins that group instead. N more than the visible GPUs raises:
+nothing falls back to gloo, to a shared card or to the CPU. JAX's rule
+sets the ranks that train, the largest divisor of the batch within N.
+Each rank builds the same seeded global batch and trains on its rows, the
+state replicated from rank 0. shard_map mode (the default on more than
+one rank, `--shard_map`) runs the method's step on the rank's rows with
+its kernels, BN over the local batch, and the gradients, running stats
+and metrics averaged over the ranks; GSPMD mode (`--gspmd`) gives one step
+on the global batch (sync BN, the losses' sums all-reduced) with the plain
+convs, as JAX routes it. Validation is over the global batch in both (a
+remainder batch that the ranks do not divide runs whole on every rank),
+device pools are off with a warning, and a CUDA graph of K steps holds
+the step's NCCL all-reduces. Rank 0 alone logs, writes metrics and
+saves; every rank restores the same checkpoint.
 """
 from __future__ import annotations
 
@@ -53,17 +70,21 @@ import argparse
 import dataclasses
 import logging
 import os
+import socket
+import sys
 import time
 from typing import Dict, Iterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from uaps_tpu_torch import dispatch
 from uaps_tpu_torch.data import DefectDataset, SyntheticDefects
 from uaps_tpu_torch.data import device_pool
 from uaps_tpu_torch.data.pipeline import PREFETCH, background
 from uaps_tpu_torch.methods import base, get_method
+from uaps_tpu_torch.parallel import mesh, ranks
 from uaps_tpu_torch.utils.checkpoint import (CheckpointManager,
                                              load_state_tensors,
                                              state_tensors)
@@ -147,17 +168,57 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str,
         device) for k, dt in dispatch.BATCH_DTYPES.items() if k in batch}
 
 
+class _NoWriter:
+    """The metric writer of a rank other than 0."""
+
+    def write(self, step, metrics, prefix=""):
+        pass
+
+    def close(self):
+        pass
+
+
 class Trainer:
+    """One rank's training run (one device). In a process group (the
+    default group, joined before: the CLI or parallel.distributed_init)
+    the run is this rank's part of data-parallel training (the module
+    docstring), over the group's ranks."""
+
     def __init__(self, cfg, device="cuda", data=None):
-        self.cfg = cfg
         self.device = base.resolve_device(device)
-        self.logger = get_logger(cfg.run.out_dir)
-        self.writer = MetricWriter(cfg.run.out_dir)
+        self.group = dist.group.WORLD if dist.is_initialized() else None
+        self.world = dist.get_world_size() if self.group else 1
+        self.rank = dist.get_rank() if self.group else 0
+        if cfg.data.batch_size % self.world:
+            fit = mesh.data_ranks(cfg.data.batch_size, self.world)
+            raise ValueError(
+                f"batch_size {cfg.data.batch_size} does not divide over "
+                f"{self.world} ranks; {fit} would (parallel.data_ranks)")
+        # JAX's auto rule: shard_map on more than one rank; GSPMD mode
+        # routes the convs to the plain ops (train.py:86-100)
+        use_sm = cfg.run.use_shard_map
+        self.use_shard_map = self.world > 1 if use_sm is None else bool(use_sm)
+        if self.world > 1 and not self.use_shard_map:
+            if cfg.model.dropout_backend == "pallas":
+                raise ValueError("GSPMD mode draws dropout over the global "
+                                 "batch with the plain ops; "
+                                 "dropout_backend='pallas' cannot")
+            cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+                cfg.model, conv_backend="xla"))
+        self.cfg = cfg
+        self.logger = (get_logger(cfg.run.out_dir) if self.rank == 0
+                       else logging.getLogger(f"uaps.rank{self.rank}"))
+        self.writer = (MetricWriter(cfg.run.out_dir) if self.rank == 0
+                       else _NoWriter())
         self.method = get_method(cfg.method.name)
         self.data = data if data is not None else make_data(
             cfg, seed=cfg.run.seed)
         self.state, self.model = self.method.init_state(cfg, self.device)
-        self.train_step = self.method.make_train_step(cfg, self.model)
+        self.train_step = self.method.make_train_step(cfg, self.model,
+                                                      group=self.group)
+        # validation over the global batch, as JAX's GSPMD eval
+        self.eval_ranks = (ranks.Ranks.of(self.group, sync=True)
+                           if self.group else None)
         # (metric prefix, eval step) a net: cps validates both
         second = self.state.second
         self.eval_steps = [("val_", base.make_eval_step(cfg, self.model))]
@@ -170,7 +231,7 @@ class Trainer:
                            if second is not None else None)
         self.ckpt = CheckpointManager(
             os.path.join(cfg.run.out_dir, "checkpoints"),
-            keep=cfg.run.keep_checkpoints)
+            keep=cfg.run.keep_checkpoints, group=self.group)
         self.best_dice = -1.0
         self.epochs_since_best = 0
         # debug_nans: single eager steps, each checked on the host
@@ -189,7 +250,11 @@ class Trainer:
         # train.py:140-176)
         self.pools = None
         self._val_pool = None
-        if cfg.run.device_pools and not device_pool.has_pools(self.data):
+        if cfg.run.device_pools and self.world > 1:
+            logging.getLogger("uaps").warning(
+                "device_pools requested but disabled: %d ranks; training "
+                "from the host stream", self.world)
+        elif cfg.run.device_pools and not device_pool.has_pools(self.data):
             logging.getLogger("uaps").warning(
                 "device_pools requested but disabled: the dataset has no "
                 "fixed _pool/_upool arrays; training from the host stream")
@@ -201,9 +266,17 @@ class Trainer:
             self._val_pool = device_pool.put_val_pool(self.data, b,
                                                       self.device)
         self.graphed = None
-        if self.k_dispatch > 1 and self.device.type == "cuda":
+        # a graph holds NCCL's collectives, not gloo's (host-staged)
+        if (self.k_dispatch > 1 and self.device.type == "cuda"
+                and (self.group is None or dist.get_backend() == "nccl")):
             self.graphed = dispatch.GraphedSteps(
                 self.train_step, self.k_dispatch, self.device, self.pools)
+        if self.group is not None:
+            mesh.replicate_state(self.state, self.model, self.pools)
+
+    def _rows(self, batch):
+        """This rank's rows of a host batch."""
+        return mesh.local_batch_shard(batch, self.rank, self.world)
 
     def maybe_resume(self) -> int:
         """Restore the latest checkpoint, if there is one, into the state
@@ -260,9 +333,16 @@ class Trainer:
             return out
         n = 0
         for batch in self.data.val_iter():
-            batch = to_device(batch, self.device)
+            # on ranks: each its rows, the metrics the global batch's; a
+            # remainder batch the ranks do not divide runs whole on every
+            # rank (JAX train.py:252-258)
+            split = batch["image"].shape[0] % self.world == 0
+            batch = to_device(self._rows(batch) if split else batch,
+                              self.device)
             for prefix, eval_step in self.eval_steps:
-                for k, v in eval_step(batch).items():
+                with ranks.scope(self.eval_ranks if split else None):
+                    m = eval_step(batch)
+                for k, v in m.items():
                     k = k.replace("val_", prefix, 1)
                     out[k] = out.get(k, 0.0) + float(v)
             n += 1
@@ -272,7 +352,8 @@ class Trainer:
         """K steps in one dispatch: the CUDA graph, or on the CPU the K-step
         function; metrics [K] on the device."""
         k = self.k_dispatch
-        host = None if self.pools else [next(stream) for _ in range(k)]
+        host = (None if self.pools
+                else [self._rows(next(stream)) for _ in range(k)])
         if self.graphed is not None:
             return self.graphed(self.state, host)
         if self.pools:
@@ -312,7 +393,9 @@ class Trainer:
                                                       self.weak_strong)
         self.logger.info(
             f"method={cfg.method.name} model={cfg.model.name} "
-            f"device={self.device} batch={cfg.data.batch_size} "
+            f"device={self.device} ranks={self.world} "
+            f"shard_map={self.use_shard_map and self.world > 1} "
+            f"batch={cfg.data.batch_size} "
             f"image={cfg.data.image_size} "
             f"steps_per_dispatch={self.k_dispatch} "
             f"device_pools={self.pools is not None}")
@@ -330,7 +413,8 @@ class Trainer:
                     it += self.k_dispatch
                     continue
                 batch = (self.pools.sample() if self.pools
-                         else to_device(next(stream), self.device))
+                         else to_device(self._rows(next(stream)),
+                                        self.device))
                 if (cfg.run.profile_steps and epoch == 1
                         and it == cfg.run.profile_steps[0]):
                     prof = self._profiler()
@@ -378,10 +462,11 @@ class Trainer:
                 self.epochs_since_best = 0
                 extra = {"epoch": epoch, "step": self.state.step,
                          "best_dice": self.best_dice}
-                save_pth(self.model,
-                         os.path.join(cfg.run.out_dir, "best_model.pth"),
-                         extra)
-                if self.state.second is not None:
+                if self.rank == 0:
+                    save_pth(self.model,
+                             os.path.join(cfg.run.out_dir, "best_model.pth"),
+                             extra)
+                if self.rank == 0 and self.state.second is not None:
                     save_pth(self.state.second.model,
                              os.path.join(cfg.run.out_dir,
                                           "best_model2.pth"), extra)
@@ -402,21 +487,79 @@ class Trainer:
         return self.best_dice
 
 
-def main(argv=None) -> float:
+def _train(argv, device) -> float:
     cfg, _ = parse_args(argv)
+    trainer = Trainer(cfg, device=device)
+    best = trainer.run(resume=_extra_args(argv).resume)
+    trainer.logger.info(f"done; best val mDice {best:.4f}")
+    return best
+
+
+def _extra_args(argv):
     p = argparse.ArgumentParser()
     p.add_argument("--device", default="cuda")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--num_devices", type=int, default=None)
-    extra, _ = p.parse_known_args(argv)
-    if (extra.num_devices or 1) > 1:
-        raise NotImplementedError(
-            "--num_devices > 1 is not ported yet: ROADMAP.md Queue A, "
-            "'Multi-GPU'")
-    trainer = Trainer(cfg, device=extra.device)
-    best = trainer.run(resume=extra.resume)
-    trainer.logger.info(f"done; best val mDice {best:.4f}")
-    return best
+    return p.parse_known_args(argv)[0]
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(rank: int, argv, world: int, init_method: str, cuda: bool,
+               results) -> None:
+    """One spawned rank: cuda:rank (NCCL) or the CPU (gloo)."""
+    device = torch.device("cuda", rank) if cuda else torch.device("cpu")
+    mesh.init_group(rank, world, init_method, device)
+    try:
+        best = _train(argv, device)
+        if rank == 0:
+            results.put(best)
+    finally:
+        dist.destroy_process_group()
+
+
+def main(argv=None) -> float:
+    """Train as the flags say: one process, or --num_devices ranks spawned
+    here, or this process's rank under a launcher (the module
+    docstring)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    cfg, _ = parse_args(argv)
+    extra = _extra_args(argv)
+    cuda = torch.device(extra.device).type == "cuda"
+    if mesh.launched():
+        _, world, local = mesh.distributed_init(device=extra.device)
+        try:
+            if extra.num_devices and extra.num_devices != world:
+                raise ValueError(
+                    f"--num_devices {extra.num_devices}, but the launcher "
+                    f"started {world} ranks")
+            return _train(argv, torch.device("cuda", local) if cuda
+                          else "cpu")
+        finally:
+            dist.destroy_process_group()
+    asked = extra.num_devices or 1
+    if cuda and asked > 1 and asked > torch.cuda.device_count():
+        raise RuntimeError(
+            f"--num_devices {asked} asks for more ranks than the "
+            f"{torch.cuda.device_count()} visible GPUs; one rank a GPU "
+            "(no fallback to gloo, a shared card or the CPU)")
+    n = mesh.data_ranks(cfg.data.batch_size, asked)
+    if n != asked:
+        logging.getLogger("uaps").warning(
+            "--num_devices %d: %d ranks train (the largest divisor of "
+            "batch_size %d)", asked, n, cfg.data.batch_size)
+    if n == 1:
+        return _train(argv, extra.device)
+    ctx = torch.multiprocessing.get_context("spawn")
+    results = ctx.SimpleQueue()
+    torch.multiprocessing.spawn(
+        _rank_main, args=(argv, n, f"tcp://localhost:{_free_port()}", cuda,
+                          results), nprocs=n)
+    return results.get()
 
 
 if __name__ == "__main__":

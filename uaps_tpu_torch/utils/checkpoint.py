@@ -17,7 +17,10 @@ is Orbax's with `best_fn = val_mdice`, `best_mode = "max"` and
 `max_to_keep = keep` (its `BestN` policy): once more than `keep` steps
 exist, the `keep` with the largest val_mdice stay (ties: the later step)
 and the others go, the newest included if it ranks below them all.
-Saves are synchronous, so `wait` and `close` have nothing to do.
+Saves are synchronous, so `wait` and `close` have nothing to do. On ranks
+(`group`: a torch.distributed process group, parallel/) rank 0 alone
+writes and prunes, and every rank waits at a barrier after a save; every
+rank restores the same step directory.
 
 `state_tensors` flattens what a run carries into that dict: the model's
 parameters and BN buffers, Adam's moments, step and lr, the device step
@@ -35,15 +38,18 @@ import shutil
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 STATE_FILE, HOST_FILE, METRICS_FILE = "state.pt", "host.json", "metrics.json"
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, keep: int = 2):
+    def __init__(self, directory: str, keep: int = 2, group=None):
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.keep = keep
+        self.group = group
+        self.writer = group is None or dist.get_rank(group) == 0
 
     def _path(self, step: int) -> str:
         return os.path.join(self.directory, str(step))
@@ -65,6 +71,13 @@ class CheckpointManager:
     def save(self, step: int, state: Dict[str, torch.Tensor],
              host_state: Optional[dict] = None,
              metrics: Optional[dict] = None) -> None:
+        if self.writer:
+            self._write(step, state, host_state, metrics)
+        if self.group is not None:
+            dist.barrier(group=self.group)
+
+    def _write(self, step: int, state: Dict[str, torch.Tensor],
+               host_state: Optional[dict], metrics: Optional[dict]) -> None:
         final = self._path(step)
         if os.path.exists(final):
             raise FileExistsError(f"checkpoint step {step} exists in "

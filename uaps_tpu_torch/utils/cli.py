@@ -57,6 +57,12 @@ def parse_args(argv=None):
     p.add_argument("--debug_nans", action="store_true",
                    help="single eager steps that raise FloatingPointError "
                         "at the first NaN (train.py)")
+    p.add_argument("--shard_map", action="store_true",
+                   help="force shard_map mode on several ranks (default: "
+                        "auto, shard_map whenever there is more than one)")
+    p.add_argument("--gspmd", action="store_true",
+                   help="force GSPMD mode: sync BN and the losses over the "
+                        "global batch, plain convs (conv_backend='xla')")
     args, _ = p.parse_known_args(argv)
 
     if args.preset in ("synthetic", "neu"):
@@ -94,6 +100,8 @@ def parse_args(argv=None):
                 early_stop_patience=args.early_stop_patience,
                 steps_per_dispatch=args.steps_per_dispatch,
                 device_pools=args.device_pools or None,
-                debug_nans=args.debug_nans or None),
+                debug_nans=args.debug_nans or None,
+                use_shard_map=(True if args.shard_map
+                               else (False if args.gspmd else None))),
     )
     return cfg, args
